@@ -1,0 +1,18 @@
+"""pathway_tpu_torch — the PyTorch/CUDA port of ``pathway_tpu``.
+
+The streaming embed-and-retrieve path: text → sentence encoder (with a
+hand-written CUDA encoder-attention kernel) → L2-normalised vectors → a
+device-resident brute-force index → masked top-k.  Entry points run on the
+first CUDA device unless the caller passes ``device=`` (``"cpu"`` runs the
+kernels' plain PyTorch versions).  The port imports nothing of JAX or of
+``pathway_tpu``.
+"""
+
+from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.models.encoder import SentenceEncoder
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
+    BruteForceKnnIndex,
+    DistanceMetric,
+)
+
+__all__ = ["BruteForceKnnIndex", "DistanceMetric", "SentenceEncoder", "resolve_device"]

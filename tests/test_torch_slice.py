@@ -1,0 +1,187 @@
+"""The whole slice: texts → sentence encoder → brute-force index → top-k,
+through the JAX package and through the port on the CPU, with the JAX
+encoder's weights carried across.  A ``config.json`` directory gives both
+packages the small shape (2 layers, H=128, 4 heads, ffn 512, vocab 1000).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+from pathway_tpu.models.encoder import SentenceEncoder as JaxEncoder  # noqa: E402
+from pathway_tpu.stdlib.indexing import nearest_neighbors as jnn  # noqa: E402
+
+import pathway_tpu_torch as pt  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = {
+    "vocab_size": 1000,
+    "hidden_size": 128,
+    "num_hidden_layers": 2,
+    "num_attention_heads": 4,
+    "intermediate_size": 512,
+    "max_position_embeddings": 128,
+}
+N_CLUSTERS = 60
+TRUNCATIONS = (3, 7, 12, 18)  # words cut off the end of a 30-word base text
+K = 3
+
+
+def _corpus(seed=0):
+    """300 documents (above the 256-row threshold: the device top-k path)
+    in clusters: a 30-word base text and its truncations.  A base text's
+    nearest neighbours are then itself and its two mildest truncations, in
+    that order, with score gaps (about 1e-2 at this seed) well above the
+    bf16 rounding noise between the two packages (below 1e-3).  Unrelated
+    texts under random weights often score closer together than that
+    noise, and their order would be decided by it."""
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    words = ["".join(rng.choice(letters, size=int(m))) for m in rng.integers(3, 9, size=2000)]
+    docs = []
+    for _ in range(N_CLUSTERS):
+        base = [str(w) for w in rng.choice(words, size=30)]
+        docs.append(" ".join(base))
+        docs.extend(" ".join(base[: 30 - m]) for m in TRUNCATIONS)
+    return docs
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("small_encoder")
+    (d / "config.json").write_text(json.dumps(SMALL))
+    return str(d)
+
+
+@pytest.fixture(scope="module")
+def encoders(model_dir):
+    # no HF checkpoint or tokenizer lookup (the card has no transformers
+    # either): both sides use the hashing tokenizer and seeded weights
+    saved = sys.modules.get("transformers", "absent")
+    sys.modules["transformers"] = None
+    try:
+        jenc = JaxEncoder(model_dir)
+        tenc = pt.SentenceEncoder(model_dir, device="cpu")
+    finally:
+        if saved == "absent":
+            del sys.modules["transformers"]
+        else:
+            sys.modules["transformers"] = saved
+    tenc.set_params(jax.device_get(jenc.params))
+    return jenc, tenc
+
+
+@pytest.fixture(scope="module")
+def slice_results(encoders):
+    jenc, tenc = encoders
+    docs = _corpus()
+    bases = np.arange(0, len(docs), 1 + len(TRUNCATIONS))
+    queries = [docs[i] for i in bases]
+    out = {}
+    for name, enc, index in (
+        ("jax", jenc, jnn.BruteForceKnnIndex(jnn.DistanceMetric.COS)),
+        ("port", tenc, pt.BruteForceKnnIndex(pt.DistanceMetric.COS, device="cpu")),
+    ):
+        embs = enc.encode(docs)
+        for i, vec in enumerate(embs):
+            index.add(i, vec)
+        q = enc.encode(queries)
+        out[name] = (embs, q, index.search_many([(v, K, None) for v in q]))
+    return bases, out
+
+
+def _cos_rows(a, b):
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def test_embeddings_agree(slice_results):
+    _, out = slice_results
+    (je, jq, _), (te, tq, _) = out["jax"], out["port"]
+    assert te.shape == je.shape == (N_CLUSTERS * (1 + len(TRUNCATIONS)), SMALL["hidden_size"])
+    assert te.dtype == np.float32
+    assert np.isfinite(te).all()
+    np.testing.assert_allclose(np.linalg.norm(te, axis=1), 1.0, atol=1e-5)
+    assert _cos_rows(te, je).min() > 0.999
+    assert _cos_rows(tq, jq).min() > 0.999
+
+
+def test_top_k_agrees(slice_results):
+    bases, out = slice_results
+    jhits, thits = out["jax"][2], out["port"][2]
+    for row, (j, t) in enumerate(zip(jhits, thits)):
+        assert [key for key, _ in t] == [key for key, _ in j], row
+        np.testing.assert_allclose([s for _, s in t], [s for _, s in j], atol=1e-3, rtol=0)
+    # each base text finds itself, then its two mildest truncations
+    for base, hits in zip(bases, thits):
+        assert [key for key, _ in hits] == [base, base + 1, base + 2]
+
+
+def test_encoder_surface(encoders):
+    _, tenc = encoders
+    assert tenc.dimensions == SMALL["hidden_size"]
+    one = tenc.encode_one("streaming dataflow")
+    np.testing.assert_allclose(one, tenc.encode(["streaming dataflow"])[0], atol=1e-6)
+    assert tenc.encode([]).shape == (0,)
+    before = tenc.forward_batches
+    tenc.encode(["x"] * 3)
+    assert tenc.forward_batches == before + 1
+
+
+def test_device_default_raises_without_cuda(model_dir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.SentenceEncoder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.BruteForceKnnIndex(pt.DistanceMetric.COS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.resolve_device(None)
+    assert pt.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_imports_nothing_of_jax(model_dir):
+    """In a fresh interpreter that cannot import jax, flax, pathway_tpu (or
+    transformers, which the card lacks), the port imports and runs the
+    slice on the CPU."""
+    script = textwrap.dedent(
+        f"""
+        import importlib.abc, sys
+
+        BLOCKED = ("jax", "jaxlib", "flax", "pathway_tpu", "transformers")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"blocked: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import pathway_tpu_torch as pt
+
+        enc = pt.SentenceEncoder({model_dir!r}, device="cpu")
+        index = pt.BruteForceKnnIndex(pt.DistanceMetric.COS, device="cpu")
+        texts = [f"document {{i}} about topic {{i % 13}} and {{i * 7}}" for i in range(260)]
+        for i, vec in enumerate(enc.encode(texts)):
+            index.add(i, vec)
+        hits = index.search(enc.encode_one(texts[17]), 3)
+        assert hits[0][0] == 17, hits
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not loaded, loaded
+        print("ok")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env, cwd=REPO
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
