@@ -13,10 +13,13 @@ Phases, each on a line of its own; any failure exits non-zero:
    independence pins; times of kernel, plain version and the PyTorch
    library call at the main-path shape (CUDA events);
 4. main path at full all-MiniLM-L6-v2 width (seeded random weights):
-   encode a synthetic corpus (262,144 texts by default), fill a cosine
-   ``BruteForceKnnIndex`` with it, answer 8 ``search_many`` batches of 64
-   re-encoded corpus texts at k=10, and check the answers; the kernels'
-   launch counts are zeroed just before and read just after.
+   encode a synthetic corpus (262,144 texts by default) in length-sorted
+   batches, time one arrival-order pass over a part of it, fill a cosine
+   ``BruteForceKnnIndex`` with it, answer one untimed warm-up and 128 timed
+   ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
+   the answers; the kernels' launch counts are zeroed just before and read
+   just after, and every attention shape the run gave the kernel is held
+   against the plain version.
 
 Then one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -85,7 +88,15 @@ REFERENCE_SHAPES = [  # tests/test_attention_kernel.py's shapes
     (3, 64, 384, 12),
 ]
 MAIN_SHAPE = (512, 64, 384, 12)  # all-MiniLM-L6-v2 at max_batch 512, seq bucket 64
-EXTRA_SHAPES = [(16, 512, 384, 12), (2, 128, 768, 12)]
+EXTRA_SHAPES = [
+    (512, 16, 384, 12),  # the main path's corpus batches at seq buckets 16 and 32
+    (512, 32, 384, 12),
+    (64, 16, 384, 12),  # its 64-query batches
+    (64, 32, 384, 12),
+    (64, 64, 384, 12),
+    (16, 512, 384, 12),  # the largest seq bucket
+    (2, 128, 1024, 8),  # hd=128, the widest head the kernel takes
+]
 
 
 def fused_qkv(gen, B, S, H, device):
@@ -103,30 +114,48 @@ def padded_mask(B, S, device):
     return mask
 
 
-def attention_phase(device) -> dict:
+def check_attention_shape(gen, shape, device) -> float:
+    """Kernel against the plain version at ``shape`` = (B, S, H, heads), with
+    q, k, v contiguous and as views of a fused QKV tensor, padded tail keys
+    and an all-padding row; returns the larger max abs err of the two."""
+    from pathway_tpu_torch.ops.attention import (
+        encoder_attention,
+        encoder_attention_reference,
+    )
+
+    B, S, H, heads = shape
+    worst = 0.0
+    for layout in ("contiguous", "fused_qkv"):
+        q, k, v = fused_qkv(gen, B, S, H, device)
+        if layout == "contiguous":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        mask = padded_mask(B, S, device)
+        out = encoder_attention(q, k, v, mask, heads)
+        ref = encoder_attention_reference(q, k, v, mask, heads)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"attention {shape} {layout}: non-finite output")
+        err = (out.float() - ref.float()).abs().max().item()
+        log("kernels", shape=list(shape), layout=layout, max_abs_err=err)
+        if err >= ATTN_TOL:
+            fail(f"attention {shape} {layout}: max abs err {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def attention_phase(device) -> tuple[dict, dict]:
+    """The kernel line's entry for encoder attention, and the max abs err at
+    each shape checked."""
     from pathway_tpu_torch.ops.attention import (
         encoder_attention,
         encoder_attention_reference,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
-    worst = 0.0
-    for B, S, H, heads in REFERENCE_SHAPES + [MAIN_SHAPE] + EXTRA_SHAPES:
-        for layout in ("contiguous", "fused_qkv"):
-            q, k, v = fused_qkv(gen, B, S, H, device)
-            if layout == "contiguous":
-                q, k, v = (t.contiguous() for t in (q, k, v))
-            mask = padded_mask(B, S, device)
-            out = encoder_attention(q, k, v, mask, heads)
-            ref = encoder_attention_reference(q, k, v, mask, heads)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out.float()).all():
-                fail(f"attention {B, S, H, heads} {layout}: non-finite output")
-            err = (out.float() - ref.float()).abs().max().item()
-            log("kernels", shape=[B, S, H, heads], layout=layout, max_abs_err=err)
-            if err >= ATTN_TOL:
-                fail(f"attention {B, S, H, heads} {layout}: max abs err {err}")
-            worst = max(worst, err)
+    checked = {}
+    for shape in REFERENCE_SHAPES + [MAIN_SHAPE] + EXTRA_SHAPES:
+        checked[shape] = check_attention_shape(gen, shape, device)
+    worst = max(checked.values())
 
     # a masked key must not influence any query's context
     B, S, H, heads = 2, 64, 384, 12
@@ -184,7 +213,7 @@ def attention_phase(device) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
         "shape": [B, S, H, heads],
-    }
+    }, checked
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +236,12 @@ def synthetic_corpus(n: int, seed: int) -> tuple[list[str], np.ndarray]:
     return texts, lengths
 
 
-def main_path(device, docs: int, seed: int, model: str = "all-MiniLM-L6-v2",
-              query_batches: int = 8, batch_queries: int = 64, k: int = 10) -> dict:
+def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-MiniLM-L6-v2",
+              query_batches: int = 128, batch_queries: int = 64, k: int = 10,
+              arrival_docs: int = 65536) -> dict:
+    """Drive the main path; ``checked`` maps each attention shape that phase 3
+    held against the plain version to its max abs err, and gains the shapes
+    this run gave the kernel that phase 3 had not checked."""
     import pathway_tpu_torch as pt
     from pathway_tpu_torch.models.encoder import fused_sentence_apply
     from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
@@ -233,8 +266,16 @@ def main_path(device, docs: int, seed: int, model: str = "all-MiniLM-L6-v2",
     enc = pt.SentenceEncoder(model, seed=seed, **kw)
     index = pt.BruteForceKnnIndex(pt.DistanceMetric.COS, **kw)
     order = np.argsort(lengths, kind="stable")  # length-sorted batches: buckets 16/32/64
+    arrival = min(arrival_docs, docs)
+    query_batches = min(query_batches, docs // batch_queries - 1)
     rng = np.random.default_rng(seed + 1)
-    picks = rng.choice(docs, size=(query_batches, batch_queries), replace=False)
+    picks = rng.choice(docs, size=(query_batches + 1, batch_queries), replace=False)
+    cfg = enc.config
+    # every forward's (batch, seq) shape, hence the attention shapes of the run
+    seen = set()
+    enc.model.register_forward_pre_hook(
+        lambda _m, args: seen.add((*args[0].shape, cfg.hidden, cfg.heads))
+    )
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
@@ -249,6 +290,15 @@ def main_path(device, docs: int, seed: int, model: str = "all-MiniLM-L6-v2",
         embs[ids] = enc.encode([texts[i] for i in ids])
     sync()
     encode_s = time.perf_counter() - t0
+    # a stream encodes texts as they arrive: nearly every batch pads to the
+    # longest seq bucket
+    t0 = time.perf_counter()
+    arrival_embs = np.concatenate([
+        enc.encode(texts[start : start + enc.max_batch])
+        for start in range(0, arrival, enc.max_batch)
+    ])
+    sync()
+    arrival_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(docs):
         index.add(i, embs[i])
@@ -256,11 +306,12 @@ def main_path(device, docs: int, seed: int, model: str = "all-MiniLM-L6-v2",
     sync()
     index_s = time.perf_counter() - t0
     latencies, answers, queries = [], [], []
-    for batch in picks:
+    for n, batch in enumerate(picks):
         t0 = time.perf_counter()
         q = enc.encode([texts[i] for i in batch])
         res = index.search_many([(q[j], k, None) for j in range(len(batch))])
-        latencies.append((time.perf_counter() - t0) * 1e3)
+        if n:  # the first batch warms up and is not timed
+            latencies.append((time.perf_counter() - t0) * 1e3)
         answers.append(res)
         queries.append(q)
     launches = {"encoder_attention": encoder_attention.launches}
@@ -272,42 +323,60 @@ def main_path(device, docs: int, seed: int, model: str = "all-MiniLM-L6-v2",
     for n in lengths:
         b = bucket_seq_len(int(n) + 2)
         buckets[b] = buckets.get(b, 0) + 1
-    log("main", step="encode", docs=docs, seconds=encode_s, emb_per_s=docs / encode_s,
-        seq_buckets=buckets, forward_batches=forwards, peak_mem_gb=peak_gb)
+    log("main", step="encode", order="length-sorted", docs=docs, seconds=encode_s,
+        emb_per_s=docs / encode_s, seq_buckets=buckets, forward_batches=forwards,
+        peak_mem_gb=peak_gb)
+    log("main", step="encode", order="arrival", docs=arrival, seconds=arrival_s,
+        emb_per_s=arrival / arrival_s)
     log("main", step="index", rows=docs, seconds=index_s)
-    log("main", step="query", batches=len(latencies), queries_per_batch=batch_queries, k=k,
+    log("main", step="query", batches=len(latencies), warmup_batches=1,
+        queries_per_batch=batch_queries, k=k,
         latency_ms_p50=float(np.percentile(latencies, 50)),
-        latency_ms_p99=float(np.percentile(latencies, 99)), latency_ms=latencies)
+        latency_ms_p99=float(np.percentile(latencies, 99)),
+        latency_ms_max=float(np.max(latencies)))
 
-    if not np.isfinite(embs).all() or embs.shape != (docs, enc.config.hidden):
+    if not np.isfinite(embs).all() or embs.shape != (docs, cfg.hidden):
         fail(f"embeddings: shape {embs.shape} or non-finite values")
     # on the CPU (a rehearsal) the wrapper runs the plain version and counts nothing
-    expected = enc.config.layers * forwards if on_card else 0
+    expected = cfg.layers * forwards if on_card else 0
     if launches["encoder_attention"] != expected:
         fail(f"attention launches {launches['encoder_attention']} != {expected} "
-             f"({enc.config.layers} layers x {forwards} forward batches)")
+             f"({cfg.layers} layers x {forwards} forward batches)")
+    # padding to another seq bucket must not move an embedding
+    arrival_cos = float((arrival_embs * embs[:arrival]).sum(axis=1).min())
+    if arrival_cos <= COS_MIN:
+        fail(f"arrival-order vs length-sorted embeddings: min cosine {arrival_cos}")
 
     # answers against plain f32 scores of the same vectors, on the device
     corpus = torch.from_numpy(embs).to(device)
     corpus = corpus / corpus.norm(dim=1, keepdim=True).clamp_min(1e-12)
     worst_score, self_first = 0.0, 0
     for batch, q, res in zip(picks, queries, answers):
+        if any(len(hits) != k for hits in res):
+            fail(f"a query of batch {batch[:4]}... got fewer than {k} hits")
         qt = torch.from_numpy(q).to(device)
         qt = qt / qt.norm(dim=1, keepdim=True).clamp_min(1e-12)
-        for j, hits in enumerate(res):
-            if len(hits) != k:
-                fail(f"query {batch[j]}: {len(hits)} hits, expected {k}")
-            ids = torch.tensor([h[0] for h in hits], device=device)
-            plain = (corpus[ids] @ qt[j]).cpu().numpy()
-            got = np.array([h[1] for h in hits])
-            worst_score = max(worst_score, float(np.abs(got - plain).max()))
-            own = float(corpus[int(batch[j])] @ qt[j])
-            if hits[0][0] == batch[j] or own >= hits[0][1] - SCORE_TOL:
-                self_first += 1
-            else:
-                fail(f"query {batch[j]}: own document scores {own}, top hit {hits[0]}")
+        ids = torch.tensor([[h[0] for h in hits] for hits in res], device=device)
+        got = torch.tensor([[h[1] for h in hits] for hits in res], device=device)
+        plain = torch.einsum("qkd,qd->qk", corpus[ids], qt)
+        worst_score = max(worst_score, (got - plain).abs().max().item())
+        own = (corpus[torch.from_numpy(batch).to(device)] * qt).sum(dim=1)
+        first = ids[:, 0] == torch.from_numpy(batch).to(device)
+        ok = first | (own >= got[:, 0] - SCORE_TOL)
+        self_first += int(ok.sum())
+        if not bool(ok.all()):
+            j = int((~ok).nonzero()[0])
+            fail(f"query {batch[j]}: own document scores {own[j].item()}, top hit {res[j][0]}")
     if worst_score >= SCORE_TOL:
         fail(f"returned scores differ from plain f32 scores by {worst_score}")
+
+    # every attention shape this run gave the kernel, against the plain version
+    if on_card:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for shape in sorted(seen - set(checked)):
+            checked[shape] = check_attention_shape(gen, shape, device)
+    log("main", step="shapes", attention_shapes=sorted(seen),
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen) if sh in checked})
 
     # the kernel path against the plain attention, on the same 64 texts
     sample = [texts[i] for i in picks[0]]
@@ -373,10 +442,11 @@ def main(argv=None) -> int:
             if "ptxas" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    attention = attention_phase(device)
+    attention, checked = attention_phase(device)
     log("kernels", **{k: v for k, v in attention.items() if k != "launches"})
 
-    result = main_path(device, args.docs, args.seed)
+    result = main_path(device, args.docs, args.seed, checked)
+    attention["max_abs_err"] = max(checked.values())
     kernels = [dict(attention, launches=result["launches"][attention["name"]])]
     for kern in kernels:
         if not kern["launches"]:
