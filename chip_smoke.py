@@ -9,17 +9,19 @@ Phases, each on a line of its own; any failure exits non-zero:
    TF32 flags (set off explicitly);
 2. build: every CUDA kernel of the port, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch version on the card, in
-   bf16, at the reference shapes and the main path's, plus the masking and
-   independence pins; times of kernel, plain version and the PyTorch
-   library call at the main-path shape (CUDA events);
+   bf16, at the reference shapes, the main path's and the kernel's edge
+   shapes, plus the masking and independence pins; device-only times of
+   kernel, plain version and the PyTorch library call at every main-path
+   shape (CUDA graphs of many launches, inputs rotated past the L2 cache),
+   and the wrapper's host time per call;
 4. main path at full all-MiniLM-L6-v2 width (seeded random weights):
    encode a synthetic corpus (262,144 texts by default) in length-sorted
    batches, time one arrival-order pass over a part of it, fill a cosine
    ``BruteForceKnnIndex`` with it, answer one untimed warm-up and 128 timed
    ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
    the answers; the kernels' launch counts are zeroed just before and read
-   just after, and every attention shape the run gave the kernel is held
-   against the plain version.
+   just after, every attention shape the run gave the kernel is held
+   against the plain version, and the launches are counted per shape.
 
 Then one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -63,6 +65,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls between
+    two CUDA events: host enqueue time included, for work far longer than
+    its launch (a whole forward)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -74,6 +79,46 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(calls, reps: int = 40, replays: int = 5) -> float:
+    """Device-only ms per call: ``reps`` calls, cycling through ``calls``
+    (one per input copy), captured in one CUDA graph and replayed after a
+    warm-up; the median of ``replays`` replays between CUDA events."""
+    for call in calls:  # warm-up outside the capture: builds, loads, configures
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call of ``fn`` (argument checks, allocation, launch),
+    from the host clock around ``calls`` calls that do not wait for the
+    device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +142,25 @@ EXTRA_SHAPES = [
     (16, 512, 384, 12),  # the largest seq bucket
     (2, 128, 1024, 8),  # hd=128, the widest head the kernel takes
 ]
+EDGE_SHAPES = [  # the edges of the kernel's work plan
+    (4, 1, 384, 12),  # S=1: one real row in a 16-row tile
+    (8, 24, 384, 12),  # S not a multiple of 16: two sequences of 32 rows per item
+    (3, 48, 256, 8),  # 48 rows per item, hd=32, two head groups
+    (3, 100, 384, 12),  # S > 64 and not a multiple of 64: a short last key chunk
+    (1, 64, 384, 12),  # B=1
+    (1, 16, 384, 12),  # B=1 where an item packs four sequences
+    (513, 16, 384, 12),  # B not a multiple of the sequences per item
+    (5, 64, 96, 3),  # H not a multiple of 128: one 96-column group
+    (8, 32, 768, 12),  # hd=64, packed
+    (6, 16, 1024, 8),  # hd=128, packed
+]
+TIMED_SHAPES = [  # the main path's attention shapes (PERF.md section 5)
+    (512, 16, 384, 12),
+    (512, 32, 384, 12),
+    (512, 64, 384, 12),
+    (64, 64, 384, 12),
+]
+L2_BYTES = 50 * 2**20  # H100
 
 
 def fused_qkv(gen, B, S, H, device):
@@ -143,17 +207,59 @@ def check_attention_shape(gen, shape, device) -> float:
     return worst
 
 
-def attention_phase(device) -> tuple[dict, dict]:
-    """The kernel line's entry for encoder attention, and the max abs err at
-    each shape checked."""
+def time_attention_shape(gen, shape, device) -> dict:
+    """Device-only ms of kernel, plain version and ``scaled_dot_product_attention``
+    at ``shape``, on q, k, v as views of fused QKV tensors, with enough
+    input copies in rotation to exceed the L2 cache; the bound from the
+    shape; and the wrapper's host µs per call."""
     from pathway_tpu_torch.ops.attention import (
         encoder_attention,
         encoder_attention_reference,
     )
 
+    B, S, H, heads = shape
+    hd = H // heads
+    operand_bytes = 4 * B * S * H * 2 + B * S * 4  # q, k, v read; ctx written; bias read
+    copies = max(2, -(-2 * L2_BYTES // operand_bytes))
+    inputs = [(*fused_qkv(gen, B, S, H, device), padded_mask(B, S, device)) for _ in range(copies)]
+    sdpa_inputs = [
+        (*(t.reshape(B, S, heads, hd).transpose(1, 2) for t in (q, k, v)),
+         mask.to(torch.bfloat16)[:, None, None, :])
+        for q, k, v, mask in inputs
+    ]
+    kernel = [lambda x=x: encoder_attention(*x, heads) for x in inputs]
+    plain = [lambda x=x: encoder_attention_reference(*x, heads) for x in inputs]
+    library = [
+        lambda x=x: torch.nn.functional.scaled_dot_product_attention(x[0], x[1], x[2], attn_mask=x[3])
+        for x in sdpa_inputs
+    ]
+    t_bytes = operand_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * B * S * S * H / BF16_FLOPS_PER_S * 1e3
+    row = {
+        "shape": list(shape),
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(plain),
+        "library_ms": device_ms(library),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "input_copies": copies,
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    log("kernels", timed=list(shape), **{k: v for k, v in row.items() if k != "shape"})
+    us = host_us(kernel[0])
+    log("kernels", shape=list(shape), wrapper_host_us_per_call=us)
+    row["host_us"] = us
+    return row
+
+
+def attention_phase(device) -> tuple[dict, dict, dict]:
+    """The kernel line's entry for encoder attention, the max abs err at
+    each shape checked, and the times at each main-path shape."""
+    from pathway_tpu_torch.ops.attention import encoder_attention
+
     gen = torch.Generator(device=device).manual_seed(0)
     checked = {}
-    for shape in REFERENCE_SHAPES + [MAIN_SHAPE] + EXTRA_SHAPES:
+    for shape in REFERENCE_SHAPES + [MAIN_SHAPE] + EXTRA_SHAPES + EDGE_SHAPES:
         checked[shape] = check_attention_shape(gen, shape, device)
     worst = max(checked.values())
 
@@ -183,22 +289,8 @@ def attention_phase(device) -> tuple[dict, dict]:
     if pin >= PIN_TOL:
         fail(f"sequences leak into each other: {pin}")
 
-    # times at the main-path shape
-    B, S, H, heads = MAIN_SHAPE
-    hd = H // heads
-    q, k, v = fused_qkv(gen, B, S, H, device)
-    mask = padded_mask(B, S, device)
-    kernel_ms = time_ms(lambda: encoder_attention(q, k, v, mask, heads))
-    plain_ms = time_ms(lambda: encoder_attention_reference(q, k, v, mask, heads))
-    q4, k4, v4 = (t.reshape(B, S, heads, hd).transpose(1, 2) for t in (q, k, v))
-    sdpa_mask = mask.to(torch.bfloat16)[:, None, None, :]
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=sdpa_mask)
-    )
-    bytes_moved = 4 * B * S * H * 2 + B * S * 4  # q, k, v read; ctx written; bias read
-    flops = 4 * B * S * S * H
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    timed = {shape: time_attention_shape(gen, shape, device) for shape in TIMED_SHAPES}
+    main = timed[MAIN_SHAPE]
     return {
         "name": "encoder_attention",
         "route": "cuda",
@@ -206,14 +298,14 @@ def attention_phase(device) -> tuple[dict, dict]:
         "replaces": "pathway_tpu/ops/attention.py:259",
         "launches": None,  # filled from the main path's run
         "max_abs_err": worst,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "shape": [B, S, H, heads],
-    }, checked
+        "ms": main["ms"],
+        "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": list(MAIN_SHAPE),
+    }, checked, timed
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +333,8 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
               arrival_docs: int = 65536) -> dict:
     """Drive the main path; ``checked`` maps each attention shape that phase 3
     held against the plain version to its max abs err, and gains the shapes
-    this run gave the kernel that phase 3 had not checked."""
+    this run gave the kernel that phase 3 had not checked.  Returns the
+    launches per kernel and, for attention, per shape."""
     import pathway_tpu_torch as pt
     from pathway_tpu_torch.models.encoder import fused_sentence_apply
     from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
@@ -271,11 +364,14 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     rng = np.random.default_rng(seed + 1)
     picks = rng.choice(docs, size=(query_batches + 1, batch_queries), replace=False)
     cfg = enc.config
-    # every forward's (batch, seq) shape, hence the attention shapes of the run
-    seen = set()
-    enc.model.register_forward_pre_hook(
-        lambda _m, args: seen.add((*args[0].shape, cfg.hidden, cfg.heads))
-    )
+    # forwards per (batch, seq) shape, hence the attention launches per shape
+    seen: dict[tuple, int] = {}
+
+    def count_forward(_module, args):
+        shape = (*args[0].shape, cfg.hidden, cfg.heads)
+        seen[shape] = seen.get(shape, 0) + 1
+
+    enc.model.register_forward_pre_hook(count_forward)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
@@ -294,7 +390,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     # longest seq bucket
     t0 = time.perf_counter()
     arrival_embs = np.concatenate([
-        enc.encode(texts[start : start + enc.max_batch])
+        enc.encode(texts[start : min(start + enc.max_batch, arrival)])
         for start in range(0, arrival, enc.max_batch)
     ])
     sync()
@@ -316,6 +412,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
         queries.append(q)
     launches = {"encoder_attention": encoder_attention.launches}
     forwards = enc.forward_batches - forwards_before
+    shape_forwards = dict(seen)
     # ---- end of the counted run ----
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
@@ -342,6 +439,10 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     if launches["encoder_attention"] != expected:
         fail(f"attention launches {launches['encoder_attention']} != {expected} "
              f"({cfg.layers} layers x {forwards} forward batches)")
+    by_shape = {sh: cfg.layers * n for sh, n in shape_forwards.items()} if on_card else {}
+    if sum(by_shape.values()) != launches["encoder_attention"]:
+        fail(f"attention launches per shape {by_shape} do not add up to "
+             f"{launches['encoder_attention']}")
     # padding to another seq bucket must not move an embedding
     arrival_cos = float((arrival_embs * embs[:arrival]).sum(axis=1).min())
     if arrival_cos <= COS_MIN:
@@ -373,10 +474,11 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     # every attention shape this run gave the kernel, against the plain version
     if on_card:
         gen = torch.Generator(device=device).manual_seed(seed)
-        for shape in sorted(seen - set(checked)):
+        for shape in sorted(set(shape_forwards) - set(checked)):
             checked[shape] = check_attention_shape(gen, shape, device)
-    log("main", step="shapes", attention_shapes=sorted(seen),
-        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen) if sh in checked})
+    log("main", step="shapes", attention_shapes=sorted(shape_forwards),
+        launches={str(list(sh)): n for sh, n in sorted(by_shape.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(shape_forwards) if sh in checked})
 
     # the kernel path against the plain attention, on the same 64 texts
     sample = [texts[i] for i in picks[0]]
@@ -409,7 +511,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
             step["forward_ms"] = time_ms(lambda: enc.model(ids_t, mask_t), iters=10)
         step["forward_shape"] = list(ids_t.shape)
     log("main", step="breakdown", **step)
-    return {"launches": launches, "emb_per_s": docs / encode_s}
+    return {"launches": launches, "attention_launches": by_shape, "emb_per_s": docs / encode_s}
 
 
 def main(argv=None) -> int:
@@ -439,14 +541,21 @@ def main(argv=None) -> int:
     log("build", seconds=time.perf_counter() - t0, sources=_build.sources())
     for name, text in messages.items():
         for line in text.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    attention, checked = attention_phase(device)
+    attention, checked, timed = attention_phase(device)
     log("kernels", **{k: v for k, v in attention.items() if k != "launches"})
 
     result = main_path(device, args.docs, args.seed, checked)
     attention["max_abs_err"] = max(checked.values())
+    # one row per attention shape of the main path, timed here if phase 3 had not
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    attention["shapes"] = []
+    for shape, n in sorted(result["attention_launches"].items()):
+        if shape not in timed:
+            timed[shape] = time_attention_shape(gen, shape, device)
+        attention["shapes"].append(dict(timed[shape], launches=n, max_abs_err=checked[shape]))
     kernels = [dict(attention, launches=result["launches"][attention["name"]])]
     for kern in kernels:
         if not kern["launches"]:

@@ -6,8 +6,10 @@ Pallas kernel ``_attn_kernel``) and of its plain XLA path
 ``_xla_attention``.  q, k and v stay in the packed ``[B, S, H]`` layout the
 fused QKV projection produces (heads in the last dim); in the trunk they are
 column slices of one ``[B*S, 3H]`` tensor, and the kernel reads them there,
-row stride and all, so no relayout copy is made.  The kernel's source and
-design notes are in ``csrc/encoder_attention.cu``.
+row stride and all, so no relayout copy is made.  :func:`plan` cuts a call
+into the kernel's work items (head groups of 128 columns by up to 64 rows,
+short sequences packed); the kernel's source and design notes are in
+``csrc/encoder_attention.cu``.
 
 On a CPU tensor :func:`encoder_attention` runs the plain version; on a CUDA
 tensor it launches the kernel or raises — it never falls back.  The paged
@@ -17,6 +19,8 @@ decoder ops of the JAX module wait for the decoder slice of the port.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,26 +53,73 @@ def encoder_attention_reference(q, k, v, mask_bias, heads: int):
     return ctx.transpose(1, 2).reshape(B, S, H)
 
 
+GROUP_COLS = 128  # columns per work item: one head group, the TPU kernel's LANE_GROUP
+TILE_ROWS = 64  # query rows per work item, and keys per chunk
+MMA_ROWS = 16  # height of one tensor-core tile
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts one call into work items.
+
+    Item ``it`` covers head group ``g = it % groups`` (columns ``[128*g,
+    min(128*(g+1), H))``), query tile ``c = (it // groups) % chunks`` (rows
+    ``[seq_rows*c, seq_rows*(c+1))`` of each sequence) and the ``seqs``
+    sequences from ``(it // groups // chunks) * seqs`` on.  For S <= 64 a
+    sequence takes ``seq_rows`` = S rounded up to 16 rows and an item packs
+    ``64 // seq_rows`` of them; for S > 64 an item is 64 query rows of one
+    sequence, and ``chunks`` is also the number of 64-key chunks it walks.
+    The kernel takes these numbers as they are and decodes ``it`` the same
+    way (``Plan`` in ``csrc/encoder_attention.cu``).
+    """
+
+    seq_rows: int
+    seqs: int
+    chunks: int
+    groups: int
+    items: int
+
+
+def plan(B: int, S: int, H: int) -> Plan:
+    """The work items of one call on ``[B, S, H]`` operands."""
+    if S <= TILE_ROWS:
+        seq_rows = -(-S // MMA_ROWS) * MMA_ROWS
+        seqs = TILE_ROWS // seq_rows
+    else:
+        seq_rows, seqs = TILE_ROWS, 1
+    chunks = -(-S // seq_rows)
+    groups = -(-H // GROUP_COLS)
+    return Plan(seq_rows, seqs, chunks, groups, -(-B // seqs) * chunks * groups)
+
+
 def _kernel():
     lib = _build.load("encoder_attention")
     fn = lib.encoder_attention_bf16
     if not fn.argtypes:
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [ptr] * 5 + [ctypes.c_int] * 4 + [i64] * 6 + [ctypes.c_float, ptr]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ptr] * 5 + [i32] * 4 + [i64] * 6 + [i32] * 6 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    """SMs of card ``index``: the persistent grid has one CTA on each."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _row_strides(t: torch.Tensor, name: str, B: int, S: int, H: int) -> tuple[int, int]:
-    """(batch stride, row stride) of a ``[B, S, H]`` operand the kernel can
-    read in place: unit column stride and 4-byte aligned bf16 pairs."""
+    """(batch stride, row stride) of a ``[B, S, H]`` bf16 operand the kernel
+    can read in place through a TMA tensor map: unit column stride, a
+    16-byte aligned base, and row and batch strides of whole 16 bytes (8
+    elements)."""
     if tuple(t.shape) != (B, S, H):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, S, H)}")
     sb, ss, sc = t.stride()
-    if sc != 1 or sb % 2 or ss % 2 or t.data_ptr() % 4:
+    if sc != 1 or sb % 8 or ss % 8 or t.data_ptr() % 16:
         raise ValueError(
-            f"{name} needs a unit column stride and even row strides on a "
-            f"4-byte aligned base (got strides {t.stride()})"
+            f"{name} needs a unit column stride and row and batch strides of a "
+            f"multiple of 8 elements on a 16-byte aligned base (got strides "
+            f"{t.stride()}, base {t.data_ptr()} mod 16 = {t.data_ptr() % 16})"
         )
     return sb, ss
 
@@ -78,7 +129,9 @@ def encoder_attention(q, k, v, mask_bias, heads: int):
 
     Args:
       q, k, v: ``[B, S, H]`` (heads packed in the last dim, ``H = heads*hd``);
-        on CUDA bf16 with a unit column stride (any row stride).
+        on CUDA bf16 with a unit column stride, row and batch strides of a
+        multiple of 8 elements and a 16-byte aligned base (as column views
+        of the fused ``[B*S, 3H]`` QKV output are).
       mask_bias: ``[B, S]`` additive key bias (0 for valid, ``-1e9`` for pad).
       heads: number of attention heads.
     Returns:
@@ -106,6 +159,7 @@ def encoder_attention(q, k, v, mask_bias, heads: int):
     bias = mask_bias.to(torch.float32).contiguous()
     out = torch.empty((B, S, H), dtype=torch.bfloat16, device=q.device)
     hd = H // heads
+    p = plan(B, S, H)
     rc = _kernel()(
         q.data_ptr(),
         k.data_ptr(),
@@ -114,12 +168,16 @@ def encoder_attention(q, k, v, mask_bias, heads: int):
         out.data_ptr(),
         B,
         S,
-        heads,
+        H,
         hd,
         *strides,
+        *p,
+        min(p.items, _sm_count(q.get_device())),
         1.0 / (hd**0.5),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if rc < 0:
+        raise RuntimeError(f"encoder_attention: cannot encode a TMA tensor map: CUresult {-rc}")
     if rc:
         raise RuntimeError(f"encoder_attention kernel launch failed: CUDA error {rc}")
     encoder_attention.launches += 1

@@ -168,3 +168,109 @@ def test_launch_counter_is_a_plain_integer_untouched_on_cpu():
     rng = np.random.default_rng(6)
     _port(*_qkv(rng, 1, 16, 128), np.zeros((1, 16), np.float32), 4)
     assert tattn.encoder_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrapper's own arithmetic: the work plan and the layout checks.
+# ---------------------------------------------------------------------------
+
+
+def work_items(B, S, H, plan):
+    """Each item's (sequences, query rows, columns) as ranges, decoded as
+    ``Plan``'s docstring and the kernel decode them, clipped to the operands
+    as the kernel's loads and stores are."""
+    for it in range(plan.items):
+        g, rest = it % plan.groups, it // plan.groups
+        q0 = (rest % plan.chunks) * plan.seq_rows
+        b0 = (rest // plan.chunks) * plan.seqs
+        yield (
+            range(b0, min(b0 + plan.seqs, B)),
+            range(q0, min(q0 + plan.seq_rows, S)),
+            range(g * tattn.GROUP_COLS, min((g + 1) * tattn.GROUP_COLS, H)),
+        )
+
+PLAN_GRID = [
+    (B, S, H, heads)
+    for B in (1, 3, 512, 513)
+    for S in (1, 16, 24, 32, 48, 64, 65, 100, 512)
+    for H, heads in ((384, 12), (768, 12), (1024, 8), (96, 3), (64, 1))
+]
+
+
+@pytest.mark.parametrize("B,S,H,heads", PLAN_GRID)
+def test_plan_covers_every_row_and_head_once(B, S, H, heads):
+    plan = tattn.plan(B, S, H)
+    hd = H // heads
+    seen = np.zeros((B, S, heads), np.int64)
+    n = 0
+    for seqs, rows, cols in work_items(B, S, H, plan):
+        n += 1
+        assert len(cols) % hd == 0 and cols.start % hd == 0  # whole heads only
+        heads_of = slice(cols.start // hd, cols.stop // hd)
+        for b in seqs:
+            seen[b, rows.start : rows.stop, heads_of] += 1
+    assert n == plan.items
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize(
+    "S,seq_rows,seqs,chunks",
+    [
+        (1, 16, 4, 1),
+        (16, 16, 4, 1),  # the main path's bucket 16: four sequences per item
+        (24, 32, 2, 1),
+        (32, 32, 2, 1),  # bucket 32: two per item
+        (33, 48, 1, 1),
+        (64, 64, 1, 1),
+        (65, 64, 1, 2),  # past 64: query tiles of 64 rows, keys in chunks of 64
+        (512, 64, 1, 8),
+    ],
+)
+def test_plan_packs_short_sequences(S, seq_rows, seqs, chunks):
+    plan = tattn.plan(7, S, 384)
+    assert (plan.seq_rows, plan.seqs, plan.chunks) == (seq_rows, seqs, chunks)
+    assert plan.seq_rows % tattn.MMA_ROWS == 0
+    assert plan.seq_rows * plan.seqs <= tattn.TILE_ROWS
+    assert plan.items == -(-7 // seqs) * chunks * 3
+
+
+@pytest.mark.parametrize(
+    "H,widths",
+    [(384, [128, 128, 128]), (768, [128] * 6), (96, [96]), (320, [128, 128, 64]), (64, [64])],
+)
+def test_head_groups_are_128_columns_with_a_narrower_last(H, widths):
+    plan = tattn.plan(1, 64, H)
+    assert [len(cols) for _, _, cols in work_items(1, 64, H, plan)] == widths
+
+
+def test_fused_qkv_views_pass_the_layout_check():
+    B, S, H = 3, 24, 384
+    qkv = torch.zeros((B * S, 3 * H), dtype=torch.bfloat16)
+    for i in range(3):
+        view = qkv[:, i * H : (i + 1) * H].reshape(B, S, H)
+        assert tattn._row_strides(view, "q", B, S, H) == (S * 3 * H, 3 * H)
+    dense = torch.zeros((B, S, H), dtype=torch.bfloat16)
+    assert tattn._row_strides(dense, "q", B, S, H) == (S * H, H)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        # a base 2 bytes past a 16-byte boundary
+        lambda: torch.zeros(2 * 16 * 384 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 384),
+        # a row stride of 388 elements (776 bytes, not whole 16 bytes)
+        lambda: torch.zeros((2, 16, 388), dtype=torch.bfloat16)[:, :, :384],
+        # a column stride of 2
+        lambda: torch.zeros((2, 16, 768), dtype=torch.bfloat16)[:, :, ::2],
+    ],
+    ids=["misaligned_base", "row_stride", "column_stride"],
+)
+def test_layouts_tma_cannot_read_raise(make):
+    t = make()
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        tattn._row_strides(t, "q", 2, 16, 384)
+
+
+def test_wrong_shape_raises():
+    with pytest.raises(ValueError, match="expected"):
+        tattn._row_strides(torch.zeros((2, 16, 384), dtype=torch.bfloat16), "k", 2, 32, 384)
