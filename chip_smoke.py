@@ -21,7 +21,18 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
    the answers; the kernels' launch counts are zeroed just before and read
    just after, every attention shape the run gave the kernel is held
-   against the plain version, and the launches are counted per shape.
+   against the plain version, and the launches are counted per shape;
+5. generate: decoder generation at full mistral-7b-instruct width (seeded
+   random bf16 weights): a burst of 32 requests (prompts of 64-896 token
+   ids, 128 new tokens, 24 greedy and 8 at temperature 0.7 / top-p 0.9)
+   through ``GenerationScheduler`` at the repo's defaults, with tokens/s,
+   TTFT and latency; every greedy row held to the dense
+   ``DecoderLM.generate_ids`` (parting only at a near-tie), the paged
+   path's teacher-forced logits held to the dense path's over 128 steps,
+   every sampled token held to its top-p support; then device (CUDA
+   graphs) and host ms of a decode tick and a prefill chunk at 8 slots,
+   paged attention beside its bound and SDPA, and each op of the decode
+   step.
 
 Then one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -514,6 +525,366 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     return {"launches": launches, "attention_launches": by_shape, "emb_per_s": docs / encode_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: decoder generation, dense DecoderLM and the continuous scheduler.
+# ---------------------------------------------------------------------------
+
+GEN_MODEL = "mistral-7b-instruct"
+GEN_WIDTHS = dict(layers=32, hidden=4096, heads=32, kv_heads=8, intermediate=14336, vocab_size=32000)
+GEN_CACHE = 1024
+GEN_REQUESTS = 32
+GEN_SAMPLED = 8
+GEN_NEW_TOKENS = 128  # JaxChat's default
+GEN_PROMPT_LENS = (64, 896)
+GEN_TEMP, GEN_TOP_P = 0.7, 0.9
+GEN_REF_BATCH = 8  # dense reference batch: bounds its [B, heads, S, C] f32 scores
+GEN_LOGIT_ROWS = 4
+
+
+def near_tie_tol(logits):
+    """0.05·(max|logit|+1) per row: the relative form of the JAX package's
+    cross-encoder pin (tests/test_attention_kernel.py:135)."""
+    return 0.05 * (logits.abs().amax(dim=-1) + 1.0)
+
+
+def eager_ms(fn, iters: int = 10) -> float:
+    """Host-clock ms per eager call that ends in a synchronize: what one
+    call costs the calling thread, launches and waiting included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def dense_step_logits(lm, prompts, tokens, steps):
+    """Dense-path logits ``[B, steps, V]`` of ``prompts`` fed ``tokens``
+    (teacher forcing): step t's logits are the ones token t is chosen
+    from.  Rows shorter than ``steps`` are fed 0s past their end."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    B, dev = len(prompts), lm.device
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    S = dec._bucket_prompt_len(int(lens.max()), lm.max_cache)
+    ids = torch.zeros((B, S), dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        ids[i, : len(p)] = torch.tensor(p, device=dev)
+    feed = torch.zeros((B, steps), dtype=torch.int64, device=dev)
+    for i, t in enumerate(tokens):
+        feed[i, : min(len(t), steps)] = torch.tensor(t[:steps], dtype=torch.int64, device=dev)
+    logits, kc, vc = dec.prefill(lm.params, ids, lens, lm.config, lm.max_cache)
+    out = [logits]
+    for t in range(steps - 1):
+        logits, kc, vc = dec.decode_step(lm.params, kc, vc, feed[:, t], lens + t, lm.config)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def paged_step_logits(lm, prompts, tokens, steps):
+    """The same teacher-forced logits through the paged path: chunked
+    ``paged_prefill_chunk`` then ``paged_decode_step``, on a fresh pool,
+    at the scheduler's default chunk and page sizes."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    B, dev, cfg = len(prompts), lm.device, lm.config
+    chunk, page = 32, 16
+    G = lm.max_cache // page
+    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + B * G, page, dev)
+    bt = (1 + torch.arange(B * G, device=dev)).reshape(B, G)
+    lens = [len(p) for p in prompts]
+    done = [0] * B
+    logits = torch.zeros((B, cfg.vocab_size), device=dev)
+    while any(d < n for d, n in zip(done, lens)):
+        ids = torch.zeros((B, chunk), dtype=torch.int64, device=dev)
+        clens, starts, take = [0] * B, list(done), [False] * B
+        for i, p in enumerate(prompts):
+            n = min(chunk, lens[i] - done[i])
+            if n > 0:
+                ids[i, :n] = torch.tensor(p[done[i]:done[i] + n], device=dev)
+                clens[i], take[i] = n, done[i] + n >= lens[i]
+        new, k_pool, v_pool = dec.paged_prefill_chunk(
+            lm.params, k_pool, v_pool, bt, ids, torch.tensor(clens, device=dev),
+            torch.tensor(starts, device=dev), cfg)
+        logits = torch.where(torch.tensor(take, device=dev)[:, None], new, logits)
+        done = [d + c for d, c in zip(done, clens)]
+    feed = torch.zeros((B, steps), dtype=torch.int64, device=dev)
+    for i, t in enumerate(tokens):
+        feed[i, : min(len(t), steps)] = torch.tensor(t[:steps], dtype=torch.int64, device=dev)
+    seq = torch.tensor(lens, device=dev)
+    out = [logits]
+    for t in range(steps - 1):
+        logits, k_pool, v_pool = dec.paged_decode_step(lm.params, k_pool, v_pool, bt, seq + t, feed[:, t], cfg)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def generate_phase(device, seed: int, card: str) -> dict:
+    """Drive the generation path at full mistral-7b-instruct width through
+    its entry points, check it against the dense path, and time its parts."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.ops import attention as attn
+    from pathway_tpu_torch.serving.generation import GenerationScheduler
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE)  # on cuda:0 by default
+    torch.cuda.synchronize()
+    cfg = lm.config
+    widths = {k: getattr(cfg, k) for k in GEN_WIDTHS}
+    weight_bytes = tensor_bytes(lm.params)
+    log("generate", step="model", model=GEN_MODEL, **widths, sliding_window=cfg.sliding_window,
+        dtype=str(cfg.dtype), n_params=lm.n_params(), weights_gb=weight_bytes / 1e9,
+        init_s=time.perf_counter() - t0, device=str(lm.device))
+    if widths != GEN_WIDTHS:
+        fail(f"decoder widths {widths} are not mistral-7b-instruct's {GEN_WIDTHS}")
+
+    rng = np.random.default_rng(seed + 3)
+    lengths = rng.integers(GEN_PROMPT_LENS[0], GEN_PROMPT_LENS[1] + 1, size=GEN_REQUESTS)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist() for n in lengths]
+    sampled = sorted(rng.choice(GEN_REQUESTS, size=GEN_SAMPLED, replace=False).tolist())
+    greedy = [i for i in range(GEN_REQUESTS) if i not in sampled]
+    sched = GenerationScheduler(lm, seed=seed)  # the repo's defaults
+    log("generate", step="scheduler", slots=sched.slots, page_size=sched.page_size,
+        pages=sched.num_pages, prefill_chunk=sched.prefill_chunk, queue_limit=sched.queue_limit,
+        pool_gb=2 * sched._k_pool.numel() * sched._k_pool.element_size() / 1e9,
+        dense_kv_gb=sched.dense_kv_bytes / 1e9, requests=GEN_REQUESTS, sampled=sampled,
+        prompt_len_min=int(lengths.min()), prompt_len_max=int(lengths.max()),
+        prompt_len_mean=float(lengths.mean()))
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    attn.encoder_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs = [
+        sched.submit_request(p, max_new_tokens=GEN_NEW_TOKENS,
+                             **({"temperature": GEN_TEMP, "top_p": GEN_TOP_P} if i in sampled else {}))
+        for i, p in enumerate(prompts)
+    ]
+    outs = [r.future.result(timeout=600) for r in reqs]  # raises if a request failed
+    burst_s = time.perf_counter() - t0
+    launches = {"encoder_attention": attn.encoder_attention.launches}
+    # ---- end of the counted run ----
+    snap = sched.snapshot()
+    sched.shutdown()
+    tokens = sum(len(o) for o in outs)
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    latency = [(r.finished_at - r.submitted_at) * 1e3 for r in reqs]
+    burst = {
+        "tokens": tokens, "seconds": burst_s, "tokens_per_s": tokens / burst_s,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)), "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "latency_ms_p50": float(np.percentile(latency, 50)),
+        "latency_ms_p99": float(np.percentile(latency, 99)),
+        "decode_ticks": snap["decode_steps"], "prefill_chunks": snap["prefill_chunks"],
+        "ms_per_tick": burst_s * 1e3 / snap["decode_steps"],
+        "kv_peak_gb": snap["kv_bytes_peak"] / 1e9, "kv_dense_gb": snap["kv_bytes_dense"] / 1e9,
+    }
+    log("generate", step="burst", **burst, kernel_launches=launches, snapshot=snap)
+    if snap["pages_used"] or snap["pages_reserved"]:
+        fail(f"pages left after the burst: {snap['pages_used']} used, {snap['pages_reserved']} reserved")
+    if not 0 < snap["kv_bytes_peak"] < snap["kv_bytes_dense"]:
+        fail(f"peak KV {snap['kv_bytes_peak']} not in (0, dense {snap['kv_bytes_dense']})")
+    if snap["requests"] != GEN_REQUESTS or any(r.finished_at is None for r in reqs):
+        fail("not every request was served")
+
+    with torch.inference_mode():
+        # greedy rows against the dense DecoderLM.generate_ids, in batches
+        dense = {}
+        for b in range(0, len(greedy), GEN_REF_BATCH):
+            rows = greedy[b : b + GEN_REF_BATCH]
+            for i, o in zip(rows, lm.generate_ids([prompts[i] for i in rows], max_new_tokens=GEN_NEW_TOKENS)):
+                dense[i] = o
+        parted, same = [], 0
+        for i in greedy:
+            a, b = outs[i], dense[i]
+            if a == b:
+                same += 1
+                continue
+            t = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
+            # the dense path's logits at step t: prefill over prompt + b[:t]
+            seq = torch.tensor([prompts[i] + b[:t]], device=device)
+            lg = dec.prefill(lm.params, seq, torch.tensor([seq.shape[1]], device=device), cfg,
+                             seq.shape[1])[0][0]
+            top2 = lg.topk(2).values
+            gap, tol = float(top2[0] - top2[1]), float(near_tie_tol(lg))
+            parted.append({"row": i, "step": t, "gap": gap, "tol": tol})
+            if gap >= tol:
+                fail(f"greedy row {i} parted from the dense path at step {t}, top-2 gap {gap} >= {tol}")
+        log("generate", step="check_greedy", rows=len(greedy), identical=same, parted=len(parted),
+            parted_rows=parted)
+
+        # logits of the paged path against the dense path, teacher-forced
+        rows = greedy[:GEN_LOGIT_ROWS]
+        feed = [dense[i] for i in rows]
+        d = dense_step_logits(lm, [prompts[i] for i in rows], feed, GEN_NEW_TOKENS)
+        p = paged_step_logits(lm, [prompts[i] for i in rows], feed, GEN_NEW_TOKENS)
+        err = (p - d).abs().amax(dim=-1)  # [rows, steps]
+        tol = near_tie_tol(d)
+        live = torch.arange(GEN_NEW_TOKENS, device=device)[None, :] < torch.tensor(
+            [max(len(f), 1) for f in feed], device=device)[:, None]
+        ratio = float(torch.where(live, err / tol, 0.0).max())
+        log("generate", step="check_logits", rows=rows, steps=GEN_NEW_TOKENS,
+            max_abs_err=float(torch.where(live, err, 0.0).max()), min_tol=float(tol.min()),
+            worst_err_over_tol=ratio)
+        if not bool(torch.isfinite(p).all()) or ratio >= 1.0:
+            fail(f"paged logits left the dense path's bound: err/tol {ratio}")
+
+        # each sampled token lies in the support its filters leave
+        feed = [outs[i] for i in sampled]
+        lg = dense_step_logits(lm, [prompts[i] for i in sampled], feed, GEN_NEW_TOKENS)
+        kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
+        kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
+        tok = torch.zeros(lg.shape[:2], dtype=torch.int64, device=device)
+        live = torch.zeros(lg.shape[:2], dtype=torch.bool, device=device)
+        for r, o in enumerate(feed):
+            tok[r, : len(o)] = torch.tensor(o, device=device)
+            live[r, : len(o)] = True
+        chosen = lg.gather(-1, tok[..., None])[..., 0]
+        inside = kept.gather(-1, tok[..., None])[..., 0] & live
+        near = (chosen >= kept_min - near_tie_tol(lg)) & live
+        log("generate", step="check_sampled", rows=sampled, tokens=int(live.sum()),
+            in_support=int(inside.sum()), within_tol_of_support=int(near.sum()),
+            mean_support_size=float(kept.sum(-1).float()[live].mean()))
+        if int(near.sum()) != int(live.sum()):
+            fail(f"{int(live.sum()) - int(near.sum())} sampled token(s) outside the top-p support")
+
+        timing = generate_timing(lm, [len(prompts[i]) for i in range(sched.slots)], device)
+    timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    timing["weights_gb"] = weight_bytes / 1e9
+    log("generate", step="summary", card=card, **burst,
+        parted_greedy_rows=len(parted), **timing)
+    return {"launches": launches, **burst, **timing}
+
+
+def generate_timing(lm, prompt_lens, device) -> dict:
+    """Device and host ms of a decode tick and a prefill chunk at 8 slots,
+    paged attention per layer beside its bytes bound and SDPA, and each op
+    of the decode step with its calls per tick."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.ops import attention as attn
+
+    cfg, tree = lm.config, lm.params
+    S, page, H, V = len(prompt_lens), 16, cfg.hidden, cfg.vocab_size
+    NH, KH, D, L, F_ = cfg.heads, cfg.kv_heads, cfg.head_dim, cfg.layers, cfg.intermediate
+    G = lm.max_cache // page
+    gen = torch.Generator(device=device).manual_seed(7)
+    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + S * G, page, device)
+    k_pool.normal_(generator=gen)
+    v_pool.normal_(generator=gen)
+    bt = (1 + torch.arange(S * G, device=device)).reshape(S, G)
+    # mid-generation: each slot holds its prompt and 64 generated tokens
+    seq = torch.tensor([min(n + 64, lm.max_cache - 1) for n in prompt_lens], device=device)
+    tok = torch.randint(3, V, (S,), generator=gen, device=device)
+    live_tokens = int(seq.sum()) + S
+    kv_tok = dec.kv_bytes_per_token(cfg)
+    hbm = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    flops = lambda f: f / BF16_FLOPS_PER_S * 1e3  # noqa: E731
+
+    step = lambda: dec.paged_decode_step(tree, k_pool, v_pool, bt, seq, tok, cfg)  # noqa: E731
+    layer_bytes = tensor_bytes(tree["layers"])
+    step_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + H * 2 * (1 + S) + live_tokens * kv_tok + S * V * 4
+    out = {
+        "decode_slots": S, "decode_context_tokens": live_tokens, "decode_table_width": G,
+        "decode_device_ms": device_ms([step], reps=4, replays=5),
+        "decode_host_ms": eager_ms(step),
+        "decode_bound_ms": hbm(step_bytes),
+        "decode_weights_all_ms": hbm(tensor_bytes(tree)),
+    }
+    out["decode_idle_share"] = 1.0 - out["decode_device_ms"] / out["decode_host_ms"]
+
+    T = 32
+    ids = torch.randint(3, V, (S, T), generator=gen, device=device)
+    starts = torch.full((S,), 256, device=device)
+    clens = torch.full((S,), T, device=device)
+    chunk = lambda: dec.paged_prefill_chunk(tree, k_pool, v_pool, bt, ids, clens, starts, cfg)  # noqa: E731
+    ctx = S * T * (256 + T / 2)
+    chunk_flops = 2 * S * T * (layer_bytes // 2) + 4 * NH * D * ctx * L + 2 * S * H * V
+    chunk_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + S * (256 + T) * kv_tok
+    out.update({
+        "prefill_chunk_tokens": S * T, "prefill_chunk_device_ms": device_ms([chunk], reps=2, replays=5),
+        "prefill_chunk_host_ms": eager_ms(chunk, iters=5),
+        "prefill_chunk_bound_ms": max(hbm(chunk_bytes), flops(chunk_flops)),
+    })
+
+    # paged attention at the decode shape, KV writes included; every timed
+    # op below cycles through the 32 layers' weights and pools, as the step
+    # reads them, so no operand is served from L2 on repeats
+    x = torch.randn((S, 1, H), generator=gen, device=device).to(cfg.dtype)
+    rope = dec._rope_tables(seq[:, None], D, cfg.rope_theta)
+    q, k, v = dec._qkv(dec._layer(tree, 0), x, rope, cfg)
+    rows = attn.kv_rows(bt, seq[:, None], page)
+    mask = torch.arange(G * page, device=device)[None, None, :] <= seq[:, None, None]
+
+    def paged_attention(kp, vp):
+        attn.write_kv_rows(kp, rows, k)
+        attn.write_kv_rows(vp, rows, v)
+        return attn.paged_gqa_attention(q, kp, vp, bt, mask)
+
+    layers = [(dec._layer(tree, i), k_pool[i], v_pool[i]) for i in range(L)]
+    attention = [lambda kp=kp, vp=vp: paged_attention(kp, vp) for _, kp, vp in layers]
+    ref = attention[0]()  # the gathered K/V below then hold this tick's writes
+    qs, ms = q.transpose(1, 2), mask[:, None, :, :]
+    gathered = [[attn.gather_kv_pages(p_, bt).transpose(1, 2) for p_ in (kp, vp)]  # [S, KH, C, D]
+                for _, kp, vp in layers]
+    sdpa = [lambda kg=kg, vg=vg: torch.nn.functional.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=ms, enable_gqa=True) for kg, vg in gathered]
+    attn_bytes = live_tokens * KH * D * 2 * 2 + 2 * S * NH * D * 2 + S * KH * D * 2 * 2
+    out.update({
+        "paged_attention_ms_per_layer": device_ms(attention, reps=2 * L),
+        "paged_attention_bound_ms": hbm(attn_bytes),
+        "sdpa_on_gathered_kv_ms": device_ms(sdpa, reps=2 * L),
+    })
+    out["paged_attention_ms_per_tick"] = out["paged_attention_ms_per_layer"] * L
+    got = sdpa[0]().transpose(1, 2).reshape(S, 1, NH * D)
+    out["paged_attention_vs_sdpa_max_abs_err"] = float((ref.float() - got.float()).abs().max())
+    del gathered, sdpa
+
+    # each op of the decode step at its decode shape: device ms per call
+    # (CUDA graphs), calls per tick, and the call's bytes bound
+    lp0 = layers[0][0]
+    h = dec._rms(x, lp0["ln0"], cfg.norm_eps)
+    ctx_ = torch.randn((S, 1, NH * D), generator=gen, device=device).to(cfg.dtype)
+    logits = torch.randn((S, V), generator=gen, device=device)
+    cos, sin = rope
+    wb = lambda *names: sum(lp0[n].numel() * 2 for n in names)  # noqa: E731
+    act = S * H * 2
+    ops = [  # (name, op at one layer's weights and pools, calls per tick, bytes per call)
+        ("embed rows", lambda lp, kp, vp: tree["embed"][tok], 1, 2 * act),
+        ("rms norm", lambda lp, kp, vp: dec._rms(x, lp["ln0"], cfg.norm_eps), 2 * L + 1, 2 * act + H * 2),
+        ("q, k, v projections", lambda lp, kp, vp: (h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]), L,
+         wb("wq", "wk", "wv") + act + S * (NH + 2 * KH) * D * 2),
+        ("rope on q, k", lambda lp, kp, vp: (dec._apply_rope(q, cos, sin), dec._apply_rope(k, cos, sin)), L,
+         2 * 2 * S * (NH + KH) * D),
+        ("KV writes + paged attention", lambda lp, kp, vp: paged_attention(kp, vp), L, attn_bytes),
+        ("o projection + residual", lambda lp, kp, vp: x + ctx_ @ lp["wo"], L, wb("wo") + 3 * act),
+        ("SwiGLU MLP + residual", lambda lp, kp, vp: x + dec._ffn(lp, h, cfg), L,
+         wb("wg", "wu", "wd") + 3 * act),
+        ("lm_head", lambda lp, kp, vp: dec._logits(tree, x[:, 0]), 1,
+         tensor_bytes(tree["lm_head"]) + act + S * V * 4),
+        ("greedy argmax", lambda lp, kp, vp: logits.argmax(-1), 1, S * V * 4),
+    ]
+    table = []
+    for name, op, calls, nbytes in ops:
+        ms = device_ms([lambda layer=layer, op=op: op(*layer) for layer in layers], reps=2 * L)
+        table.append({"op": name, "ms_per_call": ms, "calls_per_tick": calls, "ms_per_tick": ms * calls,
+                      "bound_ms_per_tick": hbm(nbytes) * calls})
+    top_p = torch.full((S, 1), GEN_TOP_P, device=device)
+    ms = time_ms(lambda: dec.sample_logits(logits, gen, GEN_TEMP, top_p=top_p), iters=20)
+    table.append({"op": "top-p sample (events over eager calls)", "ms_per_call": ms, "calls_per_tick": 1,
+                  "ms_per_tick": ms, "bound_ms_per_tick": hbm(S * V * 4)})
+    for row in table:
+        log("generate", step="op", **row)
+    out["ops_ms_per_tick_sum"] = sum(r["ms_per_tick"] for r in table[:-1])
+    log("generate", step="timing", **out)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -548,6 +919,7 @@ def main(argv=None) -> int:
     log("kernels", **{k: v for k, v in attention.items() if k != "launches"})
 
     result = main_path(device, args.docs, args.seed, checked)
+    generate_phase(device, args.seed, card)
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of the main path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)

@@ -2,17 +2,28 @@
 
 The streaming embed-and-retrieve path: text → sentence encoder (with a
 hand-written CUDA encoder-attention kernel) → L2-normalised vectors → a
-device-resident brute-force index → masked top-k.  Entry points run on the
+device-resident brute-force index → masked top-k.  Decoder generation:
+``DecoderLM`` (dense KV cache) and the continuous-batching
+``GenerationScheduler`` over a paged KV cache.  Entry points run on the
 first CUDA device unless the caller passes ``device=`` (``"cpu"`` runs the
 kernels' plain PyTorch versions).  The port imports nothing of JAX or of
 ``pathway_tpu``.
 """
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.models.decoder import DecoderLM
 from pathway_tpu_torch.models.encoder import SentenceEncoder
+from pathway_tpu_torch.serving.generation import GenerationScheduler
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
     BruteForceKnnIndex,
     DistanceMetric,
 )
 
-__all__ = ["BruteForceKnnIndex", "DistanceMetric", "SentenceEncoder", "resolve_device"]
+__all__ = [
+    "BruteForceKnnIndex",
+    "DecoderLM",
+    "DistanceMetric",
+    "GenerationScheduler",
+    "SentenceEncoder",
+    "resolve_device",
+]

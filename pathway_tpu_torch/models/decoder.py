@@ -1,0 +1,796 @@
+"""Decoder-only LLM (Mistral/LLaMA-class) for the PyTorch port.
+
+Counterpart of ``pathway_tpu/models/decoder.py``: the same param tree
+(layer weights stacked along a leading ``[layers, ...]`` axis), the same
+forward (RMSNorm, rotary embeddings, grouped-query attention with f32
+scores, SwiGLU MLP) and the same two serving shapes:
+
+  * **dense** — :func:`prefill` over a bucketed prompt fills a
+    ``[layers, B, cache, KH, D]`` cache, :func:`decode_step` adds one
+    token per row; :class:`DecoderLM` runs them (``generate_ids``).
+  * **paged** — :func:`paged_prefill_chunk` and :func:`paged_decode_step`
+    read and write fixed-size pages of a ``[layers, pages, page, KH, D]``
+    pool through per-slot block tables; the continuous-batching scheduler
+    (``serving/generation.py``) drives them.
+
+The JAX package computes all of it as XLA compositions (there is no
+Pallas kernel on this path), and the port runs it as plain PyTorch ops.
+Functions are eager: caches and pools are updated in place and returned.
+Weights are a seeded random init made on the target device
+(:func:`init_decoder_params`), or the JAX package's tree carried across
+(:func:`from_jax_decoder_params`).
+
+Not ported yet (ROADMAP Queue 1, "Decoder generation"): weight-only int8
+(``quantize_decoder_tree``), Mixtral MoE, tensor-parallel specs, the
+training logits (``causal_lm_logits*``, ``remat``), speculative decoding
+(``verify_block``), ``load_hf_decoder_weights`` and LoRA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import math
+import os
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.models.tokenizer import load_tokenizer
+from pathway_tpu_torch.ops import attention as attention_ops
+from pathway_tpu_torch.ops.attention import gqa_attention as _attend
+
+NOT_PORTED = "not ported yet (ROADMAP Queue 1, decoder generation)"
+
+
+def _bucket_prompt_len(n: int, cap: int) -> int:
+    """Power-of-two prefill bucket, clamped to the cache capacity."""
+    b = 16
+    while b < n and b < cap:
+        b <<= 1
+    return min(b, cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 32000
+    hidden: int = 4096
+    layers: int = 32
+    heads: int = 32
+    kv_heads: int = 8
+    intermediate: int = 14336
+    max_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    # experts > 0 selects Mixtral-style sparse MoE, which the port does not
+    # run yet (``_ffn`` raises)
+    experts: int = 0
+    experts_top_k: int = 2
+    expert_capacity_factor: float = 2.0
+    # Mistral-v0.1-style sliding-window attention: each query attends to
+    # at most the last `sliding_window` positions (None = full causal)
+    sliding_window: int | None = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+
+PRESETS: dict[str, DecoderConfig] = {
+    # v0.1 family: sliding-window attention over the last 4096 positions
+    "mistral-7b-instruct": DecoderConfig(sliding_window=4096),
+    "mistralai/Mistral-7B-Instruct-v0.2": DecoderConfig(rope_theta=1e6),
+    "tinyllama-1.1b": DecoderConfig(
+        hidden=2048, layers=22, heads=32, kv_heads=4, intermediate=5632,
+        max_len=2048,
+    ),
+    "mixtral-8x7b-instruct": DecoderConfig(
+        rope_theta=1e6, experts=8, experts_top_k=2, max_len=8192,
+    ),
+    # tiny deterministic shape for tests: f32 so CPU numerics are exact
+    "pw-tiny-decoder": DecoderConfig(
+        vocab_size=512, hidden=64, layers=2, heads=4, kv_heads=2,
+        intermediate=128, max_len=128, dtype=torch.float32,
+    ),
+    "pw-tiny-moe-decoder": DecoderConfig(
+        vocab_size=512, hidden=64, layers=2, heads=4, kv_heads=2,
+        intermediate=128, max_len=128, dtype=torch.float32,
+        experts=4, experts_top_k=2,
+    ),
+}
+
+
+def decoder_config_for(model_name: str) -> DecoderConfig:
+    """Preset lookup, or the shape read from a local llama-family
+    ``config.json`` (``transformers`` save directory)."""
+    if model_name in PRESETS:
+        return PRESETS[model_name]
+    cfg_path = os.path.join(model_name, "config.json")
+    if os.path.isfile(cfg_path):
+        with open(cfg_path) as f:
+            hf = json.load(f)
+        return DecoderConfig(
+            vocab_size=hf.get("vocab_size", 32000),
+            hidden=hf.get("hidden_size", 4096),
+            layers=hf.get("num_hidden_layers", 32),
+            heads=hf.get("num_attention_heads", 32),
+            kv_heads=hf.get("num_key_value_heads", hf.get("num_attention_heads", 32)),
+            intermediate=hf.get("intermediate_size", 14336),
+            max_len=min(hf.get("max_position_embeddings", 4096), 8192),
+            rope_theta=float(hf.get("rope_theta", 10000.0)),
+            norm_eps=float(hf.get("rms_norm_eps", 1e-5)),
+            experts=hf.get("num_local_experts", 0),
+            experts_top_k=hf.get("num_experts_per_tok", 2),
+            sliding_window=hf.get("sliding_window"),
+        )
+    # an unknown name would otherwise build a random 7B: fail loudly
+    raise ValueError(
+        f"unknown decoder model {model_name!r}: not a preset "
+        f"({sorted(PRESETS)}) and not a local checkpoint directory"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_decoder_params(cfg: DecoderConfig, seed: int = 0, device=None) -> dict:
+    """Seeded scaled-normal init of the stacked param tree, made on
+    ``device`` with one ``torch.Generator``: the JAX tree's shapes and
+    scales (normal / sqrt(fan_in), ones for the norms), drawn one matrix
+    at a time so no f32 copy of a whole stacked weight exists.  The bits
+    differ from the JAX package's for the same seed."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H, L, F_ = cfg.hidden, cfg.layers, cfg.intermediate
+    NH, KH, D = cfg.heads, cfg.kv_heads, cfg.head_dim
+
+    def normal(shape, fan_in, dtype=cfg.dtype):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for m in out.view(-1, shape[-2], shape[-1]):
+            m.copy_(torch.randn(m.shape, generator=gen, device=device) / math.sqrt(fan_in))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    layers = {
+        "ln0": ones((L, H)),
+        "ln1": ones((L, H)),
+        "wq": normal((L, H, NH * D), H),
+        "wk": normal((L, H, KH * D), H),
+        "wv": normal((L, H, KH * D), H),
+        "wo": normal((L, NH * D, H), NH * D),
+    }
+    if cfg.experts:
+        E = cfg.experts
+        layers["moe_router"] = normal((L, H, E), H, dtype=torch.float32)
+        layers["wg"] = normal((L, E, H, F_), H)
+        layers["wu"] = normal((L, E, H, F_), H)
+        layers["wd"] = normal((L, E, F_, H), F_)
+    else:
+        layers["wg"] = normal((L, H, F_), H)
+        layers["wu"] = normal((L, H, F_), H)
+        layers["wd"] = normal((L, F_, H), F_)
+    return {
+        "embed": normal((cfg.vocab_size, H), H),
+        "final_norm": ones((H,)),
+        "lm_head": normal((H, cfg.vocab_size), H),
+        "layers": layers,
+    }
+
+
+def from_jax_decoder_params(tree, cfg: DecoderConfig, device) -> dict:
+    """The port's tree from the JAX package's (nested dicts of arrays, e.g.
+    ``jax.device_get`` output), in ``cfg.dtype`` on ``device``; the MoE
+    router stays f32 as in the JAX tree."""
+    device = resolve_device(device)
+
+    def convert(node, name=""):
+        if hasattr(node, "items"):
+            return {k: convert(v, k) for k, v in node.items()}
+        dtype = torch.float32 if name == "moe_router" else cfg.dtype
+        return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dtype)
+
+    return convert(tree)
+
+
+def _layer(tree, i: int) -> dict:
+    """Layer ``i``'s weights: views into the stacked tree."""
+    return {name: w[i] for name, w in tree["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _rms(x, scale, eps):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _sw_mask(q_pos, k_pos, window: int):
+    """True where key position ``k_pos`` lies inside the sliding window of
+    query position ``q_pos`` (``q_pos - window < k_pos``); shapes
+    broadcast.  The one definition of the window edge."""
+    return k_pos > q_pos - window
+
+
+def _mm(x, w):
+    """``x @ w`` for a float weight; the JAX package's int8 and LoRA weight
+    forms are not ported yet."""
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(f"int8 and LoRA decoder weights are {NOT_PORTED}")
+    return x @ w
+
+
+def _rope_tables(positions, d: int, theta: float):
+    """cos and sin ``[..., S, 1, D/2]`` of the rotary embedding at integer
+    ``positions [..., S]``; computed once per forward, shared by layers."""
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=positions.device) / d))
+    freqs = positions[..., None].float() * inv
+    return torch.cos(freqs)[..., None, :], torch.sin(freqs)[..., None, :]
+
+
+def _apply_rope(x, cos, sin):
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """Rotary embedding; ``x`` is ``[..., S, H, D]``, positions ``[..., S]``."""
+    return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
+
+
+def _ffn(lp, h, cfg: DecoderConfig):
+    """SwiGLU MLP (dense)."""
+    if cfg.experts:
+        raise NotImplementedError(f"Mixtral-style MoE decoder layers are {NOT_PORTED}")
+    return _mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"])
+
+
+def _qkv(lp, x, rope, cfg: DecoderConfig):
+    """Pre-norm q ``[B, S, NH, D]`` and k, v ``[B, S, KH, D]``, rotated."""
+    B, S = x.shape[0], x.shape[1]
+    KH, D = cfg.kv_heads, cfg.head_dim
+    h = _rms(x, lp["ln0"], cfg.norm_eps)
+    q = _apply_rope(_mm(h, lp["wq"]).reshape(B, S, cfg.heads, D), *rope)
+    k = _apply_rope(_mm(h, lp["wk"]).reshape(B, S, KH, D), *rope)
+    v = _mm(h, lp["wv"]).reshape(B, S, KH, D)
+    return q, k, v
+
+
+def _finish_layer(lp, x, ctx, cfg: DecoderConfig):
+    """Output projection, residual, and the MLP half of the block."""
+    x = x + _mm(ctx, lp["wo"])
+    return x + _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg)
+
+
+def decoder_layer(lp, x, rope, mask, cfg: DecoderConfig):
+    """One pre-norm transformer block (GQA attention + SwiGLU MLP).
+
+    ``lp`` holds a single layer's weights, ``rope`` the ``(cos, sin)``
+    tables of :func:`_rope_tables` at the block's positions, ``mask``
+    ``[B, S, S]`` boolean (True = attend).  Returns ``(x, (k, v))``: the
+    new residual stream and this layer's keys and values ``[B, S, KH, D]``.
+    """
+    q, k, v = _qkv(lp, x, rope, cfg)
+    return _finish_layer(lp, x, _attend(q, k, v, mask), cfg), (k, v)
+
+
+def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
+    """Shared causal forward: final-norm token reps + K/V caches
+    ``[L, B, cache_len, KH, D]`` holding the prompt at ``[0, S)`` and
+    zeros past each row's length."""
+    B, S = ids.shape
+    dev = ids.device
+    x = tree["embed"][ids]  # [B, S, H]
+    pos = torch.arange(S, device=dev)
+    positions = pos[None, :].expand(B, S)
+    valid = positions < lengths[:, None]  # [B, S]
+    causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    if cfg.sliding_window is not None:
+        causal = causal & _sw_mask(pos[:, None], pos[None, :], cfg.sliding_window)
+    mask = causal[None, :, :] & valid[:, None, :]  # [B, S(q), S(kv)]
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    shape = (cfg.layers, B, cache_len, cfg.kv_heads, cfg.head_dim)
+    k_cache = torch.zeros(shape, dtype=x.dtype, device=dev)
+    v_cache = torch.zeros(shape, dtype=x.dtype, device=dev)
+    # zero K/V beyond each row's real length: decode steps only write
+    # their own position, so untouched slots must hold zeros
+    keep = valid[:, :, None, None].to(x.dtype)
+    for i in range(cfg.layers):
+        x, (k, v) = decoder_layer(_layer(tree, i), x, rope, mask, cfg)
+        k_cache[i, :, :S] = k * keep
+        v_cache[i, :, :S] = v * keep
+    return _rms(x, tree["final_norm"], cfg.norm_eps), k_cache, v_cache
+
+
+def _logits(tree, x):
+    return _mm(x, tree["lm_head"]).float()
+
+
+def prefill(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
+    """Causal forward over the whole (padded) prompt.
+
+    Returns ``(logits_last, k_cache, v_cache)``: f32 logits at each row's
+    final real token and caches of shape ``[L, B, cache_len, KH, D]`` with
+    the prompt keys/values written at positions ``[0, S)``.
+    """
+    x, k_cache, v_cache = _causal_trunk(tree, ids, lengths, cfg, cache_len)
+    last = x[torch.arange(ids.shape[0], device=ids.device), lengths - 1]
+    return _logits(tree, last), k_cache, v_cache
+
+
+def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
+    """One generation step: ``token`` ``[B]`` at position ``pos`` ``[B]``.
+
+    Writes the new K/V at ``pos`` into the caches in place and returns
+    ``(logits, k_cache, v_cache)``.  A row whose ``pos`` is past the cache
+    writes nothing, as the JAX package's one-hot write does.
+    """
+    B = token.shape[0]
+    C = k_cache.shape[2]
+    dev = token.device
+    x = tree["embed"][token][:, None, :]  # [B, 1, H]
+    idx = torch.arange(C, device=dev)[None, None, :]
+    mask = idx <= pos[:, None, None]  # [B, 1, C]
+    if cfg.sliding_window is not None:
+        mask = mask & _sw_mask(pos[:, None, None], idx, cfg.sliding_window)
+    rope = _rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    rows = torch.arange(B, device=dev)
+    inside = (pos < C)[:, None, None]
+    at = pos.clamp(max=C - 1)
+    for i in range(cfg.layers):
+        lp, kc, vc = _layer(tree, i), k_cache[i], v_cache[i]
+        q, k, v = _qkv(lp, x, rope, cfg)
+        kc[rows, at] = torch.where(inside, k[:, 0], kc[rows, at])
+        vc[rows, at] = torch.where(inside, v[:, 0], vc[rows, at])
+        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg)
+    x = _rms(x, tree["final_norm"], cfg.norm_eps)
+    return _logits(tree, x[:, 0, :]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+
+def _filter_logits(lg, *, top_k: int | None = None, top_p=None, min_p=None):
+    """Set the logits that min-p, top-k and top-p reject to -inf, in the JAX
+    package's order.  ``top_p`` and ``min_p`` are floats or tensors that
+    broadcast against ``lg [B, V]`` (per-row values as ``[B, 1]``)."""
+    neg_inf = float("-inf")
+    if min_p is not None:
+        # log-space form of probs < min_p * max(probs); min_p > 1 degrades
+        # to argmax-only, min_p = 0 gives log 0 = -inf, a no-op
+        mp = torch.as_tensor(min_p, dtype=lg.dtype, device=lg.device).clamp(max=1.0)
+        cut = lg.amax(dim=-1, keepdim=True) + torch.log(mp)
+        lg = lg.masked_fill(lg < cut, neg_inf)
+    if top_k is not None:
+        # an oversized k degrades to "no truncation"
+        kth = torch.topk(lg, min(int(top_k), lg.shape[-1]), dim=-1).values[..., -1:]
+        lg = lg.masked_fill(lg < kth, neg_inf)
+    if top_p is not None:
+        sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_lg, dim=-1)
+        # exclusive prefix mass: token i survives while the mass before it
+        # is still < top_p; the top token always survives
+        before = torch.cumsum(probs, dim=-1) - probs
+        keep = before < torch.as_tensor(top_p, dtype=lg.dtype, device=lg.device)
+        keep[..., 0] = True
+        kept_min = torch.where(keep, sorted_lg, float("inf")).amin(dim=-1, keepdim=True)
+        lg = lg.masked_fill(lg < kept_min, neg_inf)
+    return lg
+
+
+def sample_logits(logits, generator, temp, *, top_k: int | None = None,
+                  top_p=None, min_p=None):
+    """Temperature, then optional min-p / top-k / top-p truncation, then a
+    categorical draw from ``generator``.  ``logits [B, V]`` f32; ``temp``,
+    ``top_p`` and ``min_p`` are floats or ``[B, 1]`` tensors.  Returns
+    ``[B]`` int64 token ids.  The draws differ from ``jax.random``'s; the
+    support the filters leave is the same."""
+    lg = _filter_logits(logits / temp, top_k=top_k, top_p=top_p, min_p=min_p)
+    probs = torch.softmax(lg, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def apply_repetition_penalty(logits, seen, penalty):
+    """HF-semantics repetition penalty: logits of already-seen tokens
+    (``seen [B, V]`` bool) divide by ``penalty`` when positive, multiply
+    when negative; 1.0 is a no-op."""
+    scaled = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, scaled, logits)
+
+
+def decode_chunk(
+    tree,
+    k_cache,
+    v_cache,
+    logits,
+    pos,
+    done,
+    generator,
+    temp,
+    cfg: DecoderConfig,
+    n_steps: int,
+    greedy: bool,
+    eos_id: int | None,
+    top_k: int | None = None,
+    top_p=None,
+    min_p=None,
+    rep_penalty=None,
+    seen=None,
+):
+    """``n_steps`` sample → decode steps with sampling and EOS masking on
+    the device and no host sync: the caller syncs once per chunk.
+
+    Returns ``(toks [n_steps, B], valid [n_steps, B], logits, k_cache,
+    v_cache, pos, done, seen)``; ``valid`` marks tokens the caller should
+    append (False once a row has finished or sampled EOS).  Rows past
+    their EOS keep stepping; their emissions are masked.  ``seen`` is
+    ``None`` unless ``rep_penalty`` is given.
+    """
+    toks, valids = [], []
+    for _ in range(n_steps):
+        lg = logits if rep_penalty is None else apply_repetition_penalty(logits, seen, rep_penalty)
+        if greedy:
+            tok = lg.argmax(dim=-1)
+        else:
+            tok = sample_logits(lg, generator, temp, top_k=top_k, top_p=top_p, min_p=min_p)
+        stop = tok == eos_id if eos_id is not None else torch.zeros_like(done)
+        valids.append(~done & ~stop)
+        toks.append(tok)
+        done = done | stop
+        logits, k_cache, v_cache = decode_step(tree, k_cache, v_cache, tok, pos, cfg)
+        pos = pos + 1
+        if rep_penalty is not None:
+            seen = seen.scatter(1, tok[:, None], True)
+    return torch.stack(toks), torch.stack(valids), logits, k_cache, v_cache, pos, done, seen
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (continuous-batching serving path)
+# ---------------------------------------------------------------------------
+#
+# The paged layout stores KV in fixed-size PAGES of a preallocated pool
+# ([L, P, page, KH, D]) with a per-slot block table mapping logical
+# positions onto pages, so cache memory scales with live tokens.  Page 0
+# is the reserved null page: unallocated block-table entries point at it,
+# padding writes land in it, and no slot's attention mask reaches into it.
+
+
+def init_kv_pool(cfg: DecoderConfig, num_pages: int, page_size: int, device=None):
+    """Preallocate the paged KV pool: ``(k_pool, v_pool)``, each
+    ``[L, num_pages, page_size, KH, D]``.  Page 0 is the null page."""
+    device = resolve_device(device)
+    shape = (cfg.layers, num_pages, page_size, cfg.kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+class PageExhaustedError(RuntimeError):
+    """The pool has no free page — admission control must keep the sum of
+    reserved pages within the pool, so hitting this mid-generation is a
+    scheduler bug, not an overload condition."""
+
+
+class PageAllocator:
+    """Host-side free-list allocator over the page pool.
+
+    Tracks which pool pages are free (page 0 is reserved as the null
+    page), reservations, and live/peak KV byte accounting."""
+
+    def __init__(self, num_pages: int, page_size: int, bytes_per_token: int):
+        if num_pages < 2:
+            raise ValueError("pool needs >= 2 pages (page 0 is the null page)")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.bytes_per_token = bytes_per_token  # both K and V, all layers
+        self._free: list[int] = list(range(num_pages - 1, 0, -1))
+        self.reserved = 0  # admission-reserved pages (not yet allocated)
+        self.peak_pages = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def pages_for(self, tokens: int) -> int:
+        return -(-max(tokens, 1) // self.page_size)
+
+    def can_reserve(self, pages: int) -> bool:
+        return self.reserved + pages <= len(self._free)
+
+    def reserve(self, pages: int) -> None:
+        """Set aside a request's worst case (prompt + max_new_tokens) at
+        admission, so a mid-generation allocation can never fail."""
+        if not self.can_reserve(pages):
+            raise PageExhaustedError(
+                f"cannot reserve {pages} page(s): {len(self._free)} free, "
+                f"{self.reserved} already reserved"
+            )
+        self.reserved += pages
+
+    def alloc(self, *, reserved: bool = True) -> int:
+        """Take one free page (consuming one unit of reservation when
+        ``reserved``); pages are handed out as tokens arrive."""
+        if not self._free:
+            raise PageExhaustedError("page pool exhausted")
+        page = self._free.pop()
+        if reserved:
+            self.reserved -= 1
+        self.peak_pages = max(self.peak_pages, self.used_pages)
+        return page
+
+    def release(self, pages: list[int], *, unreserve: int = 0) -> None:
+        """Return a slot's pages (and any unused reservation) to the pool."""
+        self._free.extend(pages)
+        self.reserved -= unreserve
+
+    @property
+    def live_bytes(self) -> int:
+        return self.used_pages * self.page_size * self.bytes_per_token
+
+    @property
+    def peak_bytes(self) -> int:
+        return self.peak_pages * self.page_size * self.bytes_per_token
+
+
+def kv_bytes_per_token(cfg: DecoderConfig) -> int:
+    """K + V bytes one token occupies across all layers."""
+    return 2 * cfg.layers * cfg.kv_heads * cfg.head_dim * cfg.dtype.itemsize
+
+
+def _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg):
+    """The layer loop of both paged steps: write this block's K/V at pool
+    ``rows`` (see :func:`attention_ops.kv_rows`), attend over the slots'
+    pages.  Returns the final-norm token reps."""
+    for i in range(cfg.layers):
+        lp, kp, vp = _layer(tree, i), k_pool[i], v_pool[i]
+        q, k, v = _qkv(lp, x, rope, cfg)
+        attention_ops.write_kv_rows(kp, rows, k)
+        attention_ops.write_kv_rows(vp, rows, v)
+        ctx = attention_ops.paged_gqa_attention(q, kp, vp, block_tables, mask)
+        x = _finish_layer(lp, x, ctx, cfg)
+    return _rms(x, tree["final_norm"], cfg.norm_eps)
+
+
+def paged_decode_step(tree, k_pool, v_pool, block_tables, seq_lens, token,
+                      cfg: DecoderConfig):
+    """One generation step over paged KV: ``token`` ``[S]`` is written at
+    each slot's next position (``seq_lens`` ``[S]``), attention gathers
+    the slot's pages.  Returns ``(logits [S, V], k_pool, v_pool)``, the
+    pools updated in place.
+
+    The same math as :func:`decode_step` over the gathered context.
+    Inactive slots (block table all null) write into and gather from the
+    null page: finite garbage, masked everywhere.
+    """
+    page = k_pool.shape[2]
+    C = block_tables.shape[1] * page
+    x = tree["embed"][token][:, None, :]  # [S, 1, H]
+    positions = seq_lens[:, None]  # [S, 1]
+    idx = torch.arange(C, device=token.device)[None, None, :]
+    mask = idx <= seq_lens[:, None, None]  # [S, 1, C]
+    if cfg.sliding_window is not None:
+        mask = mask & _sw_mask(seq_lens[:, None, None], idx, cfg.sliding_window)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rows = attention_ops.kv_rows(block_tables, positions, page)
+    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg)
+    return _logits(tree, x[:, 0, :]), k_pool, v_pool
+
+
+def paged_prefill_chunk(tree, k_pool, v_pool, block_tables, chunk_ids,
+                        chunk_lens, start, cfg: DecoderConfig):
+    """Prefill ONE chunk of each slot's prompt against paged KV.
+
+    ``chunk_ids`` ``[S, T]`` holds the next ``chunk_lens[s]`` prompt
+    tokens of each slot (ragged; 0-padded), starting at logical position
+    ``start[s]``.  The chunk's K/V goes into the slot's pages, then each
+    chunk query attends causally over the slot's whole context so far.
+    Returns ``(logits [S, V]`` at each slot's last chunk token``, k_pool,
+    v_pool)``; rows with ``chunk_lens == 0`` give garbage logits the
+    scheduler ignores.
+    """
+    S, T = chunk_ids.shape
+    dev = chunk_ids.device
+    page = k_pool.shape[2]
+    C = block_tables.shape[1] * page
+    x = tree["embed"][chunk_ids]  # [S, T, H]
+    t = torch.arange(T, device=dev)
+    positions = start[:, None] + t[None, :]  # [S, T]
+    valid_q = t[None, :] < chunk_lens[:, None]  # [S, T]
+    # padding queries (including whole rows of slots that are decoding)
+    # must write to the null page, never into a slot's live pages
+    write_positions = torch.where(valid_q, positions, 2**30)
+    idx = torch.arange(C, device=dev)[None, None, :]
+    mask = (idx <= positions[:, :, None]) & valid_q[:, :, None]
+    if cfg.sliding_window is not None:
+        mask = mask & _sw_mask(positions[:, :, None], idx, cfg.sliding_window)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rows = attention_ops.kv_rows(block_tables, write_positions, page)
+    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg)
+    last = x[torch.arange(S, device=dev), (chunk_lens - 1).clamp(min=0)]
+    return _logits(tree, last), k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# Serving wrapper
+# ---------------------------------------------------------------------------
+
+
+class DecoderLM:
+    """Local decoder LLM: tokenizer + prefill/decode + sampling.
+
+    Generation runs :func:`decode_chunk` — up to 16 decode steps with
+    sampling and EOS masking on the device — with one host sync per chunk.
+    Runs on ``cuda:0`` unless ``device`` says otherwise.
+    """
+
+    def __init__(
+        self,
+        model_name: str = "mistral-7b-instruct",
+        seed: int = 0,
+        max_cache: int = 1024,
+        eos_id: int | None = 2,
+        quantize: str | None = None,
+        device=None,
+    ):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if quantize == "int8":
+            raise NotImplementedError(f"weight-only int8 decoding is {NOT_PORTED}")
+        self.device = resolve_device(device)
+        self.config = decoder_config_for(model_name)
+        self.model_name = model_name
+        self.max_cache = min(max_cache, self.config.max_len)
+        self.eos_id = eos_id
+        self.tokenizer = load_tokenizer(model_name, self.config.vocab_size, self.config.max_len)
+        self.params = init_decoder_params(self.config, seed, self.device)
+        self._chunk_len = 16
+
+    def n_params(self) -> int:
+        def count(node):
+            if isinstance(node, dict):
+                return sum(count(v) for v in node.values())
+            return node.numel()
+
+        return count(self.params)
+
+    def generate_ids(
+        self,
+        prompt_ids: list[list[int]],
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        seed: int = 0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        min_p: float | None = None,
+        repetition_penalty: float | None = None,
+    ) -> list[list[int]]:
+        """Batched generation; returns the newly generated ids per row.
+
+        ``top_k``/``top_p``/``min_p`` truncate the sampling distribution
+        (only meaningful with ``temperature > 0``); ``repetition_penalty``
+        (HF semantics) penalizes every token already in the prompt or
+        generated so far.  Prompts longer than the cache budget keep their
+        TAIL."""
+        if max_new_tokens >= self.max_cache:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} must be < max_cache={self.max_cache}"
+            )
+        if repetition_penalty is not None and repetition_penalty <= 0:
+            raise ValueError(f"repetition_penalty must be > 0, got {repetition_penalty}")
+        B = len(prompt_ids)
+        dev = self.device
+        limit = self.max_cache - max_new_tokens
+        prompt_ids = [p[-limit:] if len(p) > limit else p for p in prompt_ids]
+        lengths = np.array([max(len(p), 1) for p in prompt_ids], np.int64)
+        S = _bucket_prompt_len(int(lengths.max()), self.max_cache)
+        ids = np.zeros((B, S), np.int64)
+        for i, p in enumerate(prompt_ids):
+            ids[i, : len(p)] = p
+        greedy = temperature <= 0.0
+        temp = temperature if temperature > 0.0 else 1.0
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        out: list[list[int]] = [[] for _ in range(B)]
+        with torch.inference_mode():
+            ids_t = torch.from_numpy(ids).to(dev)
+            pos = torch.from_numpy(lengths).to(dev)  # next write position per row
+            logits, kc, vc = prefill(self.params, ids_t, pos, self.config, self.max_cache)
+            done = torch.zeros(B, dtype=torch.bool, device=dev)
+            seen = None
+            if repetition_penalty is not None:
+                # HF counts the prompt too: mark every real prompt token
+                seen = torch.zeros((B, self.config.vocab_size), dtype=torch.bool, device=dev)
+                for i, p in enumerate(prompt_ids):
+                    seen[i, torch.tensor(p, dtype=torch.int64, device=dev)] = True
+            produced = 0
+            while produced < max_new_tokens:
+                remaining = max_new_tokens - produced
+                # power-of-two step bucket covering `remaining`, capped
+                K = min(self._chunk_len, 1 << (remaining - 1).bit_length())
+                toks, valids, logits, kc, vc, pos, done, seen = decode_chunk(
+                    self.params, kc, vc, logits, pos, done, generator, temp,
+                    self.config, K, greedy, self.eos_id, top_k, top_p, min_p,
+                    repetition_penalty, seen,
+                )
+                # one host sync per chunk
+                htoks, hvalid = toks.cpu().numpy(), valids.cpu().numpy()
+                take = min(K, remaining)
+                for t in range(take):
+                    for i in range(B):
+                        if hvalid[t, i]:
+                            out[i].append(int(htoks[t, i]))
+                produced += take
+                if bool(done.all()):
+                    break
+        return out
+
+    def generate_ids_speculative(self, prompt_ids, max_new_tokens: int = 64, n_draft: int = 8):
+        raise NotImplementedError(f"self-speculative decoding is {NOT_PORTED}")
+
+    def generate(
+        self,
+        prompt: str,
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        seed: int = 0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        min_p: float | None = None,
+        repetition_penalty: float | None = None,
+    ) -> str:
+        new_ids = self.generate_ids(
+            [self._encode_prompt(prompt)], max_new_tokens, temperature, seed,
+            top_k=top_k, top_p=top_p, min_p=min_p,
+            repetition_penalty=repetition_penalty,
+        )[0]
+        return self.tokenizer.decode(new_ids)
+
+    def _encode_prompt(self, prompt: str) -> list[int]:
+        """Tokenize at the MODEL limit, not the cache limit: ``generate_ids``
+        keeps the prompt's tail against the cache budget itself."""
+        return self.tokenizer.encode(prompt, max_length=self.config.max_len)
+
+    def generate_many(
+        self,
+        prompts: list[str],
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        seed: int = 0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        min_p: float | None = None,
+        repetition_penalty: float | None = None,
+    ) -> list[str]:
+        """One padded ragged batch through prefill+decode for all prompts."""
+        outs = self.generate_ids(
+            [self._encode_prompt(p) for p in prompts], max_new_tokens, temperature,
+            seed, top_k=top_k, top_p=top_p, min_p=min_p,
+            repetition_penalty=repetition_penalty,
+        )
+        return [self.tokenizer.decode(o) for o in outs]
+
+
+@functools.lru_cache(maxsize=4)
+def shared_decoder(
+    model_name: str = "mistral-7b-instruct",
+    max_cache: int = 1024,
+    quantize: str | None = None,
+    device=None,
+) -> DecoderLM:
+    return DecoderLM(model_name, max_cache=max_cache, quantize=quantize, device=device)

@@ -12,14 +12,19 @@ short sequences packed); the kernel's source and design notes are in
 ``csrc/encoder_attention.cu``.
 
 On a CPU tensor :func:`encoder_attention` runs the plain version; on a CUDA
-tensor it launches the kernel or raises — it never falls back.  The paged
-decoder ops of the JAX module wait for the decoder slice of the port.
+tensor it launches the kernel or raises — it never falls back.
+
+The decoder's grouped-query attention (:func:`gqa_attention`) and the paged
+KV ops (:func:`gather_kv_pages`, :func:`paged_gqa_attention`,
+:func:`scatter_kv_pages`) are the JAX module's XLA compositions, which have
+no Pallas kernel there; they run as plain PyTorch ops on every device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -185,3 +190,78 @@ def encoder_attention(q, k, v, mask_bias, heads: int):
 
 
 encoder_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Decoder attention: dense GQA and the paged KV cache
+# ---------------------------------------------------------------------------
+#
+# The continuous-batching decode loop (serving/generation.py) keeps each
+# request's KV in fixed-size PAGES of a preallocated pool; a per-slot block
+# table maps logical positions onto pool pages.  Page 0 is the null page:
+# unallocated table entries point at it and padding writes land in it.
+
+
+def gqa_attention(q, k, v, mask):
+    """Grouped-query attention: q ``[B, S, NH, D]``, k/v ``[B, C, KH, D]``,
+    mask ``[B, S, C]`` boolean (True = attend).  Scores in f32 (the
+    products of the inputs summed in f32), masked with -1e9, softmax in
+    f32, probabilities rounded to the input dtype before the PV product.
+    Returns ``[B, S, NH*D]``."""
+    B, S, NH, D = q.shape
+    C, KH = k.shape[1], k.shape[2]
+    G = NH // KH
+    qg = q.float().reshape(B, S, KH, G, D).permute(0, 2, 3, 1, 4).reshape(B, KH, G * S, D)
+    scores = torch.matmul(qg, k.float().permute(0, 2, 3, 1)).reshape(B, KH, G, S, C)
+    scores = scores / math.sqrt(D)
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.matmul(probs.reshape(B, KH, G * S, C), v.permute(0, 2, 1, 3))
+    return ctx.reshape(B, KH, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, NH * D)
+
+
+def gather_kv_pages(pool, block_tables):
+    """Each slot's logical cache ``[S, G*page, KH, D]`` out of one layer's
+    page pool ``[P, page, KH, D]`` through ``block_tables [S, G]``.
+    Positions gathered through null entries are masked by the caller."""
+    S, G = block_tables.shape
+    return pool[block_tables].reshape(S, G * pool.shape[1], pool.shape[2], pool.shape[3])
+
+
+def paged_gqa_attention(q, k_pool, v_pool, block_tables, mask):
+    """GQA attention against paged KV: q ``[S, T, NH, D]``, pools
+    ``[P, page, KH, D]``, block_tables ``[S, G]``, mask ``[S, T, G*page]``.
+    The dense path's math (:func:`gqa_attention`) over the gathered
+    context, so paged and dense generations agree."""
+    k = gather_kv_pages(k_pool, block_tables)
+    v = gather_kv_pages(v_pool, block_tables)
+    return gqa_attention(q, k, v, mask)
+
+
+def kv_rows(block_tables, positions, page: int):
+    """Rows of the flattened ``[P*page, KH, D]`` pool that logical
+    ``positions [S, T]`` map to through each slot's block table.  A
+    position past the table's width maps into the null page, never into
+    the slot's last live page."""
+    G = block_tables.shape[1]
+    slot_of = positions // page
+    page_idx = torch.gather(block_tables, 1, slot_of.clamp(0, G - 1))
+    page_idx = torch.where(slot_of >= G, 0, page_idx)
+    return page_idx * page + positions % page
+
+
+def write_kv_rows(pool, rows, values):
+    """Write ``values [S, T, KH, D]`` at the pool rows of :func:`kv_rows`,
+    in place.  Rows that repeat are null-page padding; which write wins
+    there does not matter."""
+    flat = pool.view(-1, pool.shape[2], pool.shape[3])
+    flat[rows.reshape(-1)] = values.reshape(-1, values.shape[2], values.shape[3])
+    return pool
+
+
+def scatter_kv_pages(pool, block_tables, positions, values):
+    """Write per-slot K or V rows ``values [S, T, KH, D]`` at logical
+    ``positions [S, T]`` into the page pool ``[P, page, KH, D]`` (in
+    place; also returned).  Positions whose table entry is 0, or which
+    lie past the table, land in the null page."""
+    return write_kv_rows(pool, kv_rows(block_tables, positions, pool.shape[1]), values)

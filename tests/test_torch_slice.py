@@ -145,13 +145,15 @@ def test_device_default_raises_without_cuda(model_dir, monkeypatch):
         pt.BruteForceKnnIndex(pt.DistanceMetric.COS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.DecoderLM("pw-tiny-decoder")
     assert pt.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_port_imports_nothing_of_jax(model_dir):
     """In a fresh interpreter that cannot import jax, flax, pathway_tpu (or
     transformers, which the card lacks), the port imports and runs the
-    slice on the CPU."""
+    embed-and-retrieve slice and the generation path on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -174,6 +176,12 @@ def test_port_imports_nothing_of_jax(model_dir):
             index.add(i, vec)
         hits = index.search(enc.encode_one(texts[17]), 3)
         assert hits[0][0] == 17, hits
+
+        lm = pt.DecoderLM("pw-tiny-decoder", max_cache=64, device="cpu")
+        sched = pt.GenerationScheduler(lm, slots=2)
+        fut = sched.submit_ids([5, 9, 17], max_new_tokens=4)
+        assert fut.result(timeout=60) == lm.generate_ids([[5, 9, 17]], max_new_tokens=4)[0]
+        sched.shutdown()
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
