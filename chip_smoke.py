@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -22,7 +22,25 @@ Phases, each on a line of its own; any failure exits non-zero:
    the answers; the kernels' launch counts are zeroed just before and read
    just after, every attention shape the run gave the kernel is held
    against the plain version, and the launches are counted per shape;
-5. generate: decoder generation at full mistral-7b-instruct width (seeded
+5. rerank: the retrieve-then-rerank step of the RAG path at full width:
+   16,384 chunks of 50-500 words embedded by all-MiniLM-L6-v2 into a
+   cosine ``BruteForceKnnIndex``, then one untimed warm-up and 8 timed
+   batches of 64 queries (6-20 word perturbed spans of chunks): top-32
+   retrieval, the 2,048 (query, chunk) pairs scored by the
+   ms-marco-MiniLM-L-6-v2 ``CrossEncoder`` as ``CrossEncoderReranker``
+   sends them (``score`` on micro-batches of 256 pairs in arrival order,
+   each padded to its longest pair), the 5 best kept; pairs/s and latency split into retrieve and
+   rerank; the first batch's scores held to the plain attention path
+   within 0.05·(max|ref|+1) and its top-5 sets to the plain path's but
+   at near-ties;
+6. encoders: 32,768 texts of the main corpus through BGE-base (hd 64,
+   its embeddings held to the plain attention path at cosine > 0.999),
+   then through all-MiniLM-L6-v2 in bf16 and in W8A8 (min cosine > 0.99,
+   top-10 neighbour overlap > 0.85 over 256 queries), emb/s of each;
+   phases 5 and 6 count launches per shape like phase 4, and every new
+   shape is held to the plain version (in slices of the batch where its
+   f32 scores would pass 1 GiB) and timed;
+7. generate: decoder generation at full mistral-7b-instruct width (seeded
    random bf16 weights): a burst of 32 requests (prompts of 64-896 token
    ids, 128 new tokens, 24 greedy and 8 at temperature 0.7 / top-p 0.9)
    through ``GenerationScheduler`` at the repo's defaults, with tokens/s,
@@ -34,7 +52,9 @@ Phases, each on a line of its own; any failure exits non-zero:
    paged attention beside its bound and SDPA, and each op of the decode
    step.
 
-Then one JSON line with every kernel's numbers, and last the line
+``--skip`` leaves out the named phases of 5-7 (all run by default), to
+time one phase without the ones before it in the same process.  Then one
+JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  It imports nothing of JAX or of ``pathway_tpu``.
 """
@@ -42,6 +62,7 @@ prints no result.  It imports nothing of JAX or of ``pathway_tpu``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -172,6 +193,31 @@ TIMED_SHAPES = [  # the main path's attention shapes (PERF.md section 5)
     (64, 64, 384, 12),
 ]
 L2_BYTES = 50 * 2**20  # H100
+PLAIN_SLICE_BYTES = 2**30  # the plain version's f32 scores per call, at most
+
+
+def plain_rows(shape) -> int:
+    """Sequences per call of the plain version at ``shape``: the whole batch
+    where its f32 scores ``[B, heads, S, S]`` fit in ``PLAIN_SLICE_BYTES``,
+    else the largest power of two of sequences that does (64 at S=512 with
+    12 heads, where the whole (512, 512) batch would need 6.4 GB)."""
+    B, S, _, heads = shape
+    fit = max(1, PLAIN_SLICE_BYTES // (heads * S * S * 4))
+    return B if fit >= B else 1 << (fit.bit_length() - 1)
+
+
+def plain_attention(q, k, v, mask, heads):
+    """The plain version over the batch in slices of ``plain_rows``."""
+    from pathway_tpu_torch.ops.attention import encoder_attention_reference
+
+    B, S, H = q.shape
+    rows = plain_rows((B, S, H, heads))
+    if rows >= B:
+        return encoder_attention_reference(q, k, v, mask, heads)
+    return torch.cat([
+        encoder_attention_reference(q[i : i + rows], k[i : i + rows], v[i : i + rows], mask[i : i + rows], heads)
+        for i in range(0, B, rows)
+    ])
 
 
 def fused_qkv(gen, B, S, H, device):
@@ -192,11 +238,9 @@ def padded_mask(B, S, device):
 def check_attention_shape(gen, shape, device) -> float:
     """Kernel against the plain version at ``shape`` = (B, S, H, heads), with
     q, k, v contiguous and as views of a fused QKV tensor, padded tail keys
-    and an all-padding row; returns the larger max abs err of the two."""
-    from pathway_tpu_torch.ops.attention import (
-        encoder_attention,
-        encoder_attention_reference,
-    )
+    and an all-padding row; returns the larger max abs err of the two.  The
+    plain version runs in slices of ``plain_rows(shape)`` sequences."""
+    from pathway_tpu_torch.ops.attention import encoder_attention
 
     B, S, H, heads = shape
     worst = 0.0
@@ -206,12 +250,12 @@ def check_attention_shape(gen, shape, device) -> float:
             q, k, v = (t.contiguous() for t in (q, k, v))
         mask = padded_mask(B, S, device)
         out = encoder_attention(q, k, v, mask, heads)
-        ref = encoder_attention_reference(q, k, v, mask, heads)
+        ref = plain_attention(q, k, v, mask, heads)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"attention {shape} {layout}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
-        log("kernels", shape=list(shape), layout=layout, max_abs_err=err)
+        log("kernels", shape=list(shape), layout=layout, max_abs_err=err, plain_rows=plain_rows(shape))
         if err >= ATTN_TOL:
             fail(f"attention {shape} {layout}: max abs err {err}")
         worst = max(worst, err)
@@ -222,11 +266,9 @@ def time_attention_shape(gen, shape, device) -> dict:
     """Device-only ms of kernel, plain version and ``scaled_dot_product_attention``
     at ``shape``, on q, k, v as views of fused QKV tensors, with enough
     input copies in rotation to exceed the L2 cache; the bound from the
-    shape; and the wrapper's host µs per call."""
-    from pathway_tpu_torch.ops.attention import (
-        encoder_attention,
-        encoder_attention_reference,
-    )
+    shape; and the wrapper's host µs per call.  The plain version runs in
+    slices of ``plain_rows(shape)`` sequences, one after the other."""
+    from pathway_tpu_torch.ops.attention import encoder_attention
 
     B, S, H, heads = shape
     hd = H // heads
@@ -239,7 +281,7 @@ def time_attention_shape(gen, shape, device) -> dict:
         for q, k, v, mask in inputs
     ]
     kernel = [lambda x=x: encoder_attention(*x, heads) for x in inputs]
-    plain = [lambda x=x: encoder_attention_reference(*x, heads) for x in inputs]
+    plain = [lambda x=x: plain_attention(*x, heads) for x in inputs]
     library = [
         lambda x=x: torch.nn.functional.scaled_dot_product_attention(x[0], x[1], x[2], attn_mask=x[3])
         for x in sdpa_inputs
@@ -254,6 +296,7 @@ def time_attention_shape(gen, shape, device) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "input_copies": copies,
+        "plain_rows": plain_rows(shape),
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     log("kernels", timed=list(shape), **{k: v for k, v in row.items() if k != "shape"})
@@ -324,19 +367,45 @@ def attention_phase(device) -> tuple[dict, dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def synthetic_corpus(n: int, seed: int) -> tuple[list[str], np.ndarray]:
-    """``n`` texts of 6-60 words over a 20,000-word synthetic vocabulary."""
+def synthetic_corpus(n: int, seed: int, words_per_text: tuple[int, int] = (6, 60)):
+    """``n`` texts of 6-60 words (or ``words_per_text``) over a 20,000-word
+    synthetic vocabulary drawn from ``seed``: the texts, their lengths in
+    words, each text's word ids and the vocabulary."""
     rng = np.random.default_rng(seed)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     word_lens = rng.integers(3, 10, size=20000)
     vocab = ["".join(rng.choice(letters, size=int(n_))) for n_ in word_lens]
-    lengths = rng.integers(6, 61, size=n)
+    lengths = rng.integers(words_per_text[0], words_per_text[1] + 1, size=n)
     words = rng.integers(0, len(vocab), size=int(lengths.sum()))
-    texts, at = [], 0
+    texts, ids, at = [], [], 0
     for length in lengths:
-        texts.append(" ".join(vocab[w] for w in words[at : at + length]))
+        ids.append(words[at : at + length])
+        texts.append(" ".join(vocab[w] for w in ids[-1]))
         at += length
-    return texts, lengths
+    return texts, lengths, ids, vocab
+
+
+def record_launches(encoder, seen: dict):
+    """Add ``encoder``'s attention launches per shape (B, S, H, heads) to
+    ``seen``: one per layer of each forward its model runs."""
+    cfg = encoder.config
+
+    def hook(_module, args):
+        shape = (*args[0].shape, cfg.hidden, cfg.heads)
+        seen[shape] = seen.get(shape, 0) + cfg.layers
+
+    return encoder.model.register_forward_pre_hook(hook)
+
+
+def encode_sorted(enc, texts, order) -> tuple[np.ndarray, float]:
+    """``enc.encode`` over ``texts`` in length-sorted batches of
+    ``max_batch``: the embeddings in the texts' order, and the seconds."""
+    embs = np.empty((len(texts), enc.dimensions), np.float32)
+    t0 = time.perf_counter()
+    for start in range(0, len(texts), enc.max_batch):
+        ids = order[start : start + enc.max_batch]
+        embs[ids] = enc.encode([texts[i] for i in ids])
+    return embs, time.perf_counter() - t0
 
 
 def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-MiniLM-L6-v2",
@@ -361,7 +430,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
             torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    texts, lengths = synthetic_corpus(docs, seed)
+    texts, lengths, _, _ = synthetic_corpus(docs, seed)
     log("main", step="corpus", docs=docs, seconds=time.perf_counter() - t0)
 
     # the encoder and the index run on the card by default; the keyword is
@@ -375,28 +444,16 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     rng = np.random.default_rng(seed + 1)
     picks = rng.choice(docs, size=(query_batches + 1, batch_queries), replace=False)
     cfg = enc.config
-    # forwards per (batch, seq) shape, hence the attention launches per shape
-    seen: dict[tuple, int] = {}
-
-    def count_forward(_module, args):
-        shape = (*args[0].shape, cfg.hidden, cfg.heads)
-        seen[shape] = seen.get(shape, 0) + 1
-
-    enc.model.register_forward_pre_hook(count_forward)
+    seen: dict[tuple, int] = {}  # attention launches per shape
+    record_launches(enc, seen)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
 
     # ---- the counted run: counts zeroed just before, read just after ----
     encoder_attention.launches = 0
     forwards_before = enc.forward_batches
-    embs = np.empty((docs, enc.dimensions), np.float32)
     sync()
-    t0 = time.perf_counter()
-    for start in range(0, docs, enc.max_batch):
-        ids = order[start : start + enc.max_batch]
-        embs[ids] = enc.encode([texts[i] for i in ids])
-    sync()
-    encode_s = time.perf_counter() - t0
+    embs, encode_s = encode_sorted(enc, texts, order)
     # a stream encodes texts as they arrive: nearly every batch pads to the
     # longest seq bucket
     t0 = time.perf_counter()
@@ -423,7 +480,6 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
         queries.append(q)
     launches = {"encoder_attention": encoder_attention.launches}
     forwards = enc.forward_batches - forwards_before
-    shape_forwards = dict(seen)
     # ---- end of the counted run ----
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
@@ -450,7 +506,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     if launches["encoder_attention"] != expected:
         fail(f"attention launches {launches['encoder_attention']} != {expected} "
              f"({cfg.layers} layers x {forwards} forward batches)")
-    by_shape = {sh: cfg.layers * n for sh, n in shape_forwards.items()} if on_card else {}
+    by_shape = dict(seen) if on_card else {}
     if sum(by_shape.values()) != launches["encoder_attention"]:
         fail(f"attention launches per shape {by_shape} do not add up to "
              f"{launches['encoder_attention']}")
@@ -485,11 +541,11 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
     # every attention shape this run gave the kernel, against the plain version
     if on_card:
         gen = torch.Generator(device=device).manual_seed(seed)
-        for shape in sorted(set(shape_forwards) - set(checked)):
+        for shape in sorted(set(seen) - set(checked)):
             checked[shape] = check_attention_shape(gen, shape, device)
-    log("main", step="shapes", attention_shapes=sorted(shape_forwards),
+    log("main", step="shapes", attention_shapes=sorted(seen),
         launches={str(list(sh)): n for sh, n in sorted(by_shape.items())},
-        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(shape_forwards) if sh in checked})
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen) if sh in checked})
 
     # the kernel path against the plain attention, on the same 64 texts
     sample = [texts[i] for i in picks[0]]
@@ -522,11 +578,371 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
             step["forward_ms"] = time_ms(lambda: enc.model(ids_t, mask_t), iters=10)
         step["forward_shape"] = list(ids_t.shape)
     log("main", step="breakdown", **step)
-    return {"launches": launches, "attention_launches": by_shape, "emb_per_s": docs / encode_s}
+    return {"launches": launches, "attention_launches": by_shape, "emb_per_s": docs / encode_s,
+            "texts": texts, "lengths": lengths}
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: decoder generation, dense DecoderLM and the continuous scheduler.
+# Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
+# ---------------------------------------------------------------------------
+
+RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
+RERANK_CHUNKS = 16384
+CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
+QUERY_WORDS = (6, 20)
+QUERY_SWAP = 0.25  # share of a query's words swapped for random ones
+RERANK_BATCHES = 8  # timed, after one untimed warm-up batch
+RERANK_QUERIES = 64
+RETRIEVE_K = 32
+RERANK_KEEP = 5  # rerank_topk_filter's k (xpacks/llm/rerankers.py:137-149)
+RERANK_MICRO_BATCH = 256  # CrossEncoderReranker's max_batch_size (xpacks/llm/rerankers.py:30)
+BGE_MODEL = "BAAI/bge-base-en-v1.5"
+ENCODER_TEXTS = 32768
+W8A8_COS_MIN = 0.99  # the JAX package's W8A8 pin (tests/test_quantized_encoder.py:49)
+OVERLAP_MIN = 0.85  # its neighbour-overlap pin (:68)
+OVERLAP_QUERIES = 256
+OVERLAP_K = 10
+
+
+def score_tol(ref) -> float:
+    """0.05·(max|ref|+1): the JAX package's cross-encoder pin
+    (tests/test_attention_kernel.py:135)."""
+    return 0.05 * (float(np.abs(ref).max()) + 1.0)
+
+
+def micro_batches(n: int) -> list[range]:
+    """The reference reranker's ``score`` calls over ``n`` pairs: its
+    micro-batcher flushes every 256 submissions in arrival order
+    (``AsyncMicroBatcher``, ``utils/batching.py``), and each call pads to
+    its longest pair."""
+    return [range(a, min(a + RERANK_MICRO_BATCH, n)) for a in range(0, n, RERANK_MICRO_BATCH)]
+
+
+def rerank_batch(enc, index, ce, queries, chunks) -> dict:
+    """One retrieve-then-rerank step: encode the queries, retrieve the top
+    32 chunks of each, score the (query, chunk) pairs, keep the 5 best of
+    each query (``rerank_topk_filter`` on numpy scores)."""
+    t0 = time.perf_counter()
+    q = enc.encode(queries)
+    hits = index.search_many([(q[j], RETRIEVE_K, None) for j in range(len(queries))])
+    t1 = time.perf_counter()
+    if any(len(h) != RETRIEVE_K for h in hits):
+        fail(f"a query retrieved fewer than {RETRIEVE_K} chunks")
+    keys = np.array([[key for key, _ in h] for h in hits])  # [queries, 32]
+    pairs = [(queries[j], chunks[key]) for j in range(len(queries)) for key in keys[j]]
+    scores = np.concatenate([ce.score(pairs[mb.start : mb.stop]) for mb in micro_batches(len(pairs))])
+    scores = scores.reshape(keys.shape)
+    top = np.take_along_axis(keys, np.argsort(-scores, axis=1)[:, :RERANK_KEEP], axis=1)
+    t2 = time.perf_counter()
+    return {"keys": keys, "scores": scores, "top": top, "pairs": pairs,
+            "retrieve_s": t1 - t0, "rerank_s": t2 - t1}
+
+
+def rerank_queries(rng, batches: int, per_batch: int, lengths, chunk_words, vocab):
+    """``batches`` lists of ``per_batch`` queries of 6-20 words, each a span
+    of a random chunk with a quarter of its words swapped, and the chunk it
+    came from."""
+    out = []
+    for _ in range(batches):
+        texts, sources = [], []
+        for _ in range(per_batch):
+            c = int(rng.integers(len(lengths)))
+            n = int(rng.integers(QUERY_WORDS[0], QUERY_WORDS[1] + 1))
+            start = int(rng.integers(0, lengths[c] - n + 1))
+            words = chunk_words[c][start : start + n].copy()
+            swap = rng.random(n) < QUERY_SWAP
+            words[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+            texts.append(" ".join(vocab[w] for w in words))
+            sources.append(c)
+        out.append((texts, np.array(sources)))
+    return out
+
+
+def percentiles(values) -> dict:
+    return {"p50": float(np.percentile(values, 50)), "p99": float(np.percentile(values, 99)),
+            "max": float(np.max(values))}
+
+
+def rerank_phase(device, seed: int, checked: dict, n_chunks: int = RERANK_CHUNKS,
+                 batches: int = RERANK_BATCHES, batch_queries: int = RERANK_QUERIES) -> dict:
+    """The retrieve-then-rerank step of the RAG path at full width: embed a
+    corpus of chunks into a cosine index with all-MiniLM-L6-v2, then per
+    batch of 64 queries retrieve the top 32 chunks, score the 2,048 pairs
+    with the ms-marco-MiniLM-L-6-v2 cross-encoder and keep the top 5.
+    ``checked`` gains the attention shapes the run gave the kernel."""
+    import pathway_tpu_torch as pt
+    from pathway_tpu_torch.models.encoder import fused_cross_apply
+    from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
+    from pathway_tpu_torch.ops.attention import encoder_attention, encoder_attention_reference
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    chunks, lengths, chunk_words, vocab = synthetic_corpus(n_chunks, seed + 4, CHUNK_WORDS)
+    query_batches = rerank_queries(np.random.default_rng(seed + 5), batches + 1, batch_queries,
+                                   lengths, chunk_words, vocab)
+    log("rerank", step="corpus", chunks=n_chunks, words_min=int(lengths.min()), words_max=int(lengths.max()),
+        words_mean=float(lengths.mean()), batches=batches, warmup_batches=1, queries_per_batch=batch_queries,
+        retrieve_k=RETRIEVE_K, keep=RERANK_KEEP, seconds=time.perf_counter() - t0)
+
+    kw = {} if on_card else {"device": device}
+    enc = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed, **kw)
+    ce = pt.CrossEncoder(RERANK_MODEL, seed=seed, **kw)
+    index = pt.BruteForceKnnIndex(pt.DistanceMetric.COS, **kw)
+    cfg = ce.config
+    log("rerank", step="model", model=RERANK_MODEL, layers=cfg.layers, hidden=cfg.hidden, heads=cfg.heads,
+        intermediate=cfg.intermediate, vocab_size=cfg.vocab_size, max_len=cfg.max_len,
+        max_batch=ce.max_batch, n_params=ce.n_params(), pretrained=ce.pretrained, device=str(ce.device))
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(m, seen) for m in (enc, ce)]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    forwards_before = enc.forward_batches + ce.forward_batches
+    t0 = time.perf_counter()
+    order = np.argsort(lengths, kind="stable")
+    for start in range(0, n_chunks, enc.max_batch):
+        ids = order[start : start + enc.max_batch]
+        for i, vec in zip(ids, enc.encode([chunks[i] for i in ids])):
+            index.add(int(i), vec)
+    index.search(vec, 1)  # builds and uploads the device index (vec: the last chunk's)
+    index_s = time.perf_counter() - t0
+    steps = [rerank_batch(enc, index, ce, texts, chunks) for texts, _ in query_batches]
+    launches = {"encoder_attention": encoder_attention.launches}
+    forwards = enc.forward_batches + ce.forward_batches - forwards_before
+    # ---- end of the counted run ----
+    for h in hooks:
+        h.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    timed = steps[1:]
+    n_pairs = sum(len(st["pairs"]) for st in timed)
+    rerank_s = sum(st["rerank_s"] for st in timed)
+    retrieve_ms = [st["retrieve_s"] * 1e3 for st in timed]
+    rerank_ms = [st["rerank_s"] * 1e3 for st in timed]
+    batch_ms = [a + b for a, b in zip(retrieve_ms, rerank_ms)]
+    in_32 = np.mean([np.mean([src in keys for src, keys in zip(sources, st["keys"])])
+                     for (_, sources), st in zip(query_batches, steps)])
+    in_5 = np.mean([np.mean([src in top for src, top in zip(sources, st["top"])])
+                    for (_, sources), st in zip(query_batches, steps)])
+    log("rerank", step="index", chunks=n_chunks, seconds=index_s, emb_per_s=n_chunks / index_s)
+    log("rerank", step="batches", pairs=n_pairs, pairs_per_s=n_pairs / rerank_s,
+        queries_per_s=len(timed) * batch_queries / (sum(batch_ms) / 1e3),
+        batch_latency_ms=percentiles(batch_ms), retrieve_latency_ms=percentiles(retrieve_ms),
+        rerank_latency_ms=percentiles(rerank_ms),
+        source_chunk_in_top32=float(in_32), source_chunk_in_top5=float(in_5),
+        forward_batches=forwards, peak_mem_gb=peak_gb)
+
+    # where a timed batch's rerank time goes: the host tokenizer alone, then
+    # the scoring of the tokenized pairs (padding, copies, forwards, scores
+    # back); and the tokenizer alone on 2,048 corpus chunks
+    st = steps[1]
+    t0 = time.perf_counter()
+    tokenized = [[ce.tokenizer.encode_pair(*st["pairs"][i]) for i in mb] for mb in micro_batches(len(st["pairs"]))]
+    t1 = time.perf_counter()
+    for id_lists in tokenized:
+        ce._run_padded(id_lists)
+    t2 = time.perf_counter()
+    sample = chunks[:2048]
+    t3 = time.perf_counter()
+    for text in sample:
+        enc.tokenizer.encode(text)
+    t4 = time.perf_counter()
+    seqs = [bucket_seq_len(max(len(x) for x in id_lists)) for id_lists in tokenized]
+    log("rerank", step="breakdown", batch=1, rerank_ms=st["rerank_s"] * 1e3, tokenize_pairs_ms=(t1 - t0) * 1e3,
+        score_tokenized_ms=(t2 - t1) * 1e3, micro_batches=len(tokenized), micro_batch_seq=seqs,
+        pair_ids_mean=float(np.mean([len(x) for group in tokenized for x in group])),
+        padded_ids_share=1.0 - sum(len(x) for group in tokenized for x in group)
+        / sum(seq * len(group) for seq, group in zip(seqs, tokenized)),
+        chunks_per_s_tokenizer=len(sample) / (t4 - t3))
+
+    expected = sum(seen.values()) if on_card else 0
+    by_shape = dict(seen) if on_card else {}
+    if launches["encoder_attention"] != expected or (on_card and not expected):
+        fail(f"rerank: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen})")
+    for st in steps:
+        if not np.isfinite(st["scores"]).all() or st["scores"].shape != (batch_queries, RETRIEVE_K):
+            fail(f"rerank: scores of shape {st['scores'].shape} or non-finite")
+
+    # the first batch's kernel-path scores against the plain attention
+    first = steps[0]
+    tree = ce.model.tree()
+    plain = np.empty(len(first["pairs"]), np.float32)
+    with torch.inference_mode():
+        for idx in micro_batches(len(first["pairs"])):
+            id_lists = [ce.tokenizer.encode_pair(*first["pairs"][i]) for i in idx]
+            ids, mask = pad_batch(id_lists, bucket_seq_len(max(len(x) for x in id_lists)))
+            rows = plain_rows((len(idx), ids.shape[1], cfg.hidden, cfg.heads))
+            for a in range(0, len(idx), rows):
+                ids_t = torch.from_numpy(ids[a : a + rows]).to(device)
+                mask_t = torch.from_numpy(mask[a : a + rows]).to(device)
+                plain[np.array(idx[a : a + rows])] = fused_cross_apply(
+                    tree, ids_t, mask_t, cfg, attention=encoder_attention_reference).cpu().numpy()
+    plain = plain.reshape(first["scores"].shape)
+    err, tol = float(np.abs(first["scores"] - plain).max()), score_tol(plain)
+    same, ties, gaps = 0, 0, []
+    for j in range(batch_queries):
+        ref_top = first["keys"][j][np.argsort(-plain[j])[:RERANK_KEEP]]
+        desc = np.sort(plain[j])[::-1]
+        gap = float(desc[RERANK_KEEP - 1] - desc[RERANK_KEEP])  # the plain scores' 5th/6th gap
+        gaps.append(gap)
+        if set(ref_top) == set(first["top"][j]):
+            same += 1
+        elif gap < tol:
+            ties += 1
+        else:
+            fail(f"rerank: query {j} kept {sorted(first['top'][j])}, the plain path "
+                 f"{sorted(ref_top)}, with a 5th/6th gap {gap} >= {tol}")
+    log("rerank", step="check", pairs=plain.size, max_abs_err=err, tol=tol,
+        score_min=float(plain.min()), score_max=float(plain.max()), score_std=float(plain.std()),
+        top5_identical=same, top5_parted_at_near_tie=ties, gap_5th_6th_median=float(np.median(gaps)),
+        queries_with_gap_under_tol=int(np.sum(np.array(gaps) < tol)))
+    if err >= tol:
+        fail(f"rerank: kernel-path scores vs plain attention: max abs err {err} >= {tol}")
+
+    # every attention shape this run gave the kernel, against the plain version
+    if on_card:
+        gen = torch.Generator(device=device).manual_seed(seed + 4)
+        for shape in sorted(set(seen) - set(checked)):
+            checked[shape] = check_attention_shape(gen, shape, device)
+    log("rerank", step="shapes", launches={str(list(sh)): n for sh, n in sorted(by_shape.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(by_shape)})
+    return {"launches": launches, "attention_launches": by_shape, "pairs_per_s": n_pairs / rerank_s,
+            "batch_latency_ms": percentiles(batch_ms), "peak_mem_gb": peak_gb}
+
+
+def top_neighbours(embs, rows, k: int, device):
+    """The ``k`` nearest rows by cosine of each of ``rows``, itself left out."""
+    e = torch.from_numpy(embs).to(device)
+    e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    rows_t = torch.from_numpy(rows).to(device)
+    scores = e[rows_t] @ e.T
+    scores[torch.arange(len(rows), device=device), rows_t] = -float("inf")
+    return scores.topk(k, dim=1).indices.cpu().numpy()
+
+
+def w8a8_matmuls(bf16, w8a8, device) -> None:
+    """Device ms (CUDA graphs) of layer 0's four matmuls at the (512, 64)
+    batch's 32,768 rows: the bf16 product, the whole W8A8 ``_qdot``, and
+    its ``torch._int_mm`` alone."""
+    from pathway_tpu_torch.models.encoder import _qdot
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    plain, quant = bf16.model.tree()["layers"][0], w8a8.model.tree()["layers"][0]
+    rows = bf16.max_batch * 64
+    for name in ("qkv_k", "out_k", "ff1_k", "ff2_k"):
+        w = plain[name]
+        x = torch.randn((rows, w.shape[0]), generator=gen, device=device).to(torch.bfloat16)
+        xq = torch.randint(-127, 128, x.shape, generator=gen, device=device, dtype=torch.int8)
+        log("encoders", step="w8a8_op", matmul=name, rows=rows, k=w.shape[0], n=w.shape[1],
+            bf16_ms=device_ms([lambda: x @ w], reps=20),
+            qdot_ms=device_ms([lambda: _qdot(x, quant[name])], reps=20),
+            int_mm_ms=device_ms([lambda: torch._int_mm(xq, quant[name]["q"])], reps=20))
+
+
+def encoders_phase(device, seed: int, checked: dict, texts, lengths, n_texts: int = ENCODER_TEXTS) -> dict:
+    """The rest of the encoder family at full width on the main corpus:
+    BGE-base (12 layers, H=768, hd=64, CLS pooling), then all-MiniLM-L6-v2
+    in bf16 and W8A8, on the same texts in the same call."""
+    import pathway_tpu_torch as pt
+    from pathway_tpu_torch.models.encoder import fused_sentence_apply
+    from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
+    from pathway_tpu_torch.ops.attention import encoder_attention, encoder_attention_reference
+
+    on_card = torch.device(device).type == "cuda"
+    texts, lengths = texts[:n_texts], lengths[:n_texts]
+    order = np.argsort(lengths, kind="stable")
+    kw = {} if on_card else {"device": device}
+    bge = pt.SentenceEncoder(BGE_MODEL, seed=seed, **kw)
+    bf16 = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed, **kw)
+    w8a8 = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed, quantize="int8", **kw)
+    cfg = bge.config
+    log("encoders", step="models", texts=len(texts), bge=dict(model=BGE_MODEL, layers=cfg.layers,
+        hidden=cfg.hidden, heads=cfg.heads, head_dim=cfg.hidden // cfg.heads, pooling=cfg.pooling,
+        n_params=bge.n_params()), w8a8=dict(quantize=w8a8._quantize, n_params=w8a8.n_params()))
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(m, seen) for m in (bge, bf16, w8a8)]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    bge_embs, bge_s = encode_sorted(bge, texts, order)
+    bf16_embs, bf16_s = encode_sorted(bf16, texts, order)
+    w8a8_embs, w8a8_s = encode_sorted(w8a8, texts, order)
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    for h in hooks:
+        h.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    n = len(texts)
+    rates = {"bge_emb_per_s": n / bge_s, "minilm_bf16_emb_per_s": n / bf16_s, "minilm_w8a8_emb_per_s": n / w8a8_s}
+    step = {}
+    if on_card:  # one forward at the largest length-sorted batch, device and host together
+        ids_t = torch.randint(104, bf16.config.vocab_size, (bf16.max_batch, 64), device=device)
+        mask_t = torch.ones_like(ids_t)
+        with torch.inference_mode():
+            for name, enc in (("bge", bge), ("minilm_bf16", bf16), ("minilm_w8a8", w8a8)):
+                step[f"{name}_forward_ms"] = time_ms(lambda enc=enc: enc.model(ids_t, mask_t), iters=10)
+    log("encoders", step="encode", order="length-sorted", texts=n, **rates, **step, peak_mem_gb=peak_gb)
+    if on_card:
+        w8a8_matmuls(bf16, w8a8, device)
+
+    expected = sum(seen.values()) if on_card else 0
+    by_shape = dict(seen) if on_card else {}
+    if launches["encoder_attention"] != expected or (on_card and not expected):
+        fail(f"encoders: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen})")
+    for name, e, dim in (("bge", bge_embs, cfg.hidden), ("bf16", bf16_embs, 384), ("w8a8", w8a8_embs, 384)):
+        if not np.isfinite(e).all() or e.shape != (n, dim):
+            fail(f"encoders: {name} embeddings of shape {e.shape} or non-finite")
+
+    # BGE's embeddings from the counted run against the plain attention, on
+    # the first, a middle and the last length-sorted batch (seq buckets
+    # 16, 32 and 64 at the full corpus)
+    n_batches = -(-n // bge.max_batch)
+    worst = 1.0
+    with torch.inference_mode():
+        for b in sorted({0, n_batches // 2, n_batches - 1}):
+            ids = order[b * bge.max_batch : (b + 1) * bge.max_batch]
+            id_lists = [bge.tokenizer.encode(texts[i]) for i in ids]
+            tok, mask = pad_batch(id_lists, bucket_seq_len(max(len(x) for x in id_lists)))
+            ref = fused_sentence_apply(bge.model.tree(), torch.from_numpy(tok).to(device),
+                                       torch.from_numpy(mask).to(device), cfg,
+                                       attention=encoder_attention_reference).cpu().numpy()
+            cos = (ref * bge_embs[ids]).sum(1) / (np.linalg.norm(ref, axis=1) * np.linalg.norm(bge_embs[ids], axis=1))
+            worst = min(worst, float(cos.min()))
+            log("encoders", step="check_bge", batch=b, seq=tok.shape[1], min_cos_kernel_vs_plain=float(cos.min()))
+    if worst <= COS_MIN:
+        fail(f"BGE kernel-path embeddings vs plain attention: min cosine {worst}")
+
+    # W8A8 against bf16: every row's cosine, and the neighbours of 256 rows
+    cos = (w8a8_embs * bf16_embs).sum(1) / (np.linalg.norm(w8a8_embs, axis=1) * np.linalg.norm(bf16_embs, axis=1))
+    rows = np.random.default_rng(seed + 6).choice(n, size=min(OVERLAP_QUERIES, n), replace=False)
+    k = min(OVERLAP_K, n - 1)
+    a, b = top_neighbours(bf16_embs, rows, k, device), top_neighbours(w8a8_embs, rows, k, device)
+    overlap = float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a, b)]))
+    log("encoders", step="check_w8a8", min_cos_vs_bf16=float(cos.min()), mean_cos_vs_bf16=float(cos.mean()),
+        neighbour_overlap=overlap, queries=len(rows), k=k, w8a8_over_bf16_emb_per_s=rates["minilm_w8a8_emb_per_s"]
+        / rates["minilm_bf16_emb_per_s"])
+    if cos.min() <= W8A8_COS_MIN:
+        fail(f"W8A8 vs bf16 embeddings: min cosine {cos.min()}")
+    if overlap <= OVERLAP_MIN:
+        fail(f"W8A8 vs bf16 top-{k} neighbour overlap {overlap}")
+
+    if on_card:
+        gen = torch.Generator(device=device).manual_seed(seed + 6)
+        for shape in sorted(set(seen) - set(checked)):
+            checked[shape] = check_attention_shape(gen, shape, device)
+    log("encoders", step="shapes", launches={str(list(sh)): n_ for sh, n_ in sorted(by_shape.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(by_shape)})
+    return {"launches": launches, "attention_launches": by_shape, **rates, "peak_mem_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: decoder generation, dense DecoderLM and the continuous scheduler.
 # ---------------------------------------------------------------------------
 
 GEN_MODEL = "mistral-7b-instruct"
@@ -656,6 +1072,7 @@ def generate_phase(device, seed: int, card: str) -> dict:
         pages=sched.num_pages, prefill_chunk=sched.prefill_chunk, queue_limit=sched.queue_limit,
         pool_gb=2 * sched._k_pool.numel() * sched._k_pool.element_size() / 1e9,
         dense_kv_gb=sched.dense_kv_bytes / 1e9, requests=GEN_REQUESTS, sampled=sampled,
+        host_gc_objects=len(gc.get_objects()), cuda_reserved_gb=torch.cuda.memory_reserved() / 1e9,
         prompt_len_min=int(lengths.min()), prompt_len_max=int(lengths.max()),
         prompt_len_mean=float(lengths.mean()))
 
@@ -889,7 +1306,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--skip", default="", help="comma-separated phases to leave out: rerank, encoders, generate")
     args = parser.parse_args(argv)
+    skip = {name for name in args.skip.split(",") if name}
+    if skip - {"rerank", "encoders", "generate"}:
+        parser.error(f"--skip takes rerank, encoders, generate; got {args.skip!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -919,19 +1340,31 @@ def main(argv=None) -> int:
     log("kernels", **{k: v for k, v in attention.items() if k != "launches"})
 
     result = main_path(device, args.docs, args.seed, checked)
-    generate_phase(device, args.seed, card)
+    texts, lengths = result.pop("texts"), result.pop("lengths")
+    phases = {"main": result}
+    if "rerank" not in skip:
+        phases["rerank"] = rerank_phase(device, args.seed, checked)
+    if "encoders" not in skip:
+        phases["encoders"] = encoders_phase(device, args.seed, checked, texts, lengths)
+    del texts, lengths
+    torch.cuda.empty_cache()
+    if "generate" not in skip:
+        generate_phase(device, args.seed, card)
     attention["max_abs_err"] = max(checked.values())
-    # one row per attention shape of the main path, timed here if phase 3 had not
+    # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
     attention["shapes"] = []
-    for shape, n in sorted(result["attention_launches"].items()):
-        if shape not in timed:
-            timed[shape] = time_attention_shape(gen, shape, device)
-        attention["shapes"].append(dict(timed[shape], launches=n, max_abs_err=checked[shape]))
-    kernels = [dict(attention, launches=result["launches"][attention["name"]])]
+    for phase, res in phases.items():
+        for shape, n in sorted(res["attention_launches"].items()):
+            if shape not in timed:
+                timed[shape] = time_attention_shape(gen, shape, device)
+            attention["shapes"].append(dict(timed[shape], phase=phase, launches=n, max_abs_err=checked[shape]))
+    by_phase = {phase: res["launches"][attention["name"]] for phase, res in phases.items()}
+    kernels = [dict(attention, launches=result["launches"][attention["name"]], launches_by_phase=by_phase)]
     for kern in kernels:
-        if not kern["launches"]:
-            fail(f"kernel {kern['name']} was not launched on the main path")
+        for phase, n in kern["launches_by_phase"].items():
+            if not n:
+                fail(f"kernel {kern['name']} was not launched on the {phase} path")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The streaming embed-and-retrieve path: text → sentence encoder (with a
 hand-written CUDA encoder-attention kernel) → L2-normalised vectors → a
-device-resident brute-force index → masked top-k.  Decoder generation:
+device-resident brute-force index → masked top-k.  Reranking: the
+``CrossEncoder`` scores (query, document) pairs over the same trunk and
+kernel; both encoders serve W8A8 on request.  Decoder generation:
 ``DecoderLM`` (dense KV cache) and the continuous-batching
 ``GenerationScheduler`` over a paged KV cache.  Entry points run on the
 first CUDA device unless the caller passes ``device=`` (``"cpu"`` runs the
@@ -12,7 +14,7 @@ kernels' plain PyTorch versions).  The port imports nothing of JAX or of
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderLM
-from pathway_tpu_torch.models.encoder import SentenceEncoder
+from pathway_tpu_torch.models.encoder import CrossEncoder, SentenceEncoder
 from pathway_tpu_torch.serving.generation import GenerationScheduler
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
     BruteForceKnnIndex,
@@ -21,6 +23,7 @@ from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
 
 __all__ = [
     "BruteForceKnnIndex",
+    "CrossEncoder",
     "DecoderLM",
     "DistanceMetric",
     "GenerationScheduler",

@@ -6,10 +6,11 @@ A callable is registered once under a name with its bucket policy;
 each chunk's batch axis, runs the callable on the executor's device under
 ``torch.inference_mode()``, slices the padding off and concatenates the
 chunks back into numpy arrays.  Each registered callable counts its
-dispatches (one per chunk).
+dispatches (one per chunk).  ``warmup`` runs each bucket once before
+traffic.
 
-Resilience (retry, breaker, host fallback, OOM ratchet), telemetry,
-futures and warm-up wait for a later slice of the port.
+Resilience (retry, breaker, host fallback, OOM ratchet), telemetry and
+futures wait for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -50,6 +51,29 @@ class DeviceExecutor:
     def dispatches(self, name: str) -> int:
         """How many fixed-shape chunks ``name`` has run."""
         return self._callables[name].dispatches
+
+    def warmup(
+        self,
+        name: str,
+        row_shapes: Sequence[tuple[int, ...]],
+        dtypes: Sequence[Any],
+        *,
+        buckets: Sequence[int] | None = None,
+    ) -> int:
+        """Run ``name`` once on all-zero arrays at every bucket of its policy
+        (or at ``buckets``), before traffic; ``row_shapes`` and ``dtypes``
+        describe one row of each array.  Returns how many buckets ran; they
+        are not counted as dispatches."""
+        entry = self._callables[name]
+        buckets = entry.policy.buckets() if buckets is None else buckets
+        for bucket in buckets:
+            tensors = [
+                torch.from_numpy(np.zeros((bucket, *shape), dtype)).to(self.device)
+                for shape, dtype in zip(row_shapes, dtypes)
+            ]
+            with torch.inference_mode():
+                entry.fn(*tensors)
+        return len(buckets)
 
     def run_batch(
         self,

@@ -153,7 +153,8 @@ def test_device_default_raises_without_cuda(model_dir, monkeypatch):
 def test_port_imports_nothing_of_jax(model_dir):
     """In a fresh interpreter that cannot import jax, flax, pathway_tpu (or
     transformers, which the card lacks), the port imports and runs the
-    embed-and-retrieve slice and the generation path on the CPU."""
+    embed-and-retrieve slice, reranking with the cross-encoder, W8A8
+    embeddings and the generation path on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -167,6 +168,7 @@ def test_port_imports_nothing_of_jax(model_dir):
                 return None
 
         sys.meta_path.insert(0, Block())
+        import numpy as np
         import pathway_tpu_torch as pt
 
         enc = pt.SentenceEncoder({model_dir!r}, device="cpu")
@@ -176,6 +178,14 @@ def test_port_imports_nothing_of_jax(model_dir):
             index.add(i, vec)
         hits = index.search(enc.encode_one(texts[17]), 3)
         assert hits[0][0] == 17, hits
+
+        ce = pt.CrossEncoder({model_dir!r}, device="cpu")
+        assert not ce.pretrained
+        scores = ce.score([(texts[17], texts[key]) for key, _ in hits])
+        assert scores.shape == (3,) and np.isfinite(scores).all(), scores
+        w8a8 = pt.SentenceEncoder({model_dir!r}, quantize="int8", device="cpu")
+        a, b = w8a8.encode(texts[:8]), enc.encode(texts[:8])
+        assert (a * b).sum(axis=1).min() > 0.99
 
         lm = pt.DecoderLM("pw-tiny-decoder", max_cache=64, device="cpu")
         sched = pt.GenerationScheduler(lm, slots=2)
