@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate,moe,speculative]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -50,11 +50,33 @@ Phases, each on a line of its own; any failure exits non-zero:
    every sampled token held to its top-p support; then device (CUDA
    graphs) and host ms of a decode tick and a prefill chunk at 8 slots,
    paged attention beside its bound and SDPA, and each op of the decode
-   step.
+   step;
+8. moe: mixtral-8x7b-instruct at full width (32 layers, 8 experts, top-2,
+   expert FFN 14336) with seeded int8 weights (≈ 46.8 GB) on one card: a
+   burst of 16 requests (64-512 prompt ids, 64 new tokens, 12 greedy and 4
+   at temperature 0.7 / top-p 0.9) through ``GenerationScheduler`` with
+   phase 7's checks against the dense path, the teacher-forced logits
+   compared at the steps whose own token took the same experts in both
+   paths (top-2 routing parts at near-tied router probabilities when the
+   two paths round differently; those steps are counted, beside the dense
+   path run against itself row by row); layer 0's ``moe_ffn`` on 64
+   random tokens against an f32 per-token loop over each token's own
+   top-2 experts (the same experts, relative error < 2e-2), the int8
+   ``_mm`` at ``wq`` likewise; decode tick and prefill chunk device/host
+   ms beside their bounds, and each op of the MoE FFN at the decode shape
+   beside a bf16 product at the ``wq`` shape;
+9. speculative: mistral-7b-instruct in bf16 with its int8 draft:
+   ``generate_ids_speculative(n_draft=8)`` and greedy ``generate_ids`` on
+   the same 8 prompts (64-512 ids, 64 new tokens), rows equal but at
+   near-ties; tokens accepted per round, acceptance rate, tokens/s of
+   both, and the device ms of the int8 draft's decode step against the
+   bf16 one at B=8.
 
-``--skip`` leaves out the named phases of 5-7 (all run by default), to
-time one phase without the ones before it in the same process.  Then one
-JSON line with every kernel's numbers, and last the line
+Phases 7-9 run one model at a time; the encoder kernel is on none of their
+paths, and its launches there are counted and must be 0.  ``--skip``
+leaves out the named phases of 5-9 (all run by default), to time one
+phase without the ones before it in the same process.  Then the total
+seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  It imports nothing of JAX or of ``pathway_tpu``.
 """
@@ -586,6 +608,8 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
+SKIPPABLE = ("rerank", "encoders", "generate", "moe", "speculative")
+DECODER_PHASES = ("generate", "moe", "speculative")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
 RERANK_CHUNKS = 16384
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
@@ -981,27 +1005,56 @@ def tensor_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def fed_tokens(rows, steps: int, device):
+    """``rows`` as ``[B, steps]`` ids (0 past a row's end) and their live mask."""
+    tok = torch.zeros((len(rows), steps), dtype=torch.int64, device=device)
+    live = torch.zeros((len(rows), steps), dtype=torch.bool, device=device)
+    for r, o in enumerate(rows):
+        tok[r, : min(len(o), steps)] = torch.tensor(o[:steps], dtype=torch.int64, device=device)
+        live[r, : len(o)] = True
+    return tok, live
+
+
+def dense_prefill(lm, tree, prompts):
+    """``prefill`` of ``prompts`` with the weights ``tree`` over the dense
+    path of ``lm``: logits, caches and the prompt lengths."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    dev = lm.device
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    ids = torch.zeros((len(prompts), dec._bucket_prompt_len(int(lens.max()), lm.max_cache)),
+                      dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        ids[i, : len(p)] = torch.tensor(p, device=dev)
+    return (*dec.prefill(tree, ids, lens, lm.config, lm.max_cache), lens)
+
+
 def dense_step_logits(lm, prompts, tokens, steps):
     """Dense-path logits ``[B, steps, V]`` of ``prompts`` fed ``tokens``
     (teacher forcing): step t's logits are the ones token t is chosen
     from.  Rows shorter than ``steps`` are fed 0s past their end."""
     from pathway_tpu_torch.models import decoder as dec
 
-    B, dev = len(prompts), lm.device
-    lens = torch.tensor([len(p) for p in prompts], device=dev)
-    S = dec._bucket_prompt_len(int(lens.max()), lm.max_cache)
-    ids = torch.zeros((B, S), dtype=torch.int64, device=dev)
-    for i, p in enumerate(prompts):
-        ids[i, : len(p)] = torch.tensor(p, device=dev)
-    feed = torch.zeros((B, steps), dtype=torch.int64, device=dev)
-    for i, t in enumerate(tokens):
-        feed[i, : min(len(t), steps)] = torch.tensor(t[:steps], dtype=torch.int64, device=dev)
-    logits, kc, vc = dec.prefill(lm.params, ids, lens, lm.config, lm.max_cache)
+    logits, kc, vc, lens = dense_prefill(lm, lm.params, prompts)
+    feed = fed_tokens(tokens, steps, lm.device)[0]
     out = [logits]
     for t in range(steps - 1):
         logits, kc, vc = dec.decode_step(lm.params, kc, vc, feed[:, t], lens + t, lm.config)
         out.append(logits)
     return torch.stack(out, dim=1)
+
+
+def dense_greedy(lm, tree, prompts, steps):
+    """Greedy rows of ``steps`` tokens (no EOS stop) of the weights ``tree``
+    over the dense path of ``lm``."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    logits, kc, vc, lens = dense_prefill(lm, tree, prompts)
+    out = [logits.argmax(dim=-1)]
+    for t in range(steps - 1):
+        logits, kc, vc = dec.decode_step(tree, kc, vc, out[-1], lens + t, lm.config)
+        out.append(logits.argmax(dim=-1))
+    return torch.stack(out, dim=1).tolist()
 
 
 def paged_step_logits(lm, prompts, tokens, steps):
@@ -1031,9 +1084,7 @@ def paged_step_logits(lm, prompts, tokens, steps):
             torch.tensor(starts, device=dev), cfg)
         logits = torch.where(torch.tensor(take, device=dev)[:, None], new, logits)
         done = [d + c for d, c in zip(done, clens)]
-    feed = torch.zeros((B, steps), dtype=torch.int64, device=dev)
-    for i, t in enumerate(tokens):
-        feed[i, : min(len(t), steps)] = torch.tensor(t[:steps], dtype=torch.int64, device=dev)
+    feed = fed_tokens(tokens, steps, dev)[0]
     seq = torch.tensor(lens, device=dev)
     out = [logits]
     for t in range(steps - 1):
@@ -1042,36 +1093,20 @@ def paged_step_logits(lm, prompts, tokens, steps):
     return torch.stack(out, dim=1)
 
 
-def generate_phase(device, seed: int, card: str) -> dict:
-    """Drive the generation path at full mistral-7b-instruct width through
-    its entry points, check it against the dense path, and time its parts."""
-    from pathway_tpu_torch.models import decoder as dec
+def serve_burst(lm, prompts, sampled, new_tokens: int, seed: int, phase: str) -> dict:
+    """Submit every prompt at once to a ``GenerationScheduler`` at the repo's
+    defaults (rows in ``sampled`` at temperature 0.7 / top-p 0.9, the rest
+    greedy) and wait for all: the answers, tokens/s, TTFT, latency and the
+    pages, with the encoder kernel's launches counted over the burst."""
     from pathway_tpu_torch.ops import attention as attn
     from pathway_tpu_torch.serving.generation import GenerationScheduler
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE)  # on cuda:0 by default
-    torch.cuda.synchronize()
-    cfg = lm.config
-    widths = {k: getattr(cfg, k) for k in GEN_WIDTHS}
-    weight_bytes = tensor_bytes(lm.params)
-    log("generate", step="model", model=GEN_MODEL, **widths, sliding_window=cfg.sliding_window,
-        dtype=str(cfg.dtype), n_params=lm.n_params(), weights_gb=weight_bytes / 1e9,
-        init_s=time.perf_counter() - t0, device=str(lm.device))
-    if widths != GEN_WIDTHS:
-        fail(f"decoder widths {widths} are not mistral-7b-instruct's {GEN_WIDTHS}")
-
-    rng = np.random.default_rng(seed + 3)
-    lengths = rng.integers(GEN_PROMPT_LENS[0], GEN_PROMPT_LENS[1] + 1, size=GEN_REQUESTS)
-    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist() for n in lengths]
-    sampled = sorted(rng.choice(GEN_REQUESTS, size=GEN_SAMPLED, replace=False).tolist())
-    greedy = [i for i in range(GEN_REQUESTS) if i not in sampled]
+    lengths = np.array([len(p) for p in prompts])
     sched = GenerationScheduler(lm, seed=seed)  # the repo's defaults
-    log("generate", step="scheduler", slots=sched.slots, page_size=sched.page_size,
+    log(phase, step="scheduler", slots=sched.slots, page_size=sched.page_size,
         pages=sched.num_pages, prefill_chunk=sched.prefill_chunk, queue_limit=sched.queue_limit,
         pool_gb=2 * sched._k_pool.numel() * sched._k_pool.element_size() / 1e9,
-        dense_kv_gb=sched.dense_kv_bytes / 1e9, requests=GEN_REQUESTS, sampled=sampled,
+        dense_kv_gb=sched.dense_kv_bytes / 1e9, requests=len(prompts), sampled=sampled,
         host_gc_objects=len(gc.get_objects()), cuda_reserved_gb=torch.cuda.memory_reserved() / 1e9,
         prompt_len_min=int(lengths.min()), prompt_len_max=int(lengths.max()),
         prompt_len_mean=float(lengths.mean()))
@@ -1080,11 +1115,11 @@ def generate_phase(device, seed: int, card: str) -> dict:
     attn.encoder_attention.launches = 0
     t0 = time.perf_counter()
     reqs = [
-        sched.submit_request(p, max_new_tokens=GEN_NEW_TOKENS,
+        sched.submit_request(p, max_new_tokens=new_tokens,
                              **({"temperature": GEN_TEMP, "top_p": GEN_TOP_P} if i in sampled else {}))
         for i, p in enumerate(prompts)
     ]
-    outs = [r.future.result(timeout=600) for r in reqs]  # raises if a request failed
+    outs = [r.future.result(timeout=900) for r in reqs]  # raises if a request failed
     burst_s = time.perf_counter() - t0
     launches = {"encoder_attention": attn.encoder_attention.launches}
     # ---- end of the counted run ----
@@ -1102,81 +1137,172 @@ def generate_phase(device, seed: int, card: str) -> dict:
         "ms_per_tick": burst_s * 1e3 / snap["decode_steps"],
         "kv_peak_gb": snap["kv_bytes_peak"] / 1e9, "kv_dense_gb": snap["kv_bytes_dense"] / 1e9,
     }
-    log("generate", step="burst", **burst, kernel_launches=launches, snapshot=snap)
+    log(phase, step="burst", **burst, kernel_launches=launches, snapshot=snap)
     if snap["pages_used"] or snap["pages_reserved"]:
-        fail(f"pages left after the burst: {snap['pages_used']} used, {snap['pages_reserved']} reserved")
+        fail(f"{phase}: pages left after the burst: {snap['pages_used']} used, {snap['pages_reserved']} reserved")
     if not 0 < snap["kv_bytes_peak"] < snap["kv_bytes_dense"]:
-        fail(f"peak KV {snap['kv_bytes_peak']} not in (0, dense {snap['kv_bytes_dense']})")
-    if snap["requests"] != GEN_REQUESTS or any(r.finished_at is None for r in reqs):
-        fail("not every request was served")
+        fail(f"{phase}: peak KV {snap['kv_bytes_peak']} not in (0, dense {snap['kv_bytes_dense']})")
+    if snap["requests"] != len(prompts) or any(r.finished_at is None for r in reqs):
+        fail(f"{phase}: not every request was served")
+    return {"outs": outs, "launches": launches, "burst": burst, "sched_slots": sched.slots}
 
+
+def first_parting(a, b) -> int | None:
+    """The first step at which token rows ``a`` and ``b`` differ, ``None``
+    when they are equal."""
+    if a == b:
+        return None
+    return next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
+
+
+def below_max(logits, tok, live) -> dict:
+    """How far each fed token's logit lies below the max of its step, over
+    ``near_tie_tol`` of that step: the tokens counted (``live``), those at
+    the max, those ``tol`` or more below it, and the worst gap/tol."""
+    chosen = logits.gather(-1, tok[..., None])[..., 0]
+    top = logits.amax(dim=-1)
+    ratio = torch.where(live, (top - chosen) / near_tie_tol(logits), 0.0)
+    tokens, over = int(live.sum()), int((ratio >= 1.0).sum())
+    return {"tokens": tokens, "max_share": int(((chosen == top) & live).sum()) / tokens,
+            "tokens_over_tol": over, "share_over_tol": over / tokens, "worst_gap_over_tol": float(ratio.max())}
+
+
+def emitted_gaps(lm, prompts, rows, steps: int) -> dict:
+    """:func:`below_max` of every token of ``rows`` (each continuing its
+    prompt) teacher-forced through the dense path of ``lm``, in batches of
+    ``GEN_REF_BATCH``."""
+    parts = [below_max(dense_step_logits(lm, prompts[b : b + GEN_REF_BATCH], rows[b : b + GEN_REF_BATCH], steps),
+                       *fed_tokens(rows[b : b + GEN_REF_BATCH], steps, lm.device))
+             for b in range(0, len(rows), GEN_REF_BATCH)]
+    tokens = sum(q["tokens"] for q in parts)
+    over = sum(q["tokens_over_tol"] for q in parts)
+    return {"tokens": tokens, "max_share": sum(q["max_share"] * q["tokens"] for q in parts) / tokens,
+            "tokens_over_tol": over, "share_over_tol": over / tokens,
+            "worst_gap_over_tol": max(q["worst_gap_over_tol"] for q in parts)}
+
+
+def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device, phase: str) -> int:
+    """The burst's answers against the dense path: every greedy token,
+    teacher-forced through the dense path, within tol of the max of its
+    step (the rows equal to ``DecoderLM.generate_ids`` but at near-ties);
+    the paged path's teacher-forced logits within tol of the dense path's;
+    every sampled token inside its top-p support.  Each check is logged
+    before the run fails on any.  Returns the greedy rows that parted."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    # greedy rows against the dense DecoderLM.generate_ids, in batches
+    dense = {}
+    for b in range(0, len(greedy), GEN_REF_BATCH):
+        rows = greedy[b : b + GEN_REF_BATCH]
+        for i, o in zip(rows, lm.generate_ids([prompts[i] for i in rows], max_new_tokens=new_tokens)):
+            dense[i] = o
+    parted = {i: t for i in greedy if (t := first_parting(outs[i], dense[i])) is not None}
+    emitted = emitted_gaps(lm, [prompts[i] for i in greedy], [outs[i] for i in greedy], new_tokens)
+
+    # logits of the paged path against the dense path, teacher-forced
+    rows = greedy[:GEN_LOGIT_ROWS]
+    feed = [dense[i] for i in rows]
+    d = dense_step_logits(lm, [prompts[i] for i in rows], feed, new_tokens)
+    p = paged_step_logits(lm, [prompts[i] for i in rows], feed, new_tokens)
+    tol = near_tie_tol(d)
+    tok, live = fed_tokens(feed, new_tokens, device)
+    steps = live.clone()
+    steps[:, 0] = True  # step 0's logits follow the prompt alone
+    ratio = torch.where(steps, (p - d).abs().amax(dim=-1), 0.0) / tol  # [rows, steps]
+    check = {"rows": rows, "steps": new_tokens, "min_tol": float(tol.min()),
+             "max_abs_err": float((ratio * tol).max()), "worst_err_over_tol": float(ratio.max()),
+             "steps_over_tol": int((ratio >= 1.0).sum())}
+    problems = [] if bool(torch.isfinite(p).all()) else [f"{phase}: paged logits are not finite"]
+    if lm.config.experts:
+        # Top-2 routing is discontinuous: where rounding differs, a near-tied
+        # router sends a token to other experts, and its logits (and, through
+        # its K/V, later steps') part by more than tol.  The control is the
+        # dense path against itself, each row run alone (a batch of one):
+        # its logits against the batched dense path's, and the batched dense
+        # path's greedy tokens against its max.  The paged path may part from
+        # the dense path no more often, and by no more, than that.
+        alone = torch.cat([dense_step_logits(lm, [prompts[i]], [f], new_tokens) for i, f in zip(rows, feed)])
+        ctrl = torch.where(steps, (alone - d).abs().amax(dim=-1), 0.0) / tol
+        check.update(control_worst_err_over_tol=float(ctrl.max()), control_steps_over_tol=int((ctrl >= 1.0).sum()))
+        control = below_max(alone, tok, live)
+        if (emitted["share_over_tol"] > control["share_over_tol"]
+                or emitted["worst_gap_over_tol"] > control["worst_gap_over_tol"]):
+            problems.append(f"{phase}: greedy tokens part from the dense path's max more than the dense path's own "
+                            f"tokens do with its rows run alone: {emitted} against {control}")
+        if (check["steps_over_tol"] > check["control_steps_over_tol"]
+                or check["worst_err_over_tol"] > check["control_worst_err_over_tol"]):
+            problems.append(f"{phase}: paged logits part from the dense path more than the dense path from itself: "
+                            f"{check['steps_over_tol']} steps over tol (control {check['control_steps_over_tol']}), "
+                            f"worst err/tol {check['worst_err_over_tol']} (control "
+                            f"{check['control_worst_err_over_tol']})")
+        emitted["control_rows_alone"] = control
+    else:
+        if emitted["tokens_over_tol"]:
+            problems.append(f"{phase}: {emitted['tokens_over_tol']} greedy token(s) lie tol or more below the dense "
+                            f"path's max (worst gap/tol {emitted['worst_gap_over_tol']})")
+        if check["worst_err_over_tol"] >= 1.0:
+            problems.append(f"{phase}: paged logits left the dense path's bound: err/tol {check['worst_err_over_tol']}")
+    log(phase, step="check_greedy", rows=len(greedy), identical=len(greedy) - len(parted), parted=len(parted),
+        parted_at_step=parted, **emitted)
+    log(phase, step="check_logits", **check)
+
+    # each sampled token lies in the support its filters leave
+    feed = [outs[i] for i in sampled]
+    lg = dense_step_logits(lm, [prompts[i] for i in sampled], feed, new_tokens)
+    kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
+    kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
+    tok, live = fed_tokens(feed, new_tokens, device)
+    chosen = lg.gather(-1, tok[..., None])[..., 0]
+    inside = kept.gather(-1, tok[..., None])[..., 0] & live
+    near = (chosen >= kept_min - near_tie_tol(lg)) & live
+    log(phase, step="check_sampled", rows=sampled, tokens=int(live.sum()),
+        in_support=int(inside.sum()), within_tol_of_support=int(near.sum()),
+        mean_support_size=float(kept.sum(-1).float()[live].mean()))
+    if int(near.sum()) != int(live.sum()):
+        problems.append(f"{phase}: {int(live.sum()) - int(near.sum())} sampled token(s) outside the top-p support")
+    if problems:
+        fail("; ".join(problems))
+    return len(parted)
+
+
+def burst_prompts(rng, n: int, n_sampled: int, lens: tuple[int, int], vocab: int):
+    """``n`` prompts of ``lens`` token ids, and which rows sample."""
+    lengths = rng.integers(lens[0], lens[1] + 1, size=n)
+    prompts = [rng.integers(3, vocab, size=int(m)).tolist() for m in lengths]
+    sampled = sorted(rng.choice(n, size=n_sampled, replace=False).tolist())
+    return prompts, sampled, [i for i in range(n) if i not in sampled]
+
+
+def generate_phase(device, seed: int, card: str) -> dict:
+    """Drive the generation path at full mistral-7b-instruct width through
+    its entry points, check it against the dense path, and time its parts."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE)  # on cuda:0 by default
+    torch.cuda.synchronize()
+    cfg = lm.config
+    widths = {k: getattr(cfg, k) for k in GEN_WIDTHS}
+    weight_bytes = tensor_bytes(lm.params)
+    log("generate", step="model", model=GEN_MODEL, **widths, sliding_window=cfg.sliding_window,
+        dtype=str(cfg.dtype), n_params=lm.n_params(), weights_gb=weight_bytes / 1e9,
+        init_s=time.perf_counter() - t0, device=str(lm.device))
+    if widths != GEN_WIDTHS:
+        fail(f"decoder widths {widths} are not mistral-7b-instruct's {GEN_WIDTHS}")
+
+    prompts, sampled, greedy = burst_prompts(np.random.default_rng(seed + 3), GEN_REQUESTS, GEN_SAMPLED,
+                                             GEN_PROMPT_LENS, cfg.vocab_size)
+    run = serve_burst(lm, prompts, sampled, GEN_NEW_TOKENS, seed, "generate")
+    burst = run["burst"]
     with torch.inference_mode():
-        # greedy rows against the dense DecoderLM.generate_ids, in batches
-        dense = {}
-        for b in range(0, len(greedy), GEN_REF_BATCH):
-            rows = greedy[b : b + GEN_REF_BATCH]
-            for i, o in zip(rows, lm.generate_ids([prompts[i] for i in rows], max_new_tokens=GEN_NEW_TOKENS)):
-                dense[i] = o
-        parted, same = [], 0
-        for i in greedy:
-            a, b = outs[i], dense[i]
-            if a == b:
-                same += 1
-                continue
-            t = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
-            # the dense path's logits at step t: prefill over prompt + b[:t]
-            seq = torch.tensor([prompts[i] + b[:t]], device=device)
-            lg = dec.prefill(lm.params, seq, torch.tensor([seq.shape[1]], device=device), cfg,
-                             seq.shape[1])[0][0]
-            top2 = lg.topk(2).values
-            gap, tol = float(top2[0] - top2[1]), float(near_tie_tol(lg))
-            parted.append({"row": i, "step": t, "gap": gap, "tol": tol})
-            if gap >= tol:
-                fail(f"greedy row {i} parted from the dense path at step {t}, top-2 gap {gap} >= {tol}")
-        log("generate", step="check_greedy", rows=len(greedy), identical=same, parted=len(parted),
-            parted_rows=parted)
-
-        # logits of the paged path against the dense path, teacher-forced
-        rows = greedy[:GEN_LOGIT_ROWS]
-        feed = [dense[i] for i in rows]
-        d = dense_step_logits(lm, [prompts[i] for i in rows], feed, GEN_NEW_TOKENS)
-        p = paged_step_logits(lm, [prompts[i] for i in rows], feed, GEN_NEW_TOKENS)
-        err = (p - d).abs().amax(dim=-1)  # [rows, steps]
-        tol = near_tie_tol(d)
-        live = torch.arange(GEN_NEW_TOKENS, device=device)[None, :] < torch.tensor(
-            [max(len(f), 1) for f in feed], device=device)[:, None]
-        ratio = float(torch.where(live, err / tol, 0.0).max())
-        log("generate", step="check_logits", rows=rows, steps=GEN_NEW_TOKENS,
-            max_abs_err=float(torch.where(live, err, 0.0).max()), min_tol=float(tol.min()),
-            worst_err_over_tol=ratio)
-        if not bool(torch.isfinite(p).all()) or ratio >= 1.0:
-            fail(f"paged logits left the dense path's bound: err/tol {ratio}")
-
-        # each sampled token lies in the support its filters leave
-        feed = [outs[i] for i in sampled]
-        lg = dense_step_logits(lm, [prompts[i] for i in sampled], feed, GEN_NEW_TOKENS)
-        kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
-        kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
-        tok = torch.zeros(lg.shape[:2], dtype=torch.int64, device=device)
-        live = torch.zeros(lg.shape[:2], dtype=torch.bool, device=device)
-        for r, o in enumerate(feed):
-            tok[r, : len(o)] = torch.tensor(o, device=device)
-            live[r, : len(o)] = True
-        chosen = lg.gather(-1, tok[..., None])[..., 0]
-        inside = kept.gather(-1, tok[..., None])[..., 0] & live
-        near = (chosen >= kept_min - near_tie_tol(lg)) & live
-        log("generate", step="check_sampled", rows=sampled, tokens=int(live.sum()),
-            in_support=int(inside.sum()), within_tol_of_support=int(near.sum()),
-            mean_support_size=float(kept.sum(-1).float()[live].mean()))
-        if int(near.sum()) != int(live.sum()):
-            fail(f"{int(live.sum()) - int(near.sum())} sampled token(s) outside the top-p support")
-
-        timing = generate_timing(lm, [len(prompts[i]) for i in range(sched.slots)], device)
+        parted = check_generation(lm, prompts, run["outs"], greedy, sampled, GEN_NEW_TOKENS, device, "generate")
+        timing = generate_timing(lm, [len(prompts[i]) for i in range(run["sched_slots"])], device)
     timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     timing["weights_gb"] = weight_bytes / 1e9
     log("generate", step="summary", card=card, **burst,
-        parted_greedy_rows=len(parted), **timing)
-    return {"launches": launches, **burst, **timing}
+        parted_greedy_rows=parted, **timing)
+    return {"launches": run["launches"], "attention_launches": {}, **burst, **timing}
 
 
 def generate_timing(lm, prompt_lens, device) -> dict:
@@ -1302,15 +1428,346 @@ def generate_timing(lm, prompt_lens, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: mixtral-8x7b-instruct with int8 weights through the scheduler;
+# phase 9: self-speculative decoding at mistral-7b-instruct width.
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "mixtral-8x7b-instruct"
+MOE_WIDTHS = dict(layers=32, hidden=4096, heads=32, kv_heads=8, intermediate=14336, vocab_size=32000,
+                  experts=8, experts_top_k=2, rope_theta=1e6, max_len=8192)
+MOE_REQUESTS = 16
+MOE_SAMPLED = 4
+MOE_NEW_TOKENS = 64
+MOE_PROMPT_LENS = (64, 512)
+MOE_CHECK_TOKENS = 64
+REL_TOL = 2e-2  # ||got - ref|| / ||ref|| of a bf16 path against its f32 version
+SPEC_PROMPTS = 8
+SPEC_NEW_TOKENS = 64
+SPEC_DRAFT = 8
+
+
+def rel_err(got, ref) -> float:
+    return float((got.float() - ref).norm() / ref.norm())
+
+
+def moe_layer_check(lm, device, seed: int) -> dict:
+    """Layer 0's ``moe_ffn`` at full width on 64 random tokens against a
+    per-token loop over each token's own top-2 experts in f32 (activations
+    and dequantized weights ``q.float() * s``, renormalised gates); then the
+    int8 ``_mm`` at the ``wq`` shape against ``x.float() @ (q.float() * s)``."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import moe
+
+    cfg = lm.config
+    lp = dec._layer(lm.params, 0)
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    x = torch.randn((MOE_CHECK_TOKENS, cfg.hidden), generator=gen, device=device).to(cfg.dtype)
+    mcfg = dec.moe_config(cfg)
+    got, aux = moe.moe_ffn(dec.moe_params(lp), x, mcfg, full_capacity=True)
+    xf = x.float()
+    router_logits = xf @ lp["moe_router"]
+    chosen = moe._routing(router_logits, mcfg, MOE_CHECK_TOKENS)[0].sum(-1) > 0  # [T, E]
+    probs = torch.softmax(router_logits, dim=-1)
+    gates, experts = probs.topk(cfg.experts_top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    want_chosen = torch.zeros_like(chosen).scatter_(1, experts, True)
+    if not torch.equal(chosen, want_chosen):
+        fail(f"moe: routing chose other experts than the f32 top-{cfg.experts_top_k} for "
+             f"{int((chosen != want_chosen).any(-1).sum())} token(s)")
+    ref = torch.zeros((MOE_CHECK_TOKENS, cfg.hidden), device=device)
+    picks = experts.cpu().numpy()
+    for e in range(cfg.experts):
+        wg, wu, wd = (lp[n]["q"][e].float() * lp[n]["s"][e] for n in ("wg", "wu", "wd"))
+        for t, k in zip(*np.nonzero(picks == e)):
+            h = torch.nn.functional.silu(xf[t] @ wg) * (xf[t] @ wu)
+            ref[t] += gates[t, k] * (h @ wd)
+        del wg, wu, wd
+    err = rel_err(got, ref)
+    wq = lp["wq"]
+    mm_err = rel_err(dec._mm(x, wq), xf @ (wq["q"].float() * wq["s"]))
+    out = {"tokens": MOE_CHECK_TOKENS, "experts_identical": True, "moe_ffn_rel_err": err,
+           "moe_ffn_max_abs_err": float((got.float() - ref).abs().max()), "ref_abs_max": float(ref.abs().max()),
+           "aux": float(aux), "tokens_per_expert": chosen.sum(0).tolist(), "int8_mm_wq_rel_err": mm_err,
+           "tol": REL_TOL}
+    log("moe", step="check_layer", **out)
+    if not err < REL_TOL:
+        fail(f"moe: moe_ffn against the f32 per-token loop: relative error {err} >= {REL_TOL}")
+    if not mm_err < REL_TOL:
+        fail(f"moe: int8 _mm at wq against f32: relative error {mm_err} >= {REL_TOL}")
+    return out
+
+
+def moe_timing(lm, prompt_lens, device) -> dict:
+    """Device and host ms of a decode tick and a prefill chunk at 8 slots
+    beside their bounds, and each op of the MoE FFN at the decode shape,
+    beside the int8 ``_mm`` and a bf16 product at the ``wq`` shape."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import moe
+
+    cfg, tree = lm.config, lm.params
+    S, page, H, V = len(prompt_lens), 16, cfg.hidden, cfg.vocab_size
+    NH, KH, D, L, F_, E = cfg.heads, cfg.kv_heads, cfg.head_dim, cfg.layers, cfg.intermediate, cfg.experts
+    K = cfg.experts_top_k
+    G = lm.max_cache // page
+    gen = torch.Generator(device=device).manual_seed(7)
+    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + S * G, page, device)
+    k_pool.normal_(generator=gen)
+    v_pool.normal_(generator=gen)
+    bt = (1 + torch.arange(S * G, device=device)).reshape(S, G)
+    seq = torch.tensor([min(n + 64, lm.max_cache - 1) for n in prompt_lens], device=device)
+    tok = torch.randint(3, V, (S,), generator=gen, device=device)
+    live_tokens = int(seq.sum()) + S
+    kv_tok = dec.kv_bytes_per_token(cfg)
+    hbm = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    flops = lambda f: f / BF16_FLOPS_PER_S * 1e3  # noqa: E731
+
+    # the dense GShard dispatch computes every expert, so a tick reads every
+    # expert's codes: its bound counts all weights
+    step = lambda: dec.paged_decode_step(tree, k_pool, v_pool, bt, seq, tok, cfg)  # noqa: E731
+    layer_bytes = tensor_bytes(tree["layers"])
+    step_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + H * 2 * (1 + S) + live_tokens * kv_tok + S * V * 4
+    out = {
+        "decode_slots": S, "decode_context_tokens": live_tokens,
+        "decode_device_ms": device_ms([step], reps=2, replays=3),
+        "decode_host_ms": eager_ms(step, iters=5),
+        "decode_bound_ms": hbm(step_bytes),
+    }
+    out["decode_idle_share"] = 1.0 - out["decode_device_ms"] / out["decode_host_ms"]
+    out["decode_over_bound"] = out["decode_device_ms"] / out["decode_bound_ms"]
+
+    T = 32
+    ids = torch.randint(3, V, (S, T), generator=gen, device=device)
+    starts = torch.full((S,), 256, device=device)
+    clens = torch.full((S,), T, device=device)
+    chunk = lambda: dec.paged_prefill_chunk(tree, k_pool, v_pool, bt, ids, clens, starts, cfg)  # noqa: E731
+    ctx = S * T * (256 + T / 2)
+    # the work the tokens need: attention projections, each token's top-2
+    # experts, attention over its context, and the logits of each row's last token
+    per_token = 2 * H * (2 * NH * D + 2 * KH * D) + K * 6 * H * F_ + 2 * H * E
+    chunk_flops = L * S * T * per_token + 4 * NH * D * ctx * L + 2 * S * H * V
+    chunk_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + S * (256 + T) * kv_tok
+    out.update({
+        "prefill_chunk_tokens": S * T, "prefill_chunk_device_ms": device_ms([chunk], reps=1, replays=3),
+        "prefill_chunk_host_ms": eager_ms(chunk, iters=3),
+        "prefill_chunk_bound_ms": max(hbm(chunk_bytes), flops(chunk_flops)),
+    })
+
+    # each op of the MoE FFN at the decode shape (8 tokens, one group of 8
+    # slots per expert), cycling through layers so that no weight is served
+    # from L2; device ms per call (CUDA graphs) and its bytes bound
+    mcfg = dec.moe_config(cfg)
+    layers = [dec._layer(tree, i) for i in range(L)]
+    x = torch.randn((S, 1, H), generator=gen, device=device).to(cfg.dtype)
+    xg = x.reshape(1, S, H)
+    valid = torch.ones((1, S), dtype=torch.bool, device=device)
+    disp, comb, _ = moe._routing(xg.float() @ layers[0]["moe_router"], mcfg, S, valid)
+    disp, comb = disp.to(cfg.dtype), comb.to(cfg.dtype)
+    expert_in = torch.einsum("gtec,gth->gech", disp, xg)
+    hmid = torch.randn((1, E, S, F_), generator=gen, device=device).to(cfg.dtype)
+    expert_out = torch.randn((1, E, S, H), generator=gen, device=device).to(cfg.dtype)
+    # bf16 weights at the wq shape: four layers' dequantized wq, more than L2
+    wq_bf16 = [(lp["wq"]["q"].float() * lp["wq"]["s"]).to(cfg.dtype) for lp in layers[:4]]
+    codes = lambda n: tensor_bytes(layers[0][n])  # noqa: E731
+    act, slots = S * H * 2, E * S
+    ops = [  # (name, op at one layer's weights, calls per tick, bytes per call)
+        ("_routing", lambda lp: moe._routing(xg.float() @ lp["moe_router"], mcfg, S, valid), L,
+         H * E * 4 + act + 2 * S * E * S * 4),
+        ("dispatch einsum", lambda lp: torch.einsum("gtec,gth->gech", disp, xg), L,
+         S * E * S * 2 + act + slots * H * 2),
+        ("wg int8 einsum", lambda lp: moe._qeinsum("gech,ehf->gecf", expert_in, lp["wg"]), L,
+         codes("wg") + slots * (H + F_) * 2),
+        ("wu int8 einsum", lambda lp: moe._qeinsum("gech,ehf->gecf", expert_in, lp["wu"]), L,
+         codes("wu") + slots * (H + F_) * 2),
+        ("wd int8 einsum", lambda lp: moe._qeinsum("gecf,efh->gech", hmid, lp["wd"]), L,
+         codes("wd") + slots * (H + F_) * 2),
+        ("combine einsum", lambda lp: torch.einsum("gtec,gech->gth", comb, expert_out), L,
+         S * E * S * 2 + slots * H * 2 + act),
+        ("moe_ffn (all of the above and the SwiGLU)", lambda lp: moe.moe_ffn(dec.moe_params(lp), x, mcfg,
+                                                                              full_capacity=True), L,
+         codes("wg") + codes("wu") + codes("wd") + H * E * 4 + 2 * act),
+        ("int8 _mm at wq", lambda lp: dec._mm(x, lp["wq"]), L, codes("wq") + act + S * NH * D * 2),
+    ]
+    table = []
+    for name, op, calls, nbytes in ops:
+        # four layers in turn: each layer's experts are far larger than L2
+        ms = device_ms([lambda lp=lp, op=op: op(lp) for lp in layers[:4]], reps=8, replays=3)
+        table.append({"op": name, "ms_per_call": ms, "calls_per_tick": calls, "ms_per_tick": ms * calls,
+                      "bound_ms_per_tick": hbm(nbytes) * calls})
+    ms = device_ms([lambda w=w: x @ w for w in wq_bf16], reps=8, replays=3)
+    table.append({"op": "bf16 product at the wq shape (comparison)", "ms_per_call": ms, "calls_per_tick": L,
+                  "ms_per_tick": ms * L, "bound_ms_per_tick": hbm(H * NH * D * 2 + act + S * NH * D * 2) * L})
+    # where an int8 expert einsum's time goes: the conversion of the codes
+    # alone, and the product on an already converted bf16 copy (two layers'
+    # wg, each far larger than L2) by einsum and by bmm
+    wg_bf16 = [lp["wg"]["q"].to(cfg.dtype) for lp in layers[:2]]
+    parts = [
+        ("wg codes to bf16 alone", [lambda lp=lp: lp["wg"]["q"].to(cfg.dtype) for lp in layers[:4]],
+         codes("wg") + E * H * F_ * 2),
+        ("wg einsum on a bf16 copy", [lambda w=w: torch.einsum("gech,ehf->gecf", expert_in, w) for w in wg_bf16],
+         E * H * F_ * 2 + slots * (H + F_) * 2),
+        ("wg bmm on a bf16 copy", [lambda w=w: torch.bmm(expert_in[0], w) for w in wg_bf16],
+         E * H * F_ * 2 + slots * (H + F_) * 2),
+    ]
+    for name, calls, nbytes in parts:
+        ms = device_ms(calls, reps=8, replays=3)
+        table.append({"op": name, "ms_per_call": ms, "calls_per_tick": L, "ms_per_tick": ms * L,
+                      "bound_ms_per_tick": hbm(nbytes) * L})
+    for row in table:
+        log("moe", step="op", **row)
+    del wq_bf16, wg_bf16
+    log("moe", step="timing", **out)
+    return out
+
+
+def moe_phase(device, seed: int, card: str) -> dict:
+    """Serve mixtral-8x7b-instruct with int8 weights at full width through
+    the continuous-batching scheduler, check it against the dense path and
+    the MoE layer against an f32 per-token loop, and time its parts."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = dec.DecoderLM(MOE_MODEL, seed=seed, max_cache=GEN_CACHE, quantize="int8")  # on cuda:0
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = lm.config
+    widths = {k: getattr(cfg, k) for k in MOE_WIDTHS}
+    weight_bytes = tensor_bytes(lm.params)
+    log("moe", step="model", model=MOE_MODEL, **widths, dtype=str(cfg.dtype), quantize="int8",
+        n_params=lm.n_params(), weights_gb=weight_bytes / 1e9, init_s=init_s,
+        init_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, pretrained=lm.pretrained,
+        device=str(lm.device))
+    if widths != MOE_WIDTHS:
+        fail(f"decoder widths {widths} are not mixtral-8x7b-instruct's {MOE_WIDTHS}")
+    if not lm.quantized or lm.params["layers"]["wg"]["q"].dtype != torch.int8:
+        fail("moe: the model is not int8")
+
+    prompts, sampled, greedy = burst_prompts(np.random.default_rng(seed + 9), MOE_REQUESTS, MOE_SAMPLED,
+                                             MOE_PROMPT_LENS, cfg.vocab_size)
+    run = serve_burst(lm, prompts, sampled, MOE_NEW_TOKENS, seed, "moe")
+    burst = run["burst"]
+    with torch.inference_mode():
+        parted = check_generation(lm, prompts, run["outs"], greedy, sampled, MOE_NEW_TOKENS, device, "moe")
+        layer = moe_layer_check(lm, device, seed)
+        timing = moe_timing(lm, [len(prompts[i]) for i in range(run["sched_slots"])], device)
+    timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    timing["weights_gb"] = weight_bytes / 1e9
+    log("moe", step="summary", card=card, **burst, parted_greedy_rows=parted,
+        moe_ffn_rel_err=layer["moe_ffn_rel_err"], int8_mm_wq_rel_err=layer["int8_mm_wq_rel_err"], **timing)
+    return {"launches": run["launches"], "attention_launches": {}, **burst, **timing}
+
+
+def speculative_phase(device, seed: int, card: str) -> dict:
+    """Self-speculative greedy decoding at full mistral-7b-instruct width
+    (bf16 target, int8 draft) beside plain greedy ``generate_ids`` on the
+    same prompts: rows equal but at near-ties, acceptance, tokens/s, and the
+    device ms of the int8 draft's decode step against the bf16 one."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.ops import attention as attn
+
+    torch.cuda.reset_peak_memory_stats()
+    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE)  # bf16, on cuda:0
+    cfg = lm.config
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(MOE_PROMPT_LENS[0], MOE_PROMPT_LENS[1] + 1, size=SPEC_PROMPTS)]
+    # warm-up: builds the int8 draft (timed), then one short call of each path
+    t0 = time.perf_counter()
+    lm.generate_ids_speculative([prompts[0][:16]], max_new_tokens=2, n_draft=SPEC_DRAFT)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    lm.generate_ids([prompts[0][:16]], max_new_tokens=2)
+    stats0 = dict(lm.speculative_stats)
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    attn.encoder_attention.launches = 0
+    t0 = time.perf_counter()
+    spec = lm.generate_ids_speculative(prompts, max_new_tokens=SPEC_NEW_TOKENS, n_draft=SPEC_DRAFT)
+    spec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = lm.generate_ids(prompts, max_new_tokens=SPEC_NEW_TOKENS)
+    plain_s = time.perf_counter() - t0
+    launches = {"encoder_attention": attn.encoder_attention.launches}
+    # ---- end of the counted run ----
+    stats = {k: lm.speculative_stats[k] - stats0[k] for k in stats0}
+    spec_tokens, plain_tokens = sum(map(len, spec)), sum(map(len, plain))
+    run = {
+        "prompts": SPEC_PROMPTS, "new_tokens": SPEC_NEW_TOKENS, "n_draft": SPEC_DRAFT,
+        "rounds": stats["rounds"], "accepted_per_round": stats["accepted"] / stats["row_rounds"],
+        "acceptance_rate": (stats["accepted"] - stats["row_rounds"]) / (stats["row_rounds"] * (SPEC_DRAFT - 1)),
+        "speculative_tokens_per_s": spec_tokens / spec_s, "plain_tokens_per_s": plain_tokens / plain_s,
+        "speculative_s": spec_s, "plain_s": plain_s, "draft_build_and_warmup_s": warm_s,
+    }
+    log("speculative", step="run", **run, kernel_launches=launches, stats=stats)
+
+    with torch.inference_mode():
+        # every emitted token, teacher-forced through the bf16 target, within
+        # tol of the target's max; the int8 draft's own greedy rows through
+        # the same check, to show that it tells the two chains apart: the
+        # emitted rows' share of tokens at the target's max must lie nearer
+        # 1 (the target's chain) than the draft's rows' share
+        parted = {i: t for i in range(SPEC_PROMPTS) if (t := first_parting(spec[i], plain[i])) is not None}
+        emitted = emitted_gaps(lm, prompts, spec, SPEC_NEW_TOKENS)
+        drafted = emitted_gaps(lm, prompts, dense_greedy(lm, lm._draft_tree, prompts, SPEC_NEW_TOKENS),
+                               SPEC_NEW_TOKENS)
+        log("speculative", step="check", rows=SPEC_PROMPTS, identical=SPEC_PROMPTS - len(parted),
+            parted=len(parted), parted_at_step=parted, row_tokens=[len(r) for r in spec], **emitted,
+            draft_rows=drafted)
+        if emitted["tokens_over_tol"]:
+            fail(f"speculative: {emitted['tokens_over_tol']} emitted token(s) lie tol or more below the target's "
+                 f"max (worst gap/tol {emitted['worst_gap_over_tol']})")
+        if emitted["max_share"] <= (1.0 + drafted["max_share"]) / 2:
+            fail(f"speculative: the emitted rows are no nearer the target's greedy chain than the draft's: "
+                 f"{emitted['max_share']} of their tokens at the target's max, the draft's rows {drafted['max_share']}")
+
+        # the draft's decode step against the target's at B=8, mid-generation
+        B, C = SPEC_PROMPTS, lm.max_cache
+        gen = torch.Generator(device=device).manual_seed(17)
+        shape = (cfg.layers, B, C, cfg.kv_heads, cfg.head_dim)
+        kc = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+        vc = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+        pos = torch.tensor([len(p) + SPEC_NEW_TOKENS // 2 for p in prompts], device=device)
+        tok = torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=device)
+        block = torch.randint(3, cfg.vocab_size, (B, SPEC_DRAFT), generator=gen, device=device)
+        draft = lm._draft_tree
+        buf = (torch.empty_like(kc), torch.empty_like(vc))
+        kv_read = B * C * dec.kv_bytes_per_token(cfg)
+        hbm = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
+        timing = {
+            "bf16_decode_step_device_ms": device_ms(
+                [lambda: dec.decode_step(lm.params, kc, vc, tok, pos, cfg)], reps=4, replays=3),
+            "int8_decode_step_device_ms": device_ms(
+                [lambda: dec.decode_step(draft, kc, vc, tok, pos, cfg)], reps=4, replays=3),
+            "verify_block_device_ms": device_ms(
+                [lambda: dec.verify_block(lm.params, kc, vc, block, pos, cfg)], reps=2, replays=3),
+            "draft_cache_refresh_device_ms": device_ms(
+                [lambda: (buf[0].copy_(kc), buf[1].copy_(vc))], reps=4, replays=3),
+            "bf16_decode_step_bound_ms": hbm(tensor_bytes(lm.params["layers"]) + tensor_bytes(lm.params["lm_head"])
+                                             + kv_read),
+            "int8_decode_step_bound_ms": hbm(tensor_bytes(draft["layers"]) + tensor_bytes(draft["lm_head"])
+                                             + kv_read),
+            "draft_cache_refresh_bound_ms": hbm(2 * 2 * kc.numel() * kc.element_size()),
+            "bf16_weights_gb": tensor_bytes(lm.params) / 1e9, "int8_weights_gb": tensor_bytes(draft) / 1e9,
+        }
+        timing["int8_over_bf16_decode_step"] = (timing["int8_decode_step_device_ms"]
+                                                / timing["bf16_decode_step_device_ms"])
+        del kc, vc, buf
+    timing["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("speculative", step="summary", card=card, **run, parted_rows=len(parted), **timing)
+    return {"launches": launches, "attention_launches": {}, **run, **timing}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--skip", default="", help="comma-separated phases to leave out: rerank, encoders, generate")
+    parser.add_argument("--skip", default="", help="comma-separated phases to leave out: " + ", ".join(SKIPPABLE))
     args = parser.parse_args(argv)
     skip = {name for name in args.skip.split(",") if name}
-    if skip - {"rerank", "encoders", "generate"}:
-        parser.error(f"--skip takes rerank, encoders, generate; got {args.skip!r}")
+    if skip - set(SKIPPABLE):
+        parser.error(f"--skip takes {', '.join(SKIPPABLE)}; got {args.skip!r}")
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1347,9 +1804,12 @@ def main(argv=None) -> int:
     if "encoders" not in skip:
         phases["encoders"] = encoders_phase(device, args.seed, checked, texts, lengths)
     del texts, lengths
-    torch.cuda.empty_cache()
-    if "generate" not in skip:
-        generate_phase(device, args.seed, card)
+    # the decoder phases, one model on the card at a time
+    for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name not in skip:
+            phases[name] = phase(device, args.seed, card)
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
@@ -1363,8 +1823,12 @@ def main(argv=None) -> int:
     kernels = [dict(attention, launches=result["launches"][attention["name"]], launches_by_phase=by_phase)]
     for kern in kernels:
         for phase, n in kern["launches_by_phase"].items():
-            if not n:
+            # no decoder path calls the encoder-attention kernel
+            if phase in DECODER_PHASES and n:
+                fail(f"kernel {kern['name']} was launched {n} times on the {phase} path")
+            if phase not in DECODER_PHASES and not n:
                 fail(f"kernel {kern['name']} was not launched on the {phase} path")
+    log("total", seconds=time.perf_counter() - started, phases=sorted(phases))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

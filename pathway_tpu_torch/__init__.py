@@ -5,8 +5,9 @@ hand-written CUDA encoder-attention kernel) → L2-normalised vectors → a
 device-resident brute-force index → masked top-k.  Reranking: the
 ``CrossEncoder`` scores (query, document) pairs over the same trunk and
 kernel; both encoders serve W8A8 on request.  Decoder generation:
-``DecoderLM`` (dense KV cache) and the continuous-batching
-``GenerationScheduler`` over a paged KV cache.  Entry points run on the
+``DecoderLM`` (dense KV cache; dense or Mixtral MoE layers, bf16 or
+weight-only int8, plain or self-speculative greedy decoding) and the
+continuous-batching ``GenerationScheduler`` over a paged KV cache.  Entry points run on the
 first CUDA device unless the caller passes ``device=`` (``"cpu"`` runs the
 kernels' plain PyTorch versions).  The port imports nothing of JAX or of
 ``pathway_tpu``.

@@ -13,17 +13,23 @@ scores, SwiGLU MLP) and the same two serving shapes:
     pool through per-slot block tables; the continuous-batching scheduler
     (``serving/generation.py``) drives them.
 
+Mixtral-style sparse MoE layers (``cfg.experts > 0``) run the GShard
+dispatch of ``parallel/moe.py``; weight-only int8 trees
+(:func:`quantize_decoder_tree`, ``DecoderLM(quantize="int8")``) keep every
+matmul weight as int8 codes with per-output-channel f32 scales; and
+:func:`speculative_decode_chunk` drafts with the int8 tree and verifies with
+the float one (:func:`verify_block`).
+
 The JAX package computes all of it as XLA compositions (there is no
 Pallas kernel on this path), and the port runs it as plain PyTorch ops.
 Functions are eager: caches and pools are updated in place and returned.
-Weights are a seeded random init made on the target device
-(:func:`init_decoder_params`), or the JAX package's tree carried across
-(:func:`from_jax_decoder_params`).
+Weights are a local ``transformers`` checkpoint when there is one
+(:func:`load_hf_decoder_weights`), else a seeded random init made on the
+target device (:func:`init_decoder_params`), or the JAX package's tree
+carried across (:func:`from_jax_decoder_params`).
 
-Not ported yet (ROADMAP Queue 1, "Decoder generation"): weight-only int8
-(``quantize_decoder_tree``), Mixtral MoE, tensor-parallel specs, the
-training logits (``causal_lm_logits*``, ``remat``), speculative decoding
-(``verify_block``), ``load_hf_decoder_weights`` and LoRA.
+Not ported yet (ROADMAP Queue 1, "Decoder generation"): tensor-parallel
+specs, the training logits (``causal_lm_logits*``, ``remat``) and LoRA.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import logging
 import math
 import os
 from typing import Any
@@ -43,8 +50,9 @@ from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.tokenizer import load_tokenizer
 from pathway_tpu_torch.ops import attention as attention_ops
 from pathway_tpu_torch.ops.attention import gqa_attention as _attend
+from pathway_tpu_torch.parallel.moe import MoEConfig, moe_ffn
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1, decoder generation)"
+_log = logging.getLogger(__name__)
 
 
 def _bucket_prompt_len(n: int, cap: int) -> int:
@@ -67,8 +75,8 @@ class DecoderConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    # experts > 0 selects Mixtral-style sparse MoE, which the port does not
-    # run yet (``_ffn`` raises)
+    # experts > 0 switches the MLP to Mixtral-style sparse MoE: per-layer
+    # f32 router + stacked expert SwiGLU weights (parallel/moe.py)
     experts: int = 0
     experts_top_k: int = 2
     expert_capacity_factor: float = 2.0
@@ -140,12 +148,81 @@ def decoder_config_for(model_name: str) -> DecoderConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_decoder_params(cfg: DecoderConfig, seed: int = 0, device=None) -> dict:
+# every matmul weight of the tree; lm_head is quantized with them
+QUANT_NAMES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def _quant_matrix(w):
+    """Symmetric per-output-channel int8 of float ``w [..., I, O]``:
+    ``s = max|w| / 127`` over the contraction axis -2 (floored at 1e-12),
+    ``q = clip(round(w / s), ±127)`` with round half to even.  Returns
+    ``(q int8 [..., I, O], s f32 [..., 1, O])``."""
+    w32 = w.float()
+    s = (w32.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(w32 / s).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _quantized(shape, device, matrix) -> dict:
+    """``{"q", "s"}`` of a stacked weight of ``shape`` ``[..., I, O]``, made
+    one matrix at a time: ``matrix(i)`` gives the i-th float matrix, so no
+    float copy of the whole stack exists."""
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    s = torch.empty((*shape[:-2], 1, shape[-1]), dtype=torch.float32, device=device)
+    for i, (qi, si) in enumerate(zip(q.view(-1, *shape[-2:]), s.view(-1, 1, shape[-1]))):
+        qm, sm = _quant_matrix(matrix(i))
+        qi.copy_(qm)
+        si.copy_(sm)
+    return {"q": q, "s": s}
+
+
+def _quantize(w, dtype=None, device=None) -> dict:
+    """``{"q", "s"}`` of a stacked float weight ``[..., I, O]``; each matrix
+    is moved to ``device`` in ``dtype`` (default: ``w``'s), then quantized
+    by :func:`_quant_matrix`."""
+    mats = w.reshape(-1, *w.shape[-2:])
+    device = w.device if device is None else device
+    return _quantized(w.shape, device, lambda i: mats[i].to(device=device, dtype=dtype or w.dtype))
+
+
+def quantize_decoder_tree(tree) -> dict:
+    """Weight-only int8 quantization of a decoder param tree (serving).
+
+    Every matmul weight (attention projections, dense or expert MLP,
+    ``lm_head``) becomes ``{"q": int8, "s": f32}`` (:func:`_quant_matrix`);
+    the embedding, the norms and the MoE router stay as they are (the same
+    tensors).  A LoRA-adapted weight raises ``ValueError``."""
+    for name in QUANT_NAMES:
+        w = tree["layers"].get(name)
+        if isinstance(w, dict) and "a" in w:
+            raise ValueError(
+                f"layer weight {name!r} carries LoRA adapters: merge them into "
+                "the weight before quantizing (or before speculative decoding, "
+                "which quantizes its draft)"
+            )
+    return {
+        "embed": tree["embed"],
+        "final_norm": tree["final_norm"],
+        "lm_head": _quantize(tree["lm_head"]),
+        "layers": {
+            name: (_quantize(w) if name in QUANT_NAMES else w)
+            for name, w in tree["layers"].items()
+        },
+    }
+
+
+def init_decoder_params(cfg: DecoderConfig, seed: int = 0, device=None,
+                        quantize: str | None = None) -> dict:
     """Seeded scaled-normal init of the stacked param tree, made on
     ``device`` with one ``torch.Generator``: the JAX tree's shapes and
     scales (normal / sqrt(fan_in), ones for the norms), drawn one matrix
     at a time so no f32 copy of a whole stacked weight exists.  The bits
-    differ from the JAX package's for the same seed."""
+    differ from the JAX package's for the same seed.
+
+    ``quantize="int8"`` quantizes each matmul weight's matrix as it is
+    drawn (and rounded to ``cfg.dtype``), so the float tree never exists
+    whole: the codes and scales are those of :func:`quantize_decoder_tree`
+    on the float init of the same seed."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     H, L, F_ = cfg.hidden, cfg.layers, cfg.intermediate
@@ -157,53 +234,72 @@ def init_decoder_params(cfg: DecoderConfig, seed: int = 0, device=None) -> dict:
             m.copy_(torch.randn(m.shape, generator=gen, device=device) / math.sqrt(fan_in))
         return out
 
+    def weight(shape, fan_in):
+        if quantize is None:
+            return normal(shape, fan_in)
+
+        def draw(_):
+            m = torch.randn(shape[-2:], generator=gen, device=device) / math.sqrt(fan_in)
+            return m.to(cfg.dtype)
+
+        return _quantized(shape, device, draw)
+
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
     layers = {
         "ln0": ones((L, H)),
         "ln1": ones((L, H)),
-        "wq": normal((L, H, NH * D), H),
-        "wk": normal((L, H, KH * D), H),
-        "wv": normal((L, H, KH * D), H),
-        "wo": normal((L, NH * D, H), NH * D),
+        "wq": weight((L, H, NH * D), H),
+        "wk": weight((L, H, KH * D), H),
+        "wv": weight((L, H, KH * D), H),
+        "wo": weight((L, NH * D, H), NH * D),
     }
     if cfg.experts:
         E = cfg.experts
         layers["moe_router"] = normal((L, H, E), H, dtype=torch.float32)
-        layers["wg"] = normal((L, E, H, F_), H)
-        layers["wu"] = normal((L, E, H, F_), H)
-        layers["wd"] = normal((L, E, F_, H), F_)
+        layers["wg"] = weight((L, E, H, F_), H)
+        layers["wu"] = weight((L, E, H, F_), H)
+        layers["wd"] = weight((L, E, F_, H), F_)
     else:
-        layers["wg"] = normal((L, H, F_), H)
-        layers["wu"] = normal((L, H, F_), H)
-        layers["wd"] = normal((L, F_, H), F_)
+        layers["wg"] = weight((L, H, F_), H)
+        layers["wu"] = weight((L, H, F_), H)
+        layers["wd"] = weight((L, F_, H), F_)
     return {
         "embed": normal((cfg.vocab_size, H), H),
         "final_norm": ones((H,)),
-        "lm_head": normal((H, cfg.vocab_size), H),
+        "lm_head": weight((H, cfg.vocab_size), H),
         "layers": layers,
     }
 
 
 def from_jax_decoder_params(tree, cfg: DecoderConfig, device) -> dict:
     """The port's tree from the JAX package's (nested dicts of arrays, e.g.
-    ``jax.device_get`` output), in ``cfg.dtype`` on ``device``; the MoE
-    router stays f32 as in the JAX tree."""
+    ``jax.device_get`` output), on ``device``: float leaves in
+    ``cfg.dtype``, the MoE router and int8 scales in f32 as in the JAX
+    tree, and int8 codes as ``torch.int8``, so that a quantized tree
+    carries across unchanged."""
     device = resolve_device(device)
 
     def convert(node, name=""):
         if hasattr(node, "items"):
             return {k: convert(v, k) for k, v in node.items()}
-        dtype = torch.float32 if name == "moe_router" else cfg.dtype
+        if name == "q":
+            return torch.from_numpy(np.array(node, np.int8)).to(device)
+        dtype = torch.float32 if name in ("moe_router", "s") else cfg.dtype
         return torch.from_numpy(np.array(node, np.float32)).to(device=device, dtype=dtype)
 
     return convert(tree)
 
 
+def _at(w, i: int):
+    return {k: v[i] for k, v in w.items()} if isinstance(w, dict) else w[i]
+
+
 def _layer(tree, i: int) -> dict:
-    """Layer ``i``'s weights: views into the stacked tree."""
-    return {name: w[i] for name, w in tree["layers"].items()}
+    """Layer ``i``'s weights: views into the stacked tree (both the codes
+    and the scales of an int8 weight)."""
+    return {name: _at(w, i) for name, w in tree["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +321,18 @@ def _sw_mask(q_pos, k_pos, window: int):
 
 
 def _mm(x, w):
-    """``x @ w`` for a float weight; the JAX package's int8 and LoRA weight
-    forms are not ported yet."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(f"int8 and LoRA decoder weights are {NOT_PORTED}")
+    """``x @ w`` for a float weight or an int8 weight-only pair.
+
+    An int8 weight is ``{"q": int8, "s": f32}`` with per-output-channel
+    scales over the contraction axis (-2 in every layout here), so the
+    scale commutes with the product and multiplies the OUTPUT:
+    ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, in the JAX package's order.
+    The JAX package's LoRA form (``{"w", "a", "b"}``) is not ported yet
+    (ROADMAP Queue 1 item 8)."""
+    if isinstance(w, dict):
+        if "q" not in w:
+            raise NotImplementedError("LoRA decoder weights are not ported yet (ROADMAP Queue 1 item 8)")
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
 
 
@@ -250,10 +354,31 @@ def _rope(x, positions, theta):
     return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
 
 
-def _ffn(lp, h, cfg: DecoderConfig):
-    """SwiGLU MLP (dense)."""
+def moe_config(cfg: DecoderConfig) -> MoEConfig:
+    """The MoE layer config of an MoE decoder's FFN."""
+    return MoEConfig(
+        hidden=cfg.hidden,
+        experts=cfg.experts,
+        intermediate=cfg.intermediate,
+        top_k=cfg.experts_top_k,
+        capacity_factor=cfg.expert_capacity_factor,
+        dtype=cfg.dtype,
+    )
+
+
+def moe_params(lp) -> dict:
+    """One layer's router and expert weights, as ``moe_ffn`` takes them."""
+    return {"router": lp["moe_router"], "wg": lp["wg"], "wu": lp["wu"], "wd": lp["wd"]}
+
+
+def _ffn(lp, h, cfg: DecoderConfig, *, full_capacity: bool = False):
+    """SwiGLU MLP: dense, or Mixtral-style sparse MoE when
+    ``cfg.experts > 0`` (the GShard dispatch of ``parallel/moe.py``).
+    ``full_capacity`` selects the lossless dispatch that every serving
+    path asks for (a capacity drop there would silently change the
+    generation); the MoE aux loss is not returned (no training path)."""
     if cfg.experts:
-        raise NotImplementedError(f"Mixtral-style MoE decoder layers are {NOT_PORTED}")
+        return moe_ffn(moe_params(lp), h, moe_config(cfg), full_capacity=full_capacity)[0]
     return _mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"])
 
 
@@ -268,25 +393,28 @@ def _qkv(lp, x, rope, cfg: DecoderConfig):
     return q, k, v
 
 
-def _finish_layer(lp, x, ctx, cfg: DecoderConfig):
+def _finish_layer(lp, x, ctx, cfg: DecoderConfig, *, full_capacity: bool = False):
     """Output projection, residual, and the MLP half of the block."""
     x = x + _mm(ctx, lp["wo"])
-    return x + _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg)
+    return x + _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg, full_capacity=full_capacity)
 
 
-def decoder_layer(lp, x, rope, mask, cfg: DecoderConfig):
-    """One pre-norm transformer block (GQA attention + SwiGLU MLP).
+def decoder_layer(lp, x, rope, mask, cfg: DecoderConfig, *, full_capacity: bool = False):
+    """One pre-norm transformer block (GQA attention + SwiGLU/MoE MLP).
 
     ``lp`` holds a single layer's weights, ``rope`` the ``(cos, sin)``
     tables of :func:`_rope_tables` at the block's positions, ``mask``
     ``[B, S, S]`` boolean (True = attend).  Returns ``(x, (k, v))``: the
     new residual stream and this layer's keys and values ``[B, S, KH, D]``.
+    ``full_capacity`` selects lossless MoE dispatch (serving).
     """
     q, k, v = _qkv(lp, x, rope, cfg)
-    return _finish_layer(lp, x, _attend(q, k, v, mask), cfg), (k, v)
+    x = _finish_layer(lp, x, _attend(q, k, v, mask), cfg, full_capacity=full_capacity)
+    return x, (k, v)
 
 
-def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
+def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int, *,
+                  full_capacity: bool = False):
     """Shared causal forward: final-norm token reps + K/V caches
     ``[L, B, cache_len, KH, D]`` holding the prompt at ``[0, S)`` and
     zeros past each row's length."""
@@ -308,7 +436,7 @@ def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
     # their own position, so untouched slots must hold zeros
     keep = valid[:, :, None, None].to(x.dtype)
     for i in range(cfg.layers):
-        x, (k, v) = decoder_layer(_layer(tree, i), x, rope, mask, cfg)
+        x, (k, v) = decoder_layer(_layer(tree, i), x, rope, mask, cfg, full_capacity=full_capacity)
         k_cache[i, :, :S] = k * keep
         v_cache[i, :, :S] = v * keep
     return _rms(x, tree["final_norm"], cfg.norm_eps), k_cache, v_cache
@@ -325,7 +453,8 @@ def prefill(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
     final real token and caches of shape ``[L, B, cache_len, KH, D]`` with
     the prompt keys/values written at positions ``[0, S)``.
     """
-    x, k_cache, v_cache = _causal_trunk(tree, ids, lengths, cfg, cache_len)
+    # serving path: lossless MoE dispatch, as in every step below
+    x, k_cache, v_cache = _causal_trunk(tree, ids, lengths, cfg, cache_len, full_capacity=True)
     last = x[torch.arange(ids.shape[0], device=ids.device), lengths - 1]
     return _logits(tree, last), k_cache, v_cache
 
@@ -354,7 +483,7 @@ def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
         q, k, v = _qkv(lp, x, rope, cfg)
         kc[rows, at] = torch.where(inside, k[:, 0], kc[rows, at])
         vc[rows, at] = torch.where(inside, v[:, 0], vc[rows, at])
-        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg)
+        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
     x = _rms(x, tree["final_norm"], cfg.norm_eps)
     return _logits(tree, x[:, 0, :]), k_cache, v_cache
 
@@ -554,7 +683,8 @@ def kv_bytes_per_token(cfg: DecoderConfig) -> int:
     return 2 * cfg.layers * cfg.kv_heads * cfg.head_dim * cfg.dtype.itemsize
 
 
-def _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg):
+def _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, *,
+                  full_capacity: bool):
     """The layer loop of both paged steps: write this block's K/V at pool
     ``rows`` (see :func:`attention_ops.kv_rows`), attend over the slots'
     pages.  Returns the final-norm token reps."""
@@ -564,7 +694,7 @@ def _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg):
         attention_ops.write_kv_rows(kp, rows, k)
         attention_ops.write_kv_rows(vp, rows, v)
         ctx = attention_ops.paged_gqa_attention(q, kp, vp, block_tables, mask)
-        x = _finish_layer(lp, x, ctx, cfg)
+        x = _finish_layer(lp, x, ctx, cfg, full_capacity=full_capacity)
     return _rms(x, tree["final_norm"], cfg.norm_eps)
 
 
@@ -589,7 +719,7 @@ def paged_decode_step(tree, k_pool, v_pool, block_tables, seq_lens, token,
         mask = mask & _sw_mask(seq_lens[:, None, None], idx, cfg.sliding_window)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     rows = attention_ops.kv_rows(block_tables, positions, page)
-    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg)
+    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, full_capacity=True)
     return _logits(tree, x[:, 0, :]), k_pool, v_pool
 
 
@@ -622,9 +752,202 @@ def paged_prefill_chunk(tree, k_pool, v_pool, block_tables, chunk_ids,
         mask = mask & _sw_mask(positions[:, :, None], idx, cfg.sliding_window)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     rows = attention_ops.kv_rows(block_tables, write_positions, page)
-    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg)
+    x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, full_capacity=True)
     last = x[torch.arange(S, device=dev), (chunk_lens - 1).clamp(min=0)]
     return _logits(tree, last), k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def verify_block(tree, k_cache, v_cache, tokens, pos0, cfg: DecoderConfig):
+    """Forward ``K`` already-chosen tokens against the cache in ONE pass.
+
+    ``tokens [B, K]`` sit at positions ``pos0 + 0..K-1`` (``pos0 [B]``,
+    ``K <= C``); the caches hold history for positions ``< pos0`` and zeros
+    at the block's positions.  Writes the block's K/V into the caches in
+    place and returns ``(logits [B, K, V] f32, k_cache, v_cache)``: what
+    ``K`` sequential :func:`decode_step` calls give, as one batched sweep.
+    A write at a position ``>= C`` is a no-op, as the JAX package's one-hot
+    scatter is.
+    """
+    B, K = tokens.shape
+    C = k_cache.shape[2]
+    dev = tokens.device
+    x = tree["embed"][tokens]  # [B, K, H]
+    positions = pos0[:, None] + torch.arange(K, device=dev)[None, :]  # [B, K]
+    idx = torch.arange(C, device=dev)[None, None, :]
+    # query i attends to every slot <= its own position (the block's K/V
+    # are written before attending, so intra-block edges are included)
+    mask = idx <= positions[:, :, None]  # [B, K, C]
+    if cfg.sliding_window is not None:
+        mask = mask & _sw_mask(positions[:, :, None], idx, cfg.sliding_window)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rows = torch.arange(B, device=dev)[:, None]
+    inside = (positions < C)[:, :, None, None]
+    # a row's K consecutive positions are distinct modulo C: a position past
+    # the cache writes the value already at its wrapped slot back, and no
+    # two writes of one call meet at one slot
+    at = positions % C
+    for i in range(cfg.layers):
+        lp, kc, vc = _layer(tree, i), k_cache[i], v_cache[i]
+        q, k, v = _qkv(lp, x, rope, cfg)
+        kc[rows, at] = torch.where(inside, k, kc[rows, at])
+        vc[rows, at] = torch.where(inside, v, vc[rows, at])
+        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
+    x = _rms(x, tree["final_norm"], cfg.norm_eps)
+    return _logits(tree, x), k_cache, v_cache
+
+
+def speculative_decode_chunk(tree, draft_tree, k_cache, v_cache, logits, pos,
+                             cfg: DecoderConfig, n_draft: int, done=None, *,
+                             draft_cache):
+    """One greedy speculative round: draft ``n_draft`` tokens with
+    ``draft_tree`` (sequential single-token decodes), verify them against
+    ``tree`` with ONE :func:`verify_block` sweep, and accept the longest
+    prefix on which the target's own argmax agrees.
+
+    The emitted chain is the target's greedy chain: ``toks[:, 0]`` is the
+    argmax of the incoming (target) logits, and each further draft token
+    counts only if the target's argmax at the preceding position agrees.
+    At least one token is accepted per round.
+
+    The draft steps write K/V, and :func:`decode_step` writes in place, so
+    they run on a COPY of the target's caches: ``draft_cache``, a
+    preallocated ``(k, v)`` pair of the same shape, refreshed with
+    ``copy_`` each round.  The target's caches change only through the
+    verify sweep.  Only ``n_draft - 1`` draft steps are run: the logits after the
+    last draft token are never read.
+
+    Returns ``(toks [B, n_draft], n_match [B], next_logits, k_cache,
+    v_cache, pos + n_match)``: ``toks[b, :n_match[b]]`` are the accepted
+    tokens, the caches hold target K/V for exactly the accepted positions
+    (rejected positions are zeroed, so the slots stay ready for the next
+    write) and ``next_logits`` are the target logits after the last
+    accepted token.  ``done [B] bool`` freezes finished rows: their
+    ``n_match`` is 0, ``pos`` does not advance and every write of the
+    round is zeroed again, so their cache rows stay bit-identical.
+    """
+    B = logits.shape[0]
+    C = k_cache.shape[2]
+    dk, dv = draft_cache
+    dk.copy_(k_cache)
+    dv.copy_(v_cache)
+    tok = logits.argmax(dim=-1)
+    toks, lg, p = [tok], logits, pos
+    for _ in range(n_draft - 1):
+        lg, dk, dv = decode_step(draft_tree, dk, dv, tok, p, cfg)
+        tok = lg.argmax(dim=-1)
+        toks.append(tok)
+        p = p + 1
+    toks = torch.stack(toks, dim=1)  # [B, n_draft]
+
+    vlogits, k_cache, v_cache = verify_block(tree, k_cache, v_cache, toks, pos, cfg)
+    pred = vlogits.argmax(dim=-1)  # the target's next token after each block token
+    match = (toks[:, 1:] == pred[:, :-1]).long()
+    n_match = 1 + match.cumprod(dim=1).sum(dim=1)  # [B] 1..n_draft
+    if done is not None:
+        n_match = torch.where(done, 0, n_match)
+    next_logits = vlogits[torch.arange(B, device=logits.device), (n_match - 1).clamp(min=0)]
+    cidx = torch.arange(C, device=logits.device)[None, :]
+    rejected = (cidx >= (pos + n_match)[:, None]) & (cidx < (pos + n_draft)[:, None])  # [B, C]
+    k_cache.masked_fill_(rejected[None, :, :, None, None], 0)
+    v_cache.masked_fill_(rejected[None, :, :, None, None], 0)
+    return toks, n_match, next_logits, k_cache, v_cache, pos + n_match
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint mapping
+# ---------------------------------------------------------------------------
+
+
+def map_hf_decoder_state_dict(sd: dict, cfg: DecoderConfig, device=None,
+                              quantize: str | None = None) -> dict | None:
+    """A llama/mistral-family ``state_dict`` (names → numpy arrays) mapped
+    onto the stacked tree on ``device``, or ``None`` when its layout does
+    not fit ``cfg``.
+
+    The JAX ``load_hf_decoder_weights`` rules: torch ``Linear`` weights
+    (``[out, in]``) are transposed into matmul layout; the Mixtral
+    ``block_sparse_moe`` layout maps ``w1→wg``, ``w3→wu``, ``w2→wd`` and
+    ``gate→moe_router`` (f32); ``lm_head`` falls back to the tied embedding.
+    Float leaves are in ``cfg.dtype``.  ``quantize="int8"`` quantizes each
+    matmul weight one matrix at a time as it is moved (the bits of
+    :func:`quantize_decoder_tree` on the float tree)."""
+    device = resolve_device(device)
+    if "model.layers.0.self_attn.q_proj.weight" not in sd:
+        return None
+    if bool(cfg.experts) != ("model.layers.0.block_sparse_moe.gate.weight" in sd):
+        return None  # a dense checkpoint for an MoE config, or the reverse
+
+    def leaf(arr, dtype=cfg.dtype):
+        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device=device, dtype=dtype)
+
+    def weight(arr):
+        if quantize is None:
+            return leaf(arr)
+        return _quantize(torch.from_numpy(np.ascontiguousarray(arr, np.float32)), cfg.dtype, device)
+
+    def stack(fmt, transpose=True):
+        mats = [sd[fmt.format(i)] for i in range(cfg.layers)]
+        return np.stack([m.T if transpose else m for m in mats])
+
+    def stack_experts(wname):
+        return np.stack([
+            np.stack([sd[f"model.layers.{i}.block_sparse_moe.experts.{e}.{wname}.weight"].T
+                      for e in range(cfg.experts)])
+            for i in range(cfg.layers)
+        ])
+
+    layers = {
+        "ln0": leaf(stack("model.layers.{}.input_layernorm.weight", transpose=False)),
+        "ln1": leaf(stack("model.layers.{}.post_attention_layernorm.weight", transpose=False)),
+        "wq": weight(stack("model.layers.{}.self_attn.q_proj.weight")),
+        "wk": weight(stack("model.layers.{}.self_attn.k_proj.weight")),
+        "wv": weight(stack("model.layers.{}.self_attn.v_proj.weight")),
+        "wo": weight(stack("model.layers.{}.self_attn.o_proj.weight")),
+    }
+    if cfg.experts:
+        layers["moe_router"] = leaf(stack("model.layers.{}.block_sparse_moe.gate.weight"), torch.float32)
+        layers["wg"] = weight(stack_experts("w1"))
+        layers["wu"] = weight(stack_experts("w3"))
+        layers["wd"] = weight(stack_experts("w2"))
+    else:
+        layers["wg"] = weight(stack("model.layers.{}.mlp.gate_proj.weight"))
+        layers["wu"] = weight(stack("model.layers.{}.mlp.up_proj.weight"))
+        layers["wd"] = weight(stack("model.layers.{}.mlp.down_proj.weight"))
+    lm_head = sd.get("lm_head.weight", sd["model.embed_tokens.weight"])
+    return {
+        "embed": leaf(sd["model.embed_tokens.weight"]),
+        "final_norm": leaf(sd["model.norm.weight"]),
+        "lm_head": weight(lm_head.T),
+        "layers": layers,
+    }
+
+
+def load_hf_decoder_weights(model_name: str, cfg: DecoderConfig, device=None,
+                            quantize: str | None = None) -> dict | None:
+    """A locally cached llama/mistral-family ``transformers`` checkpoint
+    mapped onto the tree (:func:`map_hf_decoder_state_dict`), or ``None``
+    when there is none: no local directory or model cache, no
+    ``transformers`` (imported here, never when the module is imported),
+    or a load that fails.  Nothing is downloaded."""
+    cache = os.path.expanduser(os.environ.get("HF_HOME", "~/.cache/huggingface"))
+    if not os.path.isdir(model_name) and not os.path.isdir(cache):
+        return None  # no local checkpoint can exist: skip the import
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    try:
+        from transformers import AutoModelForCausalLM
+
+        hf = AutoModelForCausalLM.from_pretrained(model_name, local_files_only=True)
+    except Exception:  # noqa: BLE001 -- any failure to load means "no checkpoint"
+        _log.debug("no local checkpoint for %s", model_name, exc_info=True)
+        return None
+    sd = {k: v.detach().float().cpu().numpy() for k, v in hf.state_dict().items()}
+    del hf
+    return map_hf_decoder_state_dict(sd, cfg, device, quantize)
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +960,11 @@ class DecoderLM:
 
     Generation runs :func:`decode_chunk` — up to 16 decode steps with
     sampling and EOS masking on the device — with one host sync per chunk.
-    Runs on ``cuda:0`` unless ``device`` says otherwise.
+    Weights are a local checkpoint when :func:`load_hf_decoder_weights`
+    finds one, else seeded.  ``quantize="int8"`` serves weight-only int8
+    (built without a float copy of the whole model on the device); nothing
+    quantizes unless asked.  Runs on ``cuda:0`` unless ``device`` says
+    otherwise.
     """
 
     def __init__(
@@ -651,16 +978,23 @@ class DecoderLM:
     ):
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-        if quantize == "int8":
-            raise NotImplementedError(f"weight-only int8 decoding is {NOT_PORTED}")
         self.device = resolve_device(device)
         self.config = decoder_config_for(model_name)
         self.model_name = model_name
         self.max_cache = min(max_cache, self.config.max_len)
         self.eos_id = eos_id
         self.tokenizer = load_tokenizer(model_name, self.config.vocab_size, self.config.max_len)
-        self.params = init_decoder_params(self.config, seed, self.device)
+        tree = load_hf_decoder_weights(model_name, self.config, self.device, quantize)
+        self.pretrained = tree is not None
+        if tree is None:
+            tree = init_decoder_params(self.config, seed, self.device, quantize)
+        self.params = tree
+        self.quantized = quantize == "int8"
         self._chunk_len = 16
+        # self-speculative decoding: the int8 draft tree, built at first use,
+        # and what its rounds accepted (active rows only)
+        self._draft_tree = None
+        self.speculative_stats = {"rounds": 0, "row_rounds": 0, "accepted": 0}
 
     def n_params(self) -> int:
         def count(node):
@@ -688,21 +1022,11 @@ class DecoderLM:
         (HF semantics) penalizes every token already in the prompt or
         generated so far.  Prompts longer than the cache budget keep their
         TAIL."""
-        if max_new_tokens >= self.max_cache:
-            raise ValueError(
-                f"max_new_tokens={max_new_tokens} must be < max_cache={self.max_cache}"
-            )
         if repetition_penalty is not None and repetition_penalty <= 0:
             raise ValueError(f"repetition_penalty must be > 0, got {repetition_penalty}")
+        prompt_ids, ids, lengths = self._prompt_batch(prompt_ids, max_new_tokens)
         B = len(prompt_ids)
         dev = self.device
-        limit = self.max_cache - max_new_tokens
-        prompt_ids = [p[-limit:] if len(p) > limit else p for p in prompt_ids]
-        lengths = np.array([max(len(p), 1) for p in prompt_ids], np.int64)
-        S = _bucket_prompt_len(int(lengths.max()), self.max_cache)
-        ids = np.zeros((B, S), np.int64)
-        for i, p in enumerate(prompt_ids):
-            ids[i, : len(p)] = p
         greedy = temperature <= 0.0
         temp = temperature if temperature > 0.0 else 1.0
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -740,8 +1064,82 @@ class DecoderLM:
                     break
         return out
 
-    def generate_ids_speculative(self, prompt_ids, max_new_tokens: int = 64, n_draft: int = 8):
-        raise NotImplementedError(f"self-speculative decoding is {NOT_PORTED}")
+    def _prompt_batch(self, prompt_ids, max_new_tokens: int):
+        """Prompts cut to the cache budget (their TAIL is kept), padded to a
+        power-of-two bucket: ``(prompt_ids, ids [B, S], lengths [B])``."""
+        if max_new_tokens >= self.max_cache:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} must be < max_cache={self.max_cache}"
+            )
+        limit = self.max_cache - max_new_tokens
+        prompt_ids = [p[-limit:] if len(p) > limit else p for p in prompt_ids]
+        lengths = np.array([max(len(p), 1) for p in prompt_ids], np.int64)
+        S = _bucket_prompt_len(int(lengths.max()), self.max_cache)
+        ids = np.zeros((len(prompt_ids), S), np.int64)
+        for i, p in enumerate(prompt_ids):
+            ids[i, : len(p)] = p
+        return prompt_ids, ids, lengths
+
+    def generate_ids_speculative(
+        self,
+        prompt_ids: list[list[int]],
+        max_new_tokens: int = 64,
+        n_draft: int = 8,
+    ) -> list[list[int]]:
+        """Greedy generation by SELF-SPECULATIVE decoding.
+
+        Each round drafts ``n_draft`` tokens with the int8-quantized tree
+        (built at first use), verifies them with the float tree in one
+        :func:`verify_block` sweep and accepts the matching prefix
+        (:func:`speculative_decode_chunk`).  The emitted chain is the one
+        ``generate_ids(temperature=0)`` gives.  One host sync per round;
+        ``speculative_stats`` adds up the rounds, the active row-rounds and
+        the tokens they accepted.  A quantized target raises ``ValueError``.
+        """
+        if self.quantized:
+            raise ValueError(
+                "speculative decoding verifies with the float tree: "
+                "construct DecoderLM without quantize (the int8 draft is "
+                "built internally)"
+            )
+        if not 1 <= n_draft <= self.max_cache:
+            raise ValueError(f"n_draft={n_draft} must be in [1, max_cache={self.max_cache}]")
+        prompt_ids, ids, lengths = self._prompt_batch(prompt_ids, max_new_tokens)
+        if self._draft_tree is None:
+            self._draft_tree = quantize_decoder_tree(self.params)
+        B = len(prompt_ids)
+        dev = self.device
+        out: list[list[int]] = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        stats = self.speculative_stats
+        with torch.inference_mode():
+            pos = torch.from_numpy(lengths).to(dev)
+            logits, kc, vc = prefill(self.params, torch.from_numpy(ids).to(dev), pos,
+                                     self.config, self.max_cache)
+            # the draft's own cache, refreshed from the target's each round
+            draft_cache = (torch.empty_like(kc), torch.empty_like(vc))
+            while not done.all():
+                toks, n_match, logits, kc, vc, pos = speculative_decode_chunk(
+                    self.params, self._draft_tree, kc, vc, logits, pos, self.config,
+                    n_draft, done=torch.from_numpy(done).to(dev), draft_cache=draft_cache,
+                )
+                htoks, hn = toks.cpu().numpy(), n_match.cpu().numpy()  # one host sync per round
+                stats["rounds"] += 1
+                stats["row_rounds"] += int((~done).sum())
+                stats["accepted"] += int(hn.sum())
+                for i in range(B):
+                    if done[i]:
+                        continue
+                    for t in range(int(hn[i])):
+                        tok = int(htoks[i, t])
+                        if self.eos_id is not None and tok == self.eos_id:
+                            done[i] = True
+                            break
+                        out[i].append(tok)
+                        if len(out[i]) >= max_new_tokens:
+                            done[i] = True
+                            break
+        return out
 
     def generate(
         self,

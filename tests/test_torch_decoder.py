@@ -173,15 +173,6 @@ def test_attend_matches_jax():
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
 
-def test_moe_and_int8_raise_not_implemented():
-    cfg = tdec.decoder_config_for("pw-tiny-moe-decoder")
-    tree = tdec.init_decoder_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.prefill(tree, torch.ones((1, 4), dtype=torch.int64), torch.tensor([4]), cfg, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.DecoderLM("pw-tiny-decoder", quantize="int8", device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # prefill / decode_step
 # ---------------------------------------------------------------------------
@@ -328,8 +319,6 @@ def test_generate_keeps_prompt_tail_and_validates(lms):
         tlm.generate_ids([[1]], max_new_tokens=64)
     with pytest.raises(ValueError, match="repetition_penalty"):
         tlm.generate_ids([[1]], max_new_tokens=4, repetition_penalty=0.0)
-    with pytest.raises(NotImplementedError):
-        tlm.generate_ids_speculative([[1]], max_new_tokens=4)
 
 
 def test_sampled_generation_stays_in_support(lms):

@@ -147,6 +147,8 @@ def test_device_default_raises_without_cuda(model_dir, monkeypatch):
         pt.resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.DecoderLM("pw-tiny-decoder")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.DecoderLM("pw-tiny-moe-decoder", quantize="int8")
     assert pt.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -154,7 +156,8 @@ def test_port_imports_nothing_of_jax(model_dir):
     """In a fresh interpreter that cannot import jax, flax, pathway_tpu (or
     transformers, which the card lacks), the port imports and runs the
     embed-and-retrieve slice, reranking with the cross-encoder, W8A8
-    embeddings and the generation path on the CPU."""
+    embeddings, the generation path, an int8 MoE decoder and
+    self-speculative decoding on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -192,6 +195,12 @@ def test_port_imports_nothing_of_jax(model_dir):
         fut = sched.submit_ids([5, 9, 17], max_new_tokens=4)
         assert fut.result(timeout=60) == lm.generate_ids([[5, 9, 17]], max_new_tokens=4)[0]
         sched.shutdown()
+        moe = pt.DecoderLM("pw-tiny-moe-decoder", max_cache=64, quantize="int8", device="cpu")
+        assert isinstance(moe.params["layers"]["wg"], dict) and not moe.pretrained
+        assert len(moe.generate_ids([[5, 9, 17]], max_new_tokens=4)[0]) <= 4
+        moe_f = pt.DecoderLM("pw-tiny-moe-decoder", max_cache=64, eos_id=None, device="cpu")
+        assert moe_f.generate_ids_speculative([[5, 9, 17]], max_new_tokens=6, n_draft=3) == \
+            moe_f.generate_ids([[5, 9, 17]], max_new_tokens=6)
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
