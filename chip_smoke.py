@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate,moe,speculative]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate,moe,speculative,vision,lora]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -70,12 +70,39 @@ Phases, each on a line of its own; any failure exits non-zero:
    the same 8 prompts (64-512 ids, 64 new tokens), rows equal but at
    near-ties; tokens accepted per round, acceptance rate, tokens/s of
    both, and the device ms of the int8 draft's decode step against the
-   bf16 one at B=8.
+   bf16 one at B=8;
+10. vision: siglip-base-patch16-224 at full width (a 12-layer ViT, H 768,
+   12 heads, 196 patches of 16×16; the bge-base-en-v1.5 text tower;
+   seeded random bf16 weights) through ``MultimodalEncoder``: 4,096 seeded
+   uint8 224×224 images at ``max_batch`` 256 and 4,096 texts of the main
+   corpus after one untimed batch of each, images/s and texts/s; a batch
+   split into host conversion, padding and H2D ms against the forward's
+   device ms (CUDA graphs), the device's idle share, and the text tower's
+   per-call cast of its f32 kernels; 256 320×320 images through the host
+   resize; 64 images and 64 texts held to an f32 run of the same functions
+   and weights (min cosine > 0.999), row 2 of a batch of 5 to that image
+   alone (> 0.999), ``score`` to ``pairwise_logits`` of its embeddings
+   (1e-3); an ``op`` line with the plain vision attention at (256, 196,
+   768, 12) beside SDPA and the encoder kernel on the same q, k, v (the
+   kernel held to the plain attention at 0.05), outside the counted run;
+   then siglip-so400m-patch14-384 (27 layers, H 1152, hd 72, 729
+   patches) timed on 512 images beside its FLOP bound;
+11. lora: mistral-7b-instruct in bf16 with LoRA adapters of rank 8 on
+   ``wq`` and ``wv`` (``b`` seeded at std 0.02): a burst of 16 requests
+   (64-512 prompt ids, 64 new tokens, 12 greedy and 4 sampled) through
+   ``GenerationScheduler`` over the adapted tree and over the base tree,
+   twice each in turns (adapted, base, base, adapted), tokens/s, TTFT and
+   latency of each run; the adapted answers held to the
+   dense path of the merged tree by phase 7's checks, the adapted greedy
+   rows differing from the base rows, zero-init adapters giving the base
+   tree's greedy tokens on 4 prompts; device and host ms of a decode tick
+   at 8 slots over the base, the adapted and a timing-only rank-16
+   adapter on all seven targets, beside the bytes bound.
 
-Phases 7-9 run one model at a time; the encoder kernel is on none of their
-paths, and its launches there are counted and must be 0.  ``--skip``
-leaves out the named phases of 5-9 (all run by default), to time one
-phase without the ones before it in the same process.  Then the total
+Phases 7-11 run one model at a time; the encoder kernel is on none of
+their paths, and its launches there are counted and must be 0.
+``--skip`` leaves out the named phases of 5-11 (all run by default), to
+time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.  It imports nothing of JAX or of ``pathway_tpu``.
@@ -608,8 +635,9 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "generate", "moe", "speculative")
-DECODER_PHASES = ("generate", "moe", "speculative")
+SKIPPABLE = ("rerank", "encoders", "generate", "moe", "speculative", "vision", "lora")
+# the phases whose paths hold no encoder-attention call: their launches must be 0
+NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
 RERANK_CHUNKS = 16384
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
@@ -1181,28 +1209,32 @@ def emitted_gaps(lm, prompts, rows, steps: int) -> dict:
             "worst_gap_over_tol": max(q["worst_gap_over_tol"] for q in parts)}
 
 
-def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device, phase: str) -> int:
+def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device, phase: str,
+                     reference=None) -> int:
     """The burst's answers against the dense path: every greedy token,
     teacher-forced through the dense path, within tol of the max of its
     step (the rows equal to ``DecoderLM.generate_ids`` but at near-ties);
     the paged path's teacher-forced logits within tol of the dense path's;
-    every sampled token inside its top-p support.  Each check is logged
-    before the run fails on any.  Returns the greedy rows that parted."""
+    every sampled token inside its top-p support.  The dense path is that
+    of ``reference`` (a ``DecoderLM``; ``lm`` itself by default), the paged
+    path that of ``lm``.  Each check is logged before the run fails on any.
+    Returns the greedy rows that parted."""
     from pathway_tpu_torch.models import decoder as dec
 
+    ref = lm if reference is None else reference
     # greedy rows against the dense DecoderLM.generate_ids, in batches
     dense = {}
     for b in range(0, len(greedy), GEN_REF_BATCH):
         rows = greedy[b : b + GEN_REF_BATCH]
-        for i, o in zip(rows, lm.generate_ids([prompts[i] for i in rows], max_new_tokens=new_tokens)):
+        for i, o in zip(rows, ref.generate_ids([prompts[i] for i in rows], max_new_tokens=new_tokens)):
             dense[i] = o
     parted = {i: t for i in greedy if (t := first_parting(outs[i], dense[i])) is not None}
-    emitted = emitted_gaps(lm, [prompts[i] for i in greedy], [outs[i] for i in greedy], new_tokens)
+    emitted = emitted_gaps(ref, [prompts[i] for i in greedy], [outs[i] for i in greedy], new_tokens)
 
     # logits of the paged path against the dense path, teacher-forced
     rows = greedy[:GEN_LOGIT_ROWS]
     feed = [dense[i] for i in rows]
-    d = dense_step_logits(lm, [prompts[i] for i in rows], feed, new_tokens)
+    d = dense_step_logits(ref, [prompts[i] for i in rows], feed, new_tokens)
     p = paged_step_logits(lm, [prompts[i] for i in rows], feed, new_tokens)
     tol = near_tie_tol(d)
     tok, live = fed_tokens(feed, new_tokens, device)
@@ -1221,7 +1253,7 @@ def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device
         # its logits against the batched dense path's, and the batched dense
         # path's greedy tokens against its max.  The paged path may part from
         # the dense path no more often, and by no more, than that.
-        alone = torch.cat([dense_step_logits(lm, [prompts[i]], [f], new_tokens) for i, f in zip(rows, feed)])
+        alone = torch.cat([dense_step_logits(ref, [prompts[i]], [f], new_tokens) for i, f in zip(rows, feed)])
         ctrl = torch.where(steps, (alone - d).abs().amax(dim=-1), 0.0) / tol
         check.update(control_worst_err_over_tol=float(ctrl.max()), control_steps_over_tol=int((ctrl >= 1.0).sum()))
         control = below_max(alone, tok, live)
@@ -1248,7 +1280,7 @@ def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device
 
     # each sampled token lies in the support its filters leave
     feed = [outs[i] for i in sampled]
-    lg = dense_step_logits(lm, [prompts[i] for i in sampled], feed, new_tokens)
+    lg = dense_step_logits(ref, [prompts[i] for i in sampled], feed, new_tokens)
     kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
     kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
     tok, live = fed_tokens(feed, new_tokens, device)
@@ -1305,6 +1337,48 @@ def generate_phase(device, seed: int, card: str) -> dict:
     return {"launches": run["launches"], "attention_launches": {}, **burst, **timing}
 
 
+def decode_tick_inputs(lm, prompt_lens, device) -> dict:
+    """A decode tick mid-generation at ``len(prompt_lens)`` slots, as the
+    scheduler's pool holds it: random K/V pools, each slot's block table,
+    and each slot holding its prompt and 64 generated tokens.  Returns the
+    generator it drew from, for the caller's further draws."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    cfg = lm.config
+    S, page = len(prompt_lens), 16
+    G = lm.max_cache // page
+    gen = torch.Generator(device=device).manual_seed(7)
+    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + S * G, page, device)
+    k_pool.normal_(generator=gen)
+    v_pool.normal_(generator=gen)
+    bt = (1 + torch.arange(S * G, device=device)).reshape(S, G)
+    seq = torch.tensor([min(n + 64, lm.max_cache - 1) for n in prompt_lens], device=device)
+    tok = torch.randint(3, cfg.vocab_size, (S,), generator=gen, device=device)
+    return {"k_pool": k_pool, "v_pool": v_pool, "bt": bt, "seq": seq, "tok": tok, "gen": gen,
+            "page": page, "G": G, "live_tokens": int(seq.sum()) + S}
+
+
+def decode_tick(tree, cfg, t: dict, reps: int = 4, replays: int = 5, iters: int = 10) -> dict:
+    """Device ms (CUDA graphs of ``reps`` ticks, ``replays`` replays) and
+    host ms (``iters`` eager ticks) of one ``paged_decode_step`` over the
+    weights ``tree`` at the tick ``t`` of :func:`decode_tick_inputs`, beside
+    its bytes bound (every weight, the live K/V, the logits) and the idle
+    share 1 − device/host."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    S, H, V = len(t["seq"]), cfg.hidden, cfg.vocab_size
+    step = lambda: dec.paged_decode_step(tree, t["k_pool"], t["v_pool"], t["bt"], t["seq"], t["tok"], cfg)  # noqa: E731
+    step_bytes = (tensor_bytes(tree["layers"]) + tensor_bytes(tree["lm_head"]) + H * 2 * (1 + S)
+                  + t["live_tokens"] * dec.kv_bytes_per_token(cfg) + S * V * 4)
+    out = {
+        "decode_device_ms": device_ms([step], reps=reps, replays=replays),
+        "decode_host_ms": eager_ms(step, iters=iters),
+        "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    out["decode_idle_share"] = 1.0 - out["decode_device_ms"] / out["decode_host_ms"]
+    return out
+
+
 def generate_timing(lm, prompt_lens, device) -> dict:
     """Device and host ms of a decode tick and a prefill chunk at 8 slots,
     paged attention per layer beside its bytes bound and SDPA, and each op
@@ -1313,33 +1387,21 @@ def generate_timing(lm, prompt_lens, device) -> dict:
     from pathway_tpu_torch.ops import attention as attn
 
     cfg, tree = lm.config, lm.params
-    S, page, H, V = len(prompt_lens), 16, cfg.hidden, cfg.vocab_size
+    S, H, V = len(prompt_lens), cfg.hidden, cfg.vocab_size
     NH, KH, D, L, F_ = cfg.heads, cfg.kv_heads, cfg.head_dim, cfg.layers, cfg.intermediate
-    G = lm.max_cache // page
-    gen = torch.Generator(device=device).manual_seed(7)
-    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + S * G, page, device)
-    k_pool.normal_(generator=gen)
-    v_pool.normal_(generator=gen)
-    bt = (1 + torch.arange(S * G, device=device)).reshape(S, G)
-    # mid-generation: each slot holds its prompt and 64 generated tokens
-    seq = torch.tensor([min(n + 64, lm.max_cache - 1) for n in prompt_lens], device=device)
-    tok = torch.randint(3, V, (S,), generator=gen, device=device)
-    live_tokens = int(seq.sum()) + S
+    tick = decode_tick_inputs(lm, prompt_lens, device)
+    k_pool, v_pool, bt, seq, tok, gen = (tick[k] for k in ("k_pool", "v_pool", "bt", "seq", "tok", "gen"))
+    page, G, live_tokens = tick["page"], tick["G"], tick["live_tokens"]
     kv_tok = dec.kv_bytes_per_token(cfg)
     hbm = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     flops = lambda f: f / BF16_FLOPS_PER_S * 1e3  # noqa: E731
 
-    step = lambda: dec.paged_decode_step(tree, k_pool, v_pool, bt, seq, tok, cfg)  # noqa: E731
     layer_bytes = tensor_bytes(tree["layers"])
-    step_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + H * 2 * (1 + S) + live_tokens * kv_tok + S * V * 4
     out = {
         "decode_slots": S, "decode_context_tokens": live_tokens, "decode_table_width": G,
-        "decode_device_ms": device_ms([step], reps=4, replays=5),
-        "decode_host_ms": eager_ms(step),
-        "decode_bound_ms": hbm(step_bytes),
+        **decode_tick(tree, cfg, tick),
         "decode_weights_all_ms": hbm(tensor_bytes(tree)),
     }
-    out["decode_idle_share"] = 1.0 - out["decode_device_ms"] / out["decode_host_ms"]
 
     T = 32
     ids = torch.randint(3, V, (S, T), generator=gen, device=device)
@@ -1506,34 +1568,20 @@ def moe_timing(lm, prompt_lens, device) -> dict:
     from pathway_tpu_torch.parallel import moe
 
     cfg, tree = lm.config, lm.params
-    S, page, H, V = len(prompt_lens), 16, cfg.hidden, cfg.vocab_size
+    S, H, V = len(prompt_lens), cfg.hidden, cfg.vocab_size
     NH, KH, D, L, F_, E = cfg.heads, cfg.kv_heads, cfg.head_dim, cfg.layers, cfg.intermediate, cfg.experts
     K = cfg.experts_top_k
-    G = lm.max_cache // page
-    gen = torch.Generator(device=device).manual_seed(7)
-    k_pool, v_pool = dec.init_kv_pool(cfg, 1 + S * G, page, device)
-    k_pool.normal_(generator=gen)
-    v_pool.normal_(generator=gen)
-    bt = (1 + torch.arange(S * G, device=device)).reshape(S, G)
-    seq = torch.tensor([min(n + 64, lm.max_cache - 1) for n in prompt_lens], device=device)
-    tok = torch.randint(3, V, (S,), generator=gen, device=device)
-    live_tokens = int(seq.sum()) + S
+    tick = decode_tick_inputs(lm, prompt_lens, device)
+    k_pool, v_pool, bt, gen = (tick[k] for k in ("k_pool", "v_pool", "bt", "gen"))
     kv_tok = dec.kv_bytes_per_token(cfg)
     hbm = lambda b: b / HBM_BYTES_PER_S * 1e3  # noqa: E731
     flops = lambda f: f / BF16_FLOPS_PER_S * 1e3  # noqa: E731
 
     # the dense GShard dispatch computes every expert, so a tick reads every
     # expert's codes: its bound counts all weights
-    step = lambda: dec.paged_decode_step(tree, k_pool, v_pool, bt, seq, tok, cfg)  # noqa: E731
     layer_bytes = tensor_bytes(tree["layers"])
-    step_bytes = layer_bytes + tensor_bytes(tree["lm_head"]) + H * 2 * (1 + S) + live_tokens * kv_tok + S * V * 4
-    out = {
-        "decode_slots": S, "decode_context_tokens": live_tokens,
-        "decode_device_ms": device_ms([step], reps=2, replays=3),
-        "decode_host_ms": eager_ms(step, iters=5),
-        "decode_bound_ms": hbm(step_bytes),
-    }
-    out["decode_idle_share"] = 1.0 - out["decode_device_ms"] / out["decode_host_ms"]
+    out = {"decode_slots": S, "decode_context_tokens": tick["live_tokens"],
+           **decode_tick(tree, cfg, tick, reps=2, replays=3, iters=5)}
     out["decode_over_bound"] = out["decode_device_ms"] / out["decode_bound_ms"]
 
     T = 32
@@ -1758,6 +1806,338 @@ def speculative_phase(device, seed: int, card: str) -> dict:
     return {"launches": launches, "attention_launches": {}, **run, **timing}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the SigLIP dual encoder; phase 11: LoRA-adapted decoder serving.
+# ---------------------------------------------------------------------------
+
+VISION_MODEL = "siglip-base-patch16-224"
+VISION_WIDTHS = dict(image_size=224, patch=16, hidden=768, layers=12, heads=12, intermediate=3072, proj_dim=768)
+TEXT_TOWER_WIDTHS = dict(hidden=768, layers=12, heads=12, intermediate=3072)  # bge-base-en-v1.5
+VISION_BATCH = 256  # MultimodalEncoder's default max_batch
+VISION_IMAGES = 4096
+VISION_TEXTS = 4096
+VISION_CHECK_ROWS = 64
+RESIZE_IMAGES, RESIZE_FROM = 256, 320
+SO400M_MODEL = "siglip-so400m-patch14-384"
+SO400M_WIDTHS = dict(image_size=384, patch=14, hidden=1152, layers=27, heads=16, intermediate=4304, proj_dim=1152)
+SO400M_IMAGES = 512
+LORA_RANK, LORA_ALPHA = 8, 16.0  # lora_decoder_tree's defaults
+LORA_B_STD = 0.02  # tests/test_lora.py:81-84
+LORA_TIMING_RANK = 16
+ZERO_INIT_PROMPTS = 4
+
+
+def vision_flops(cfg) -> float:
+    """FLOPs of one image through the image tower: the patch embedding, per
+    layer the QKV, score, context, output and MLP products, and the
+    projection (2 per multiply-add)."""
+    N, H, F_, P = cfg.n_patches, cfg.hidden, cfg.intermediate, cfg.patch**2 * 3
+    layer = 2 * N * H * 3 * H + 2 * 2 * N * N * H + 2 * N * H * H + 2 * 2 * N * H * F_
+    return 2 * N * P * H + cfg.layers * layer + 2 * H * cfg.proj_dim
+
+
+def cosine_rows(a, b):
+    return (a * b).sum(axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def to_f32(tree):
+    return {k: to_f32(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.float()
+
+
+def vision_phase(device, seed: int, card: str) -> dict:
+    """Embed images and texts at full siglip-base-patch16-224 width through
+    ``MultimodalEncoder`` (bge-base-en-v1.5 text tower), check them against
+    an f32 run of the same functions, time the host and device parts, the
+    plain vision attention beside SDPA and the encoder kernel, and
+    siglip-so400m-patch14-384's image tower."""
+    import dataclasses
+
+    from pathway_tpu_torch.models import vision as vis
+    from pathway_tpu_torch.models.encoder import SentenceEncoderModule
+    from pathway_tpu_torch.models.tokenizer import bucket_batch, bucket_seq_len, pad_batch
+    from pathway_tpu_torch.ops import attention as attn
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    enc = vis.MultimodalEncoder(VISION_MODEL, seed=seed, max_batch=VISION_BATCH, device=device)
+    torch.cuda.synchronize()
+    vcfg, tcfg = enc.vision_config, enc.text_config
+    widths = {k: getattr(vcfg, k) for k in VISION_WIDTHS}
+    text_widths = {k: getattr(tcfg, k) for k in TEXT_TOWER_WIDTHS}
+    gflop = vision_flops(vcfg) / 1e9
+    log("vision", step="model", model=VISION_MODEL, **widths, n_patches=vcfg.n_patches, dtype=str(vcfg.dtype),
+        text_tower=text_widths, text_dtype=str(tcfg.dtype), init_s=time.perf_counter() - t0,
+        device=str(enc.device), gflop_per_image=gflop, flop_bound_images_per_s=BF16_FLOPS_PER_S / (gflop * 1e9))
+    if widths != VISION_WIDTHS or text_widths != TEXT_TOWER_WIDTHS:
+        fail(f"vision: widths {widths}, text {text_widths} are not {VISION_MODEL}'s")
+
+    rng = np.random.default_rng(seed + 21)
+    S = vcfg.image_size
+    images = rng.integers(0, 256, size=(VISION_IMAGES, S, S, 3), dtype=np.uint8)
+    texts = synthetic_corpus(VISION_TEXTS, seed + 22)[0]
+    enc.embed_images(images[:VISION_BATCH])  # one untimed warm-up batch of each
+    enc.embed_texts(texts[:VISION_BATCH])
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    attn.encoder_attention.launches = 0
+    t0 = time.perf_counter()
+    img_emb = enc.embed_images(images)
+    image_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt_emb = enc.embed_texts(texts)
+    text_s = time.perf_counter() - t0
+    launches = {"encoder_attention": attn.encoder_attention.launches}
+    # ---- end of the counted run ----
+    batches, text_batches = -(-VISION_IMAGES // VISION_BATCH), -(-VISION_TEXTS // VISION_BATCH)
+    run = {"images": VISION_IMAGES, "images_per_s": VISION_IMAGES / image_s, "image_s": image_s,
+           "texts": VISION_TEXTS, "texts_per_s": VISION_TEXTS / text_s, "text_s": text_s}
+    log("vision", step="run", **run, kernel_launches=launches)
+    for name, e in (("image", img_emb), ("text", txt_emb)):
+        n = VISION_IMAGES if name == "image" else VISION_TEXTS
+        if e.shape != (n, vcfg.proj_dim) or not np.isfinite(e).all():
+            fail(f"vision: {name} embeddings of shape {e.shape} or non-finite")
+        if np.abs(np.linalg.norm(e, axis=1) - 1.0).max() > 1e-3:
+            fail(f"vision: {name} embeddings are not unit vectors")
+
+    with torch.inference_mode():
+        # where a batch's time goes: the host conversion, padding and H2D
+        # copy, the forward on the card (CUDA graphs) and eager
+        batch = images[:VISION_BATCH]
+        arr = enc.prepare_images(batch)
+
+        def pad():
+            padded = np.zeros((VISION_BATCH, S, S, 3), np.float32)
+            padded[:] = arr
+            return padded
+
+        x = torch.from_numpy(arr).to(device)
+        forward = lambda: vis.vision_forward(enc.params, x, vcfg)  # noqa: E731
+        split = {
+            "host_convert_ms": eager_ms(lambda: enc.prepare_images(batch), iters=3),
+            "host_pad_ms": eager_ms(pad, iters=3),
+            "h2d_ms": eager_ms(lambda: torch.from_numpy(arr).to(device), iters=3),
+            "forward_device_ms": device_ms([forward], reps=2, replays=3),
+            "forward_eager_ms": eager_ms(forward, iters=5),
+            "wall_ms_per_batch": image_s * 1e3 / batches,
+        }
+        split["forward_flop_bound_ms"] = VISION_BATCH * gflop * 1e9 / BF16_FLOPS_PER_S * 1e3
+        split["device_idle_share"] = 1.0 - split["forward_device_ms"] / split["wall_ms_per_batch"]
+        # the text tower: its forward at the counted run's bucket, and the
+        # share of it that casts the module's f32 kernels to bf16
+        seq = bucket_seq_len(min(max(len(enc.tokenizer.encode(t)) for t in texts), tcfg.max_len))
+        id_lists = [enc.tokenizer.encode(t) for t in texts[:VISION_BATCH]]
+        ids, mask = (torch.from_numpy(a).to(device) for a in pad_batch(id_lists, seq))
+        text_fwd = lambda: vis.text_forward(enc.text_module, enc.text_proj, ids, mask)  # noqa: E731
+        floats = [b for b in enc.text_module.buffers() if b.dim() > 1]
+        split.update({
+            "text_seq_bucket": seq,
+            "text_forward_device_ms": device_ms([text_fwd], reps=2, replays=3),
+            "text_weight_cast_device_ms": device_ms([lambda: [b.to(tcfg.dtype) for b in floats]], reps=2, replays=3),
+            "text_wall_ms_per_batch": text_s * 1e3 / text_batches,
+        })
+        split["text_cast_share"] = split["text_weight_cast_device_ms"] / split["text_forward_device_ms"]
+        # texts/s with the casts' device time taken out of the run
+        split["texts_per_s_less_cast"] = VISION_TEXTS / (text_s - text_batches * split["text_weight_cast_device_ms"] / 1e3)
+        log("vision", step="split", **split)
+
+        # the host resize path: 320 x 320 images through embed_images
+        big = rng.integers(0, 256, size=(RESIZE_IMAGES, RESIZE_FROM, RESIZE_FROM, 3), dtype=np.uint8)
+        resize_ms = eager_ms(lambda: enc.prepare_images(big), iters=1)
+        t0 = time.perf_counter()
+        resized = enc.embed_images(big)
+        resize = {"images": RESIZE_IMAGES, "from": RESIZE_FROM, "host_prepare_ms_per_image": resize_ms / RESIZE_IMAGES,
+                  "embed_ms_per_image": (time.perf_counter() - t0) * 1e3 / RESIZE_IMAGES}
+        log("vision", step="resize", **resize)
+        if resized.shape != (RESIZE_IMAGES, vcfg.proj_dim) or not np.isfinite(resized).all():
+            fail("vision: resized images gave no finite embeddings")
+
+        # gates: bf16 against f32 of the same functions and weights; a
+        # row of a padded batch against the image alone; score against the
+        # logits of the embeddings it returns
+        n = VISION_CHECK_ROWS
+        f32_img = vis.vision_forward(to_f32(enc.params), torch.from_numpy(enc.prepare_images(images[:n])).to(device),
+                                     dataclasses.replace(vcfg, dtype=torch.float32)).cpu().numpy()
+        id_lists = [enc.tokenizer.encode(t) for t in texts[:n]]
+        seq_n = bucket_seq_len(min(max(len(i) for i in id_lists), tcfg.max_len))
+        ids_n, mask_n = (torch.from_numpy(a).to(device)
+                         for a in pad_batch(id_lists + [[0]] * (bucket_batch(n, VISION_BATCH) - n), seq_n))
+        module32 = SentenceEncoderModule(dataclasses.replace(tcfg, dtype=torch.float32), enc.text_params, device)
+        f32_txt = vis.text_forward(module32, enc.text_proj, ids_n, mask_n).cpu().numpy()[:n]
+        del module32
+        five = enc.embed_images(images[:5])
+        solo = enc.embed_images(images[2:3])
+        sc = enc.score(images[:8], texts[:8])
+        ref = vis.pairwise_logits(torch.from_numpy(enc.embed_images(images[:8])).to(device),
+                                  torch.from_numpy(enc.embed_texts(texts[:8])).to(device), enc.params).cpu().numpy()
+    check = {
+        "rows": n, "image_min_cos_bf16_vs_f32": float(cosine_rows(img_emb[:n], f32_img).min()),
+        "text_min_cos_bf16_vs_f32": float(cosine_rows(enc.embed_texts(texts[:n]), f32_txt).min()),
+        "row2_of_5_cos_vs_alone": float(cosine_rows(five[2:3], solo)[0]),
+        "score_max_abs_err": float(np.abs(sc - ref).max()), "score_range": [float(sc.min()), float(sc.max())],
+    }
+    log("vision", step="check", **check)
+    problems = [f"{k} = {check[k]} <= {COS_MIN}" for k in
+                ("image_min_cos_bf16_vs_f32", "text_min_cos_bf16_vs_f32", "row2_of_5_cos_vs_alone")
+                if not check[k] > COS_MIN]
+    if not check["score_max_abs_err"] < 1e-3:
+        problems.append(f"score differs from pairwise_logits of its embeddings by {check['score_max_abs_err']}")
+    if problems:
+        fail("vision: " + "; ".join(problems))
+
+    # the plain vision attention at the path's shape beside SDPA and the
+    # encoder kernel (hd 64, any S) on the same q, k, v: a measurement
+    # outside the counted run; the path's route is not changed
+    B, N, heads, D = VISION_BATCH, vcfg.n_patches, vcfg.heads, vcfg.hidden // vcfg.heads
+    gen = torch.Generator(device=device).manual_seed(seed + 23)
+    q, k, v = (torch.randn((B, N, heads, D), generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qp, kp, vp = (t.reshape(B, N, heads * D) for t in (q, k, v))
+    bias = torch.zeros((B, N), device=device)
+    with torch.inference_mode():
+        plain = vis._attention(q, k, v).float()
+        kernel_out = attn.encoder_attention(qp, kp, vp, bias, heads).float()
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2).reshape(B, N, -1)
+        op = {
+            "shape": [B, N, heads * D, heads], "head_dim": D,
+            "plain_ms": device_ms([lambda: vis._attention(q, k, v)], reps=10),
+            "sdpa_ms": device_ms([lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)], reps=10),
+            "kernel_ms": device_ms([lambda: attn.encoder_attention(qp, kp, vp, bias, heads)], reps=10),
+            "bytes_bound_ms": 4 * B * N * heads * D * 2 / HBM_BYTES_PER_S * 1e3,
+            "flop_bound_ms": 4 * B * heads * N * N * D / BF16_FLOPS_PER_S * 1e3,
+            "kernel_max_abs_err_vs_plain": float((kernel_out - plain).abs().max()),
+            "sdpa_max_abs_err_vs_plain": float((sdpa_out.float() - plain).abs().max()),
+        }
+        op["plain_ms_per_forward"] = op["plain_ms"] * vcfg.layers
+    log("vision", step="op", **op)
+    if not op["kernel_max_abs_err_vs_plain"] < ATTN_TOL:
+        fail(f"vision: the encoder kernel differs from the plain vision attention by {op['kernel_max_abs_err_vs_plain']}")
+    del enc, images, x, q, k, v, qt, kt, vt, qp, kp, vp, plain, kernel_out, sdpa_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # siglip-so400m-patch14-384 (hd 72, which no kernel takes), timed only
+    so = vis.MultimodalEncoder(SO400M_MODEL, seed=seed, max_batch=VISION_BATCH, device=device)
+    so_cfg = so.vision_config
+    so_widths = {k: getattr(so_cfg, k) for k in SO400M_WIDTHS}
+    if so_widths != SO400M_WIDTHS:
+        fail(f"vision: widths {so_widths} are not {SO400M_MODEL}'s")
+    so_images = rng.integers(0, 256, size=(SO400M_IMAGES, so_cfg.image_size, so_cfg.image_size, 3), dtype=np.uint8)
+    so.embed_images(so_images[:VISION_BATCH])  # warm-up
+    attn.encoder_attention.launches = 0
+    t0 = time.perf_counter()
+    so_emb = so.embed_images(so_images)
+    so_s = time.perf_counter() - t0
+    launches["encoder_attention"] += attn.encoder_attention.launches
+    so_gflop = vision_flops(so_cfg) / 1e9
+    with torch.inference_mode():
+        x = torch.zeros((VISION_BATCH, so_cfg.image_size, so_cfg.image_size, 3), device=device)
+        so_fwd_ms = time_ms(lambda: vis.vision_forward(so.params, x, so_cfg), iters=3, warmup=1)
+    so_run = {"model": SO400M_MODEL, **so_widths, "n_patches": so_cfg.n_patches, "head_dim": so_cfg.hidden // so_cfg.heads,
+              "images": SO400M_IMAGES, "images_per_s": SO400M_IMAGES / so_s, "gflop_per_image": so_gflop,
+              "flop_bound_images_per_s": BF16_FLOPS_PER_S / (so_gflop * 1e9), "forward_ms": so_fwd_ms,
+              "forward_flop_bound_ms": VISION_BATCH * so_gflop * 1e9 / BF16_FLOPS_PER_S * 1e3,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("vision", step="so400m", **so_run)
+    if so_emb.shape != (SO400M_IMAGES, so_cfg.proj_dim) or not np.isfinite(so_emb).all():
+        fail(f"vision: {SO400M_MODEL} embeddings of shape {so_emb.shape} or non-finite")
+    del so, so_images, x
+    summary = {**run, **split, "resize_host_ms_per_image": resize["host_prepare_ms_per_image"],
+               "so400m_images_per_s": so_run["images_per_s"], "so400m_forward_ms": so_fwd_ms,
+               "attention_plain_ms": op["plain_ms"], "attention_sdpa_ms": op["sdpa_ms"],
+               "attention_kernel_ms": op["kernel_ms"]}
+    log("vision", step="summary", card=card, **summary)
+    return {"launches": launches, "attention_launches": {}, **summary}
+
+
+def lora_phase(device, seed: int, card: str) -> dict:
+    """Serve mistral-7b-instruct with LoRA adapters (rank 8 on wq and wv)
+    through the continuous-batching scheduler beside the base tree, check
+    the adapted answers against the dense path of the merged tree, pin
+    zero-init adapters to the base, and time a decode tick of each."""
+    import copy
+
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models import lora
+    from pathway_tpu_torch.serving.generation import GenerationScheduler
+
+    torch.cuda.reset_peak_memory_stats()
+    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE, device=device)
+    cfg = lm.config
+    widths = {k: getattr(cfg, k) for k in GEN_WIDTHS}
+    if widths != GEN_WIDTHS:
+        fail(f"decoder widths {widths} are not mistral-7b-instruct's {GEN_WIDTHS}")
+    base = lm.params
+    adapted = lora.lora_decoder_tree(base, cfg, rank=LORA_RANK, alpha=LORA_ALPHA, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 31)
+    for name in lora.DEFAULT_TARGETS:
+        b = adapted["layers"][name]["b"]
+        b.copy_(torch.randn(b.shape, generator=gen, device=device) * LORA_B_STD)
+    adapter_bytes = sum(tensor_bytes({k: w[k] for k in ("a", "b")})
+                        for w in adapted["layers"].values() if isinstance(w, dict))
+    log("lora", step="model", model=GEN_MODEL, **widths, dtype=str(cfg.dtype), rank=LORA_RANK, alpha=LORA_ALPHA,
+        targets=lora.DEFAULT_TARGETS, b_std=LORA_B_STD, adapter_mb=adapter_bytes / 1e6,
+        weights_gb=tensor_bytes(base) / 1e9, device=str(lm.device))
+
+    prompts, sampled, greedy = burst_prompts(np.random.default_rng(seed + 29), MOE_REQUESTS, MOE_SAMPLED,
+                                             MOE_PROMPT_LENS, cfg.vocab_size)
+    for tree in (adapted, base):  # warm-up: one short request through a scheduler
+        lm.params = tree
+        sched = GenerationScheduler(lm, seed=seed)
+        sched.submit_ids(prompts[0][:32], max_new_tokens=4).result(timeout=300)
+        sched.shutdown()
+    # each tree twice, in turns: host time per tick drifts within a call
+    trees, runs = {"adapted": adapted, "base": base}, {"adapted": [], "base": []}
+    for name in ("adapted", "base", "base", "adapted"):
+        lm.params = trees[name]
+        runs[name].append(serve_burst(lm, prompts, sampled, MOE_NEW_TOKENS, seed, f"lora:{name}"))
+    launches = {"encoder_attention": sum(r["launches"]["encoder_attention"] for rs in runs.values() for r in rs)}
+    outs = {name: rs[0]["outs"] for name, rs in runs.items()}
+
+    with torch.inference_mode():
+        lm.params = adapted
+        reference = copy.copy(lm)
+        reference.params = lora.merge_lora(adapted)  # the dense reference: the adapters merged
+        parted = check_generation(lm, prompts, outs["adapted"], greedy, sampled, MOE_NEW_TOKENS, device,
+                                  "lora", reference=reference)
+        del reference
+        gc.collect()
+        torch.cuda.empty_cache()
+        differ = [i for i in greedy if outs["adapted"][i] != outs["base"][i]]
+        rows = [prompts[i] for i in greedy[:ZERO_INIT_PROMPTS]]
+        lm.params = lora.lora_decoder_tree(base, cfg, rank=LORA_RANK, alpha=LORA_ALPHA, seed=seed)
+        zero = lm.generate_ids(rows, max_new_tokens=MOE_NEW_TOKENS)
+        lm.params = base
+        plain = lm.generate_ids(rows, max_new_tokens=MOE_NEW_TOKENS)
+        log("lora", step="check_adapters", greedy_rows=len(greedy), rows_differing_from_base=len(differ),
+            zero_init_rows=len(rows), zero_init_equal_to_base=zero == plain)
+        if not differ:
+            fail("lora: the adapted greedy rows equal the base tree's: the adapters are not on the path")
+        if zero != plain:
+            fail("lora: zero-init adapters changed the greedy tokens")
+
+        # a decode tick at 8 slots over each tree, and a timing-only rank-16
+        # adapter on all seven targets
+        everywhere = lora.lora_decoder_tree(base, cfg, rank=LORA_TIMING_RANK, alpha=LORA_ALPHA,
+                                            targets=tuple(sorted(lora._ADAPTABLE)), seed=seed)
+        tick = decode_tick_inputs(lm, [len(prompts[i]) for i in range(runs["base"][0]["sched_slots"])], device)
+        timing = {}
+        for name, tree in (("base", base), ("adapted", adapted), ("rank16_all", everywhere)):
+            t = decode_tick(tree, cfg, tick)
+            timing.update({f"{name}_{k}": v for k, v in t.items()})
+            log("lora", step="tick", tree=name, adapter_mb=(tensor_bytes(tree) - tensor_bytes(base)) / 1e6, **t)
+        del everywhere, tick
+    rate = {name: float(np.mean([r["burst"]["tokens_per_s"] for r in rs])) for name, rs in runs.items()}
+    summary = {
+        **{f"{name}_{k}": [r["burst"][k] for r in rs] for name, rs in runs.items()
+           for k in ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "latency_ms_p50", "latency_ms_p99", "ms_per_tick")},
+        "adapted_over_base_tokens_per_s": rate["adapted"] / rate["base"],
+        "parted_greedy_rows": parted, "rows_differing_from_base": len(differ), **timing,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log("lora", step="summary", card=card, **summary)
+    return {"launches": launches, "attention_launches": {}, **summary}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -1804,8 +2184,9 @@ def main(argv=None) -> int:
     if "encoders" not in skip:
         phases["encoders"] = encoders_phase(device, args.seed, checked, texts, lengths)
     del texts, lengths
-    # the decoder phases, one model on the card at a time
-    for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase)):
+    # the decoder phases and the multimodal encoder, one model on the card at a time
+    for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase),
+                        ("vision", vision_phase), ("lora", lora_phase)):
         gc.collect()
         torch.cuda.empty_cache()
         if name not in skip:
@@ -1823,10 +2204,9 @@ def main(argv=None) -> int:
     kernels = [dict(attention, launches=result["launches"][attention["name"]], launches_by_phase=by_phase)]
     for kern in kernels:
         for phase, n in kern["launches_by_phase"].items():
-            # no decoder path calls the encoder-attention kernel
-            if phase in DECODER_PHASES and n:
+            if phase in NO_KERNEL_PHASES and n:
                 fail(f"kernel {kern['name']} was launched {n} times on the {phase} path")
-            if phase not in DECODER_PHASES and not n:
+            if phase not in NO_KERNEL_PHASES and not n:
                 fail(f"kernel {kern['name']} was not launched on the {phase} path")
     log("total", seconds=time.perf_counter() - started, phases=sorted(phases))
     print(card, flush=True)

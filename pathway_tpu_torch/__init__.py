@@ -7,15 +7,20 @@ device-resident brute-force index → masked top-k.  Reranking: the
 kernel; both encoders serve W8A8 on request.  Decoder generation:
 ``DecoderLM`` (dense KV cache; dense or Mixtral MoE layers, bf16 or
 weight-only int8, plain or self-speculative greedy decoding) and the
-continuous-batching ``GenerationScheduler`` over a paged KV cache.  Entry points run on the
-first CUDA device unless the caller passes ``device=`` (``"cpu"`` runs the
-kernels' plain PyTorch versions).  The port imports nothing of JAX or of
+continuous-batching ``GenerationScheduler`` over a paged KV cache; a
+LoRA-adapted tree (``models/lora.py``'s ``lora_decoder_tree``) serves
+through both unchanged.  Multimodal embedding: ``MultimodalEncoder`` (a
+SigLIP ViT image tower and a projected text tower in one space, with
+SigLIP's pairwise logits).  Entry points run on the first CUDA device
+unless the caller passes ``device=`` (``"cpu"`` runs the kernels' plain
+PyTorch versions).  The port imports nothing of JAX or of
 ``pathway_tpu``.
 """
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderLM
 from pathway_tpu_torch.models.encoder import CrossEncoder, SentenceEncoder
+from pathway_tpu_torch.models.vision import MultimodalEncoder
 from pathway_tpu_torch.serving.generation import GenerationScheduler
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
     BruteForceKnnIndex,
@@ -28,6 +33,7 @@ __all__ = [
     "DecoderLM",
     "DistanceMetric",
     "GenerationScheduler",
+    "MultimodalEncoder",
     "SentenceEncoder",
     "resolve_device",
 ]

@@ -28,8 +28,11 @@ Weights are a local ``transformers`` checkpoint when there is one
 target device (:func:`init_decoder_params`), or the JAX package's tree
 carried across (:func:`from_jax_decoder_params`).
 
-Not ported yet (ROADMAP Queue 1, "Decoder generation"): tensor-parallel
-specs, the training logits (``causal_lm_logits*``, ``remat``) and LoRA.
+LoRA-adapted trees (``models/lora.py``) run through every path unchanged:
+:func:`_mm` takes their ``{"w", "a", "b"}`` leaves.
+
+Not ported yet (ROADMAP Queue 1, "Multi-GPU and training"): tensor-parallel
+specs and the training logits (``causal_lm_logits*``, ``remat``).
 """
 
 from __future__ import annotations
@@ -191,14 +194,15 @@ def quantize_decoder_tree(tree) -> dict:
     Every matmul weight (attention projections, dense or expert MLP,
     ``lm_head``) becomes ``{"q": int8, "s": f32}`` (:func:`_quant_matrix`);
     the embedding, the norms and the MoE router stay as they are (the same
-    tensors).  A LoRA-adapted weight raises ``ValueError``."""
+    tensors).  A LoRA-adapted weight raises ``ValueError`` naming
+    ``merge_lora``, as the JAX package's does."""
     for name in QUANT_NAMES:
         w = tree["layers"].get(name)
         if isinstance(w, dict) and "a" in w:
             raise ValueError(
-                f"layer weight {name!r} carries LoRA adapters: merge them into "
-                "the weight before quantizing (or before speculative decoding, "
-                "which quantizes its draft)"
+                f"layer weight {name!r} carries LoRA adapters — call "
+                "models.lora.merge_lora(tree) before quantizing (or "
+                "before speculative decoding, which quantizes its draft)"
             )
     return {
         "embed": tree["embed"],
@@ -278,7 +282,8 @@ def from_jax_decoder_params(tree, cfg: DecoderConfig, device) -> dict:
     ``jax.device_get`` output), on ``device``: float leaves in
     ``cfg.dtype``, the MoE router and int8 scales in f32 as in the JAX
     tree, and int8 codes as ``torch.int8``, so that a quantized tree
-    carries across unchanged."""
+    carries across unchanged; a LoRA leaf's ``w``, ``a`` and ``b`` come
+    across in ``cfg.dtype``, as the JAX tree holds them."""
     device = resolve_device(device)
 
     def convert(node, name=""):
@@ -321,18 +326,20 @@ def _sw_mask(q_pos, k_pos, window: int):
 
 
 def _mm(x, w):
-    """``x @ w`` for a float weight or an int8 weight-only pair.
+    """``x @ w`` for a float weight, an int8 weight-only pair, or a
+    LoRA-adapted weight.
 
     An int8 weight is ``{"q": int8, "s": f32}`` with per-output-channel
     scales over the contraction axis (-2 in every layout here), so the
     scale commutes with the product and multiplies the OUTPUT:
     ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, in the JAX package's order.
-    The JAX package's LoRA form (``{"w", "a", "b"}``) is not ported yet
-    (ROADMAP Queue 1 item 8)."""
-    if isinstance(w, dict):
-        if "q" not in w:
-            raise NotImplementedError("LoRA decoder weights are not ported yet (ROADMAP Queue 1 item 8)")
+    A LoRA weight is ``{"w": frozen base, "a": [..., H, r], "b": [..., r,
+    O]}`` (``models/lora.py``): the update runs through the rank-``r``
+    bottleneck, ``x @ w + (x @ a) @ b``, and the dense delta is never made."""
+    if isinstance(w, dict) and "q" in w:
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    if isinstance(w, dict) and "a" in w:
+        return x @ w["w"] + (x @ w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
     return x @ w
 
 

@@ -169,10 +169,11 @@ def test_value_errors():
     tc = tdec.decoder_config_for("pw-tiny-decoder")
     tree = tdec.init_decoder_params(tc, seed=0, device="cpu")
     tree["layers"]["wq"] = {"w": tree["layers"]["wq"], "a": torch.zeros(2, 64, 4), "b": torch.zeros(2, 4, 64)}
-    with pytest.raises(ValueError, match="LoRA"):
+    with pytest.raises(ValueError, match="LoRA adapters .*merge_lora"):
         tdec.quantize_decoder_tree(tree)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tdec._mm(torch.zeros(1, 64), tdec._layer(tree, 0)["wq"])
+    # _mm takes the LoRA leaf: zero adapters give the base product exactly
+    x = torch.randn(1, 64, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tdec._mm(x, tdec._layer(tree, 0)["wq"]), x @ tree["layers"]["wq"]["w"][0])
 
 
 # ---------------------------------------------------------------------------

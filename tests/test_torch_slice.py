@@ -156,8 +156,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     """In a fresh interpreter that cannot import jax, flax, pathway_tpu (or
     transformers, which the card lacks), the port imports and runs the
     embed-and-retrieve slice, reranking with the cross-encoder, W8A8
-    embeddings, the generation path, an int8 MoE decoder and
-    self-speculative decoding on the CPU."""
+    embeddings, the generation path, an int8 MoE decoder,
+    self-speculative decoding, a LoRA-adapted MoE decoder and the
+    multimodal encoder on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -201,6 +202,16 @@ def test_port_imports_nothing_of_jax(model_dir):
         moe_f = pt.DecoderLM("pw-tiny-moe-decoder", max_cache=64, eos_id=None, device="cpu")
         assert moe_f.generate_ids_speculative([[5, 9, 17]], max_new_tokens=6, n_draft=3) == \
             moe_f.generate_ids([[5, 9, 17]], max_new_tokens=6)
+        from pathway_tpu_torch.models import lora, vision
+
+        base_rows = moe_f.generate_ids([[5, 9, 17]], max_new_tokens=4)
+        moe_f.params = lora.lora_decoder_tree(moe_f.params, moe_f.config, rank=2)
+        assert moe_f.generate_ids([[5, 9, 17]], max_new_tokens=4) == base_rows
+        mm = pt.MultimodalEncoder("pw-tiny-siglip", device="cpu")
+        imgs = np.random.default_rng(0).integers(0, 256, size=(3, 40, 40, 3)).astype(np.uint8)
+        scores = mm.score(imgs, ["a photo", "a report"])
+        assert scores.shape == (3, 2) and np.isfinite(scores).all(), scores
+        assert vision.shared_multimodal_encoder("pw-tiny-siglip", device="cpu").dimensions == 32
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
