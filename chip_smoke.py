@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,generate,moe,speculative,vision,lora]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -39,8 +39,35 @@ Phases, each on a line of its own; any failure exits non-zero:
    top-10 neighbour overlap > 0.85 over 256 queries), emb/s of each;
    phases 5 and 6 count launches per shape like phase 4, and every new
    shape is held to the plain version (in slices of the batch where its
-   f32 scores would pass 1 GiB) and timed;
-7. generate: decoder generation at full mistral-7b-instruct width (seeded
+   f32 scores would pass 1 GiB) and timed; phases 4-6 run on the shared
+   default executor with its fault rail on, and each fails on any fallback
+   batch, classified failure, quarantine or breaker not closed (its
+   ``step: executor`` line also gives the run's padding-waste fraction);
+7. executor: all-MiniLM-L6-v2 at full width through the port's
+   ``DeviceExecutor``, launches counted like phase 4: ``overlap`` (64
+   batches of 512 corpus texts tokenized then run by ``run_batch``,
+   against ``submit`` with the next batch tokenized while the dispatch
+   thread runs the current one: emb/s of each, their ratio, the device's
+   idle share from CUDA events around every forward, and the two loops'
+   embeddings held together at cosine > 0.999), ``batcher`` (8,192 texts,
+   one coroutine each, through ``AsyncMicroBatcher`` at max batch 256 and
+   flush delay 0.002 s over ``SentenceEncoder.encode``: emb/s, the batch
+   sizes formed, every row held to a direct ``encode``), ``faults`` on the
+   card (a real CUDA OOM ratcheting a 512-row batch to cap 64 with the
+   unfaulted outputs and the allocated bytes back where they were; an
+   injected transient retried once with bitwise-equal rows; a breaker
+   tripped onto an explicit CPU MiniLM fallback, held to the card's rows,
+   and closed again by the half-open probe with launches resuming; an
+   injected hang failed at a 2 s dispatch deadline with the next submit
+   served on the card), ``overhead`` (host µs per dispatch with the rail
+   on and off, interleaved, on a trivial callable and a (512, 64) MiniLM
+   dispatch, the rail alone with the device call stubbed, and its share
+   against the reference's 2% pin, reported and not gated; the trip and
+   open-breaker fallback latency) and ``accounting`` (the (512, 64) key's
+   counted FLOPs against the analytic count, the achieved TFLOP/s and
+   utilization over dispatch seconds, ``device.hbm.bytes_in_use`` against
+   ``torch.cuda.memory_allocated``);
+8. generate: decoder generation at full mistral-7b-instruct width (seeded
    random bf16 weights): a burst of 32 requests (prompts of 64-896 token
    ids, 128 new tokens, 24 greedy and 8 at temperature 0.7 / top-p 0.9)
    through ``GenerationScheduler`` at the repo's defaults, with tokens/s,
@@ -51,7 +78,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    graphs) and host ms of a decode tick and a prefill chunk at 8 slots,
    paged attention beside its bound and SDPA, and each op of the decode
    step;
-8. moe: mixtral-8x7b-instruct at full width (32 layers, 8 experts, top-2,
+9. moe: mixtral-8x7b-instruct at full width (32 layers, 8 experts, top-2,
    expert FFN 14336) with seeded int8 weights (≈ 46.8 GB) on one card: a
    burst of 16 requests (64-512 prompt ids, 64 new tokens, 12 greedy and 4
    at temperature 0.7 / top-p 0.9) through ``GenerationScheduler`` with
@@ -65,13 +92,13 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``_mm`` at ``wq`` likewise; decode tick and prefill chunk device/host
    ms beside their bounds, and each op of the MoE FFN at the decode shape
    beside a bf16 product at the ``wq`` shape;
-9. speculative: mistral-7b-instruct in bf16 with its int8 draft:
+10. speculative: mistral-7b-instruct in bf16 with its int8 draft:
    ``generate_ids_speculative(n_draft=8)`` and greedy ``generate_ids`` on
    the same 8 prompts (64-512 ids, 64 new tokens), rows equal but at
    near-ties; tokens accepted per round, acceptance rate, tokens/s of
    both, and the device ms of the int8 draft's decode step against the
    bf16 one at B=8;
-10. vision: siglip-base-patch16-224 at full width (a 12-layer ViT, H 768,
+11. vision: siglip-base-patch16-224 at full width (a 12-layer ViT, H 768,
    12 heads, 196 patches of 16×16; the bge-base-en-v1.5 text tower;
    seeded random bf16 weights) through ``MultimodalEncoder``: 4,096 seeded
    uint8 224×224 images at ``max_batch`` 256 and 4,096 texts of the main
@@ -87,7 +114,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    kernel held to the plain attention at 0.05), outside the counted run;
    then siglip-so400m-patch14-384 (27 layers, H 1152, hd 72, 729
    patches) timed on 512 images beside its FLOP bound;
-11. lora: mistral-7b-instruct in bf16 with LoRA adapters of rank 8 on
+12. lora: mistral-7b-instruct in bf16 with LoRA adapters of rank 8 on
    ``wq`` and ``wv`` (``b`` seeded at std 0.02): a burst of 16 requests
    (64-512 prompt ids, 64 new tokens, 12 greedy and 4 sampled) through
    ``GenerationScheduler`` over the adapted tree and over the base tree,
@@ -99,9 +126,9 @@ Phases, each on a line of its own; any failure exits non-zero:
    at 8 slots over the base, the adapted and a timing-only rank-16
    adapter on all seven targets, beside the bytes bound.
 
-Phases 7-11 run one model at a time; the encoder kernel is on none of
+Phases 8-12 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-11 (all run by default), to
+``--skip`` leaves out the named phases of 5-12 (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -111,6 +138,7 @@ prints no result.  It imports nothing of JAX or of ``pathway_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -635,7 +663,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "generate", "moe", "speculative", "vision", "lora")
+SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -994,7 +1022,441 @@ def encoders_phase(device, seed: int, checked: dict, texts, lengths, n_texts: in
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: decoder generation, dense DecoderLM and the continuous scheduler.
+# The shared executor's rail around phases 4-6, and phase 7: the executor.
+# ---------------------------------------------------------------------------
+
+EXEC_BATCHES = 64  # benchmarks/device_executor.py:90-131's overlap pattern
+EXEC_BATCH = 512
+BATCHER_TEXTS = 8192
+BATCHER_MAX = 256  # SentenceTransformerEmbedder's max_batch_size (xpacks/llm/embedders.py:49)
+BATCHER_FLUSH_S = 0.002
+OOM_ROWS = 512
+OOM_CAP = 64  # the largest bucket the OOM part's scratch lets fit
+FAULT_TEXTS = 16
+BREAKER_COOLDOWN_S = 1.0
+HANG_DEADLINE_S = 2.0
+RAIL_PIN = 0.02  # the reference's happy-path pin (benchmarks/device_fault_recovery.py:11)
+
+
+@contextlib.contextmanager
+def env_knobs(**knobs):
+    """Set ``PATHWAY_*`` knobs for a block (an executor or a registration
+    reads them when it is made), then restore them."""
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rail_state(device) -> dict:
+    """The default executor's rail counters and padding totals, to difference
+    around a run."""
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.engine import metrics
+
+    reg = metrics.get_registry()
+    fam = reg.family("device.failures")
+    padding = get_default_executor(device).device_snapshot()["padding"]
+    return {
+        "fallback_batches": reg.counter("device.fallback.batches").value,
+        "quarantined": reg.counter("device.quarantine.batches").value,
+        "failures": sum(child.value for _, child in fam.items()) if fam else 0.0,
+        "pad_rows": padding["pad_rows"],
+        "real_rows": padding["real_rows"],
+    }
+
+
+def rail_gate(phase: str, device, before: dict) -> dict:
+    """Fail unless every batch since ``before`` was served on the device: no
+    fallback batch, no classified failure, no quarantine, every breaker of the
+    shared executor closed; logs those and the run's padding-waste fraction."""
+    from pathway_tpu_torch.device import get_default_executor
+
+    after = rail_state(device)
+    resilience = get_default_executor(device).device_snapshot()["resilience"]
+    breakers = {name: st["breaker"]["state"] for name, st in resilience["callables"].items() if st["breaker"]}
+    out = {k: after[k] - before[k] for k in ("fallback_batches", "quarantined", "failures", "pad_rows", "real_rows")}
+    total = out["pad_rows"] + out["real_rows"]
+    out["padding_waste_fraction"] = out["pad_rows"] / total if total else 0.0
+    log(phase, step="executor", rail=resilience["enabled"], breakers=breakers, **out)
+    if out["fallback_batches"] or out["quarantined"] or out["failures"]:
+        fail(f"{phase}: the shared executor's rail moved: {out}")
+    if any(state != "closed" for state in breakers.values()):
+        fail(f"{phase}: a breaker is not closed: {breakers}")
+    return out
+
+
+def forward_events(encoder):
+    """Hooks that bracket every forward of ``encoder.model`` with CUDA events
+    on the current stream; returns (the list of [start, end] pairs, remove)."""
+    events = []
+
+    def pre(_module, _args):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        events.append([start, None])
+
+    def post(_module, _args, _out):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events[-1][1] = end
+
+    hooks = [encoder.model.register_forward_pre_hook(pre), encoder.model.register_forward_hook(post)]
+    return events, lambda: [h.remove() for h in hooks]
+
+
+def events_ms(events) -> float:
+    """Device ms from start to end of each bracketed forward, summed."""
+    torch.cuda.synchronize()
+    return float(sum(start.elapsed_time(end) for start, end in events))
+
+
+def paired_us(run, set_rail, reps: int) -> tuple[float, float]:
+    """Median host µs per dispatch of ``run`` with the rail on and off,
+    interleaved on/off/off/on in every rep so drift cancels."""
+    on, off = [], []
+    for _ in range(reps):
+        set_rail(True)
+        a = run()
+        set_rail(False)
+        b, c = run(), run()
+        set_rail(True)
+        d = run()
+        on += [a, d]
+        off += [b, c]
+    return float(np.median(on)), float(np.median(off))
+
+
+def pass_us(executor, name: str, batches, operands=()) -> float:
+    """Host µs per ``run_batch`` over ``batches`` (each a tuple of arrays)."""
+    t0 = time.perf_counter()
+    for arrays in batches:
+        executor.run_batch(name, arrays, operands=operands)
+    return (time.perf_counter() - t0) / len(batches) * 1e6
+
+
+def oom_part(ex, device, seed: int, reg) -> dict:
+    """A real CUDA OOM: the callable allocates scratch in proportion to its
+    bucket, sized from the free memory so that buckets above 64 cannot fit.
+    The rail must split the 512-row batch down to cap 64, give the unfaulted
+    outputs and leave the allocated bytes where they were."""
+    from pathway_tpu_torch.device import BucketPolicy
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = np.random.default_rng(seed).normal(size=(OOM_ROWS, 64)).astype(np.float32)
+    free, _total = torch.cuda.mem_get_info(device)
+    row_bytes = int(free * 0.75) // OOM_CAP  # 64 rows take 75% of the free bytes, 128 rows 150%
+
+    def hungry(xt):
+        scratch = torch.empty((xt.shape[0], row_bytes), dtype=torch.uint8, device=xt.device)
+        scratch[:, 0] = 1
+        return xt * 2.0 + scratch[:, :1].float()
+
+    ex.register("executor:oom", hungry, policy=BucketPolicy(max_bucket=OOM_ROWS))
+    allocated = torch.cuda.memory_allocated(device)
+    splits = reg.counter("device.oom.splits").value
+    t0 = time.perf_counter()
+    out = ex.run_batch("executor:oom", (x,))
+    seconds = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated(device)  # no collection first: the rail let the failed calls go
+    gc.collect()
+    after_gc = torch.cuda.memory_allocated(device)
+    st = ex.resilience_stats("executor:oom")
+    oom = dict(rows=OOM_ROWS, free_gb=free / 1e9, scratch_gb_per_row=row_bytes / 1e9,
+               splits=reg.counter("device.oom.splits").value - splits, bucket_cap=st["bucket_cap"],
+               bucket_cap_gauge=ex.metrics_snapshot().get("device.bucket.cap{callable=executor:oom}"),
+               failures=st["failures"], seconds=seconds, allocated_before=allocated, allocated_after=after,
+               allocated_after_gc=after_gc,
+               equal_to_unfaulted=bool(np.array_equal(out, x * 2.0 + 1.0)))
+    log("executor", part="faults", fault="oom", **oom)
+    torch.cuda.empty_cache()
+    if oom["splits"] < 1 or st["bucket_cap"] != OOM_CAP or not oom["equal_to_unfaulted"] or after_gc != allocated:
+        fail(f"executor: OOM ratchet {oom}")
+    return oom
+
+
+def executor_phase(device, seed: int, checked: dict, texts) -> dict:
+    """Phase 7: all-MiniLM-L6-v2 at full width through the port's executor:
+    the submit overlap, the micro-batcher, the fault rail on the card, the
+    rail's host cost and the accountant.  ``checked`` gains the attention
+    shapes the run gave the kernel."""
+    import asyncio
+
+    import pathway_tpu_torch as pt
+    from pathway_tpu_torch.device import BucketPolicy, DeviceExecutor, get_default_executor, resilience
+    from pathway_tpu_torch.engine import faults, metrics
+    from pathway_tpu_torch.models.tokenizer import pad_batch
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    reg = metrics.get_registry()
+    ex = get_default_executor(device)
+    enc = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed)
+    cfg = enc.config
+    if enc._executor is not ex:
+        fail("executor: the encoder is not on the device's default executor")
+    # the main corpus in arrival order (taken round again when it is short)
+    stream = [texts[i % len(texts)] for i in range(EXEC_BATCHES * EXEC_BATCH + BATCHER_TEXTS)]
+    batches = [stream[i * EXEC_BATCH : (i + 1) * EXEC_BATCH] for i in range(EXEC_BATCHES)]
+    sample = stream[EXEC_BATCHES * EXEC_BATCH :]
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen)]
+    events, remove_events = forward_events(enc)
+
+    def tokenize(batch):
+        return [enc.tokenizer.encode(t) for t in batch]
+
+    for batch in batches[:2]:  # warm-up: each new key's first dispatch runs under the FLOP count
+        enc._run_padded(tokenize(batch))
+
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen.clear()
+    before = rail_state(device)
+    # 1. overlap: tokenize batch i, then run_batch; against submit, with batch
+    # i+1 tokenized on this thread while the dispatch thread runs batch i
+    events.clear()
+    t0 = time.perf_counter()
+    sync_rows = [enc._run_padded(tokenize(batch)) for batch in batches]
+    sync_s = time.perf_counter() - t0
+    sync_dev_ms = events_ms(events)
+    events.clear()
+    t0 = time.perf_counter()
+    futures, ids = [], tokenize(batches[0])
+    for i in range(EXEC_BATCHES):
+        futures.append(ex.submit(lambda ids=ids: enc._run_padded(ids), name="executor:overlap"))
+        if i + 1 < EXEC_BATCHES:
+            ids = tokenize(batches[i + 1])
+    submit_rows = [f.result(timeout=600) for f in futures]
+    submit_s = time.perf_counter() - t0
+    submit_dev_ms = events_ms(events)
+    a, b = np.concatenate(sync_rows), np.concatenate(submit_rows)
+    cos = float((a * b).sum(1).min())
+    overlap = dict(texts=len(a), batches=EXEC_BATCHES, batch=EXEC_BATCH,
+                   sync_emb_per_s=len(a) / sync_s, submit_emb_per_s=len(a) / submit_s, ratio=sync_s / submit_s,
+                   sync_wall_ms=sync_s * 1e3, sync_device_ms=sync_dev_ms,
+                   sync_idle_share=1.0 - sync_dev_ms / (sync_s * 1e3),
+                   submit_wall_ms=submit_s * 1e3, submit_device_ms=submit_dev_ms,
+                   submit_idle_share=1.0 - submit_dev_ms / (submit_s * 1e3),
+                   min_cos=cos, max_abs_diff=float(np.abs(a - b).max()))
+    log("executor", part="overlap", **overlap)
+    if cos <= COS_MIN or not np.isfinite(b).all() or b.shape != (len(a), cfg.hidden):
+        fail(f"executor: submit vs synchronous embeddings, min cosine {cos}")
+
+    # 2. batcher: one coroutine per text, as SentenceTransformerEmbedder sends them
+    sizes: list[int] = []
+
+    def process(items):
+        sizes.append(len(items))
+        return enc.encode(items)
+
+    batcher = AsyncMicroBatcher(process, max_batch_size=BATCHER_MAX, flush_delay=BATCHER_FLUSH_S,
+                                executor=ex, name="executor:batcher")
+
+    async def embed(items):
+        return await asyncio.gather(*(batcher.submit(t) for t in items))
+
+    asyncio.run(embed(sample[:1024]))  # warm-up
+    sizes.clear()
+    t0 = time.perf_counter()
+    rows = np.stack(asyncio.run(embed(sample)))
+    batcher_s = time.perf_counter() - t0
+    direct = np.concatenate([enc.encode(sample[i : i + EXEC_BATCH]) for i in range(0, len(sample), EXEC_BATCH)])
+    cos = float((rows * direct).sum(1).min())
+    batcher_line = dict(texts=len(sample), max_batch_size=BATCHER_MAX, flush_delay_s=BATCHER_FLUSH_S,
+                        emb_per_s=len(sample) / batcher_s, seconds=batcher_s, batches=len(sizes),
+                        batch_sizes={int(s): sizes.count(s) for s in sorted(set(sizes))}, min_cos_vs_encode=cos)
+    log("executor", part="batcher", **batcher_line)
+    if cos <= COS_MIN or rows.shape != (len(sample), cfg.hidden):
+        fail(f"executor: batcher rows of shape {rows.shape}, min cosine vs encode {cos}")
+    rail = rail_gate("executor", device, before)
+
+    # 3. faults on the card
+    oom = oom_part(ex, device, seed, reg)
+
+    few = sample[:FAULT_TEXTS]
+    ref = enc.encode(few)
+    retries = reg.counter("device.retry.attempts").value
+    faults.install_plan(faults.FaultPlan([{"kind": "device_error", "source": enc._callable, "nth": 1}], seed=seed))
+    try:
+        got = enc.encode(few)
+    finally:
+        faults.clear_plan()
+    transient = dict(retries=reg.counter("device.retry.attempts").value - retries,
+                     bitwise_equal=bool(np.array_equal(got, ref)))
+    log("executor", part="faults", fault="transient", **transient)
+    if transient["retries"] != 1 or not transient["bitwise_equal"]:
+        fail(f"executor: injected transient {transient}")
+
+    # a breaker trip (threshold 5, each failed batch after 2 retries) onto
+    # an explicit CPU MiniLM fallback, then the half-open probe's recovery
+    with env_knobs(PATHWAY_DEVICE_BREAKER_COOLDOWN_S=BREAKER_COOLDOWN_S, PATHWAY_DEVICE_RETRY_BACKOFF_MS=1):
+        twin = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed, device="cpu")
+        guarded = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed, host_fallback=twin.as_host_fallback())
+    hooks.append(record_launches(guarded, seen))
+    card_rows = guarded.encode(few)
+    fallbacks = reg.counter("device.fallback.batches").value
+    faults.install_plan(faults.FaultPlan([{"kind": "device_error", "source": guarded._callable, "from_nth": 1}],
+                                         seed=seed))
+    states, fallback_rows = [], []
+    try:
+        for _ in range(7):  # 5 failing batches trip it, 2 more while it is open
+            fallback_rows.append(guarded.encode(few))
+            states.append(ex.resilience_stats(guarded._callable)["breaker"]["state"])
+    finally:
+        faults.clear_plan()
+    time.sleep(BREAKER_COOLDOWN_S + 0.1)
+    launches = encoder_attention.launches
+    recovered = guarded.encode(few)
+    st = ex.resilience_stats(guarded._callable)
+    breaker = dict(states=states, after_cooldown=st["breaker"]["state"], trips=st["breaker"]["trips"],
+                   fallback_batches=reg.counter("device.fallback.batches").value - fallbacks,
+                   failures=st["failures"],
+                   min_cos_fallback_vs_card=min(float((r * card_rows).sum(1).min()) for r in fallback_rows),
+                   launches_after_recovery=encoder_attention.launches - launches,
+                   recovered_equal=bool(np.array_equal(recovered, card_rows)))
+    log("executor", part="faults", fault="breaker", **breaker)
+    if (states != ["closed"] * 4 + ["open"] * 3 or breaker["after_cooldown"] != "closed"
+            or breaker["fallback_batches"] != 7 or breaker["min_cos_fallback_vs_card"] <= COS_MIN
+            or breaker["launches_after_recovery"] != cfg.layers):
+        fail(f"executor: breaker {breaker}")
+
+    # a hang: the dispatch deadline fails the wedged job, a fresh thread serves on
+    with env_knobs(PATHWAY_DEVICE_DISPATCH_DEADLINE_S=HANG_DEADLINE_S):
+        hx = DeviceExecutor(device, collector_name=None)
+    restarts = reg.counter("device.dispatch.restarts").value
+    few_ids = tokenize(few)
+    faults.install_plan(faults.FaultPlan(
+        [{"kind": "device_hang", "source": "executor:hang", "nth": 1, "delay_ms": 20000}], seed=seed))
+    try:
+        t0 = time.perf_counter()
+        wedged = hx.submit(lambda: enc._run_padded(few_ids), name="executor:hang")
+        try:
+            wedged.result(timeout=30)
+        except resilience.DeviceDispatchHangError:
+            hang_s = time.perf_counter() - t0
+        else:
+            fail("executor: the wedged job returned")
+        launches = encoder_attention.launches
+        after = hx.submit(lambda: enc._run_padded(few_ids), name="executor:after").result(timeout=60)
+    finally:
+        faults.clear_plan()
+        hx.close()
+    hang = dict(deadline_s=HANG_DEADLINE_S, failed_after_s=hang_s,
+                restarts=reg.counter("device.dispatch.restarts").value - restarts,
+                next_submit_launches=encoder_attention.launches - launches,
+                next_submit_equal=bool(np.array_equal(after, ref)))
+    log("executor", part="faults", fault="hang", **hang)
+    if hang["restarts"] != 1 or hang["next_submit_launches"] != cfg.layers or not hang["next_submit_equal"]:
+        fail(f"executor: hang {hang}")
+
+    # 4. overhead: host µs per dispatch with the rail on and off, on a
+    # trivial callable and on a (512, 64) MiniLM dispatch
+    ox = DeviceExecutor(device, collector_name=None)
+    ox.register("executor:rowsum", lambda t: torch.sum(t * t, dim=1), policy=BucketPolicy(max_bucket=64))
+    ox.warmup("executor:rowsum", row_shapes=((64,),), dtypes=(np.float32,))
+    rng = np.random.default_rng(seed + 7)
+    small = [(rng.normal(size=(int(k), 64)).astype(np.float32),) for k in rng.integers(1, 65, size=64)]
+    small_on, small_off = paired_us(lambda: pass_us(ox, "executor:rowsum", small), ox.set_resilience, reps=9)
+    # the rail alone: the same path with the device call stubbed out
+    real = ox._dispatch_fixed
+    ox._dispatch_fixed = lambda entry, operands, arrays, static, warmup=False: np.zeros(len(arrays[0]), np.float32)
+    try:
+        stub_on, stub_off = paired_us(lambda: pass_us(ox, "executor:rowsum", small), ox.set_resilience, reps=9)
+    finally:
+        ox._dispatch_fixed = real
+        ox.set_resilience(True)
+    big = [pad_batch([x[:64] for x in tokenize(stream[:EXEC_BATCH])], 64)] * 8
+    pass_us(ex, enc._callable, big[:1], operands=(enc.model,))  # the key's counting dispatch
+    acc_before = ex._accountant.snapshot()
+    big_on, big_off = paired_us(lambda: pass_us(ex, enc._callable, big, operands=(enc.model,)),
+                                ex.set_resilience, reps=5)
+    acc_after = ex._accountant.snapshot()
+    wrapper_us = max(0.0, stub_on - stub_off)
+    trips, opened = [], []
+    rows16 = rng.normal(size=(16, 64)).astype(np.float32)
+    for _ in range(5):
+        with env_knobs(PATHWAY_DEVICE_BREAKER_THRESHOLD=1, PATHWAY_DEVICE_RETRIES=0,
+                       PATHWAY_DEVICE_BREAKER_COOLDOWN_S=3600):
+            tx = DeviceExecutor(device, collector_name=None)
+            tx.register("executor:trip", lambda t: torch.sum(t * t, dim=1), policy=BucketPolicy(max_bucket=64),
+                        host_fallback=lambda t: torch.sum(t * t, dim=1))
+        tx.warmup("executor:trip", row_shapes=((64,),), dtypes=(np.float32,))
+        faults.install_plan(faults.FaultPlan([{"kind": "device_error", "source": "executor:trip", "nth": 1}],
+                                             seed=seed))
+        try:
+            t0 = time.perf_counter()
+            tx.run_batch("executor:trip", (rows16,))  # fails, trips, served by the fallback
+            trips.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            faults.clear_plan()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            tx.run_batch("executor:trip", (rows16,))
+        opened.append((time.perf_counter() - t0) / 8 * 1e3)
+        if tx.resilience_stats("executor:trip")["fallback_batches"] != 9:
+            fail("executor: the tripped breaker did not route to the fallback")
+    overhead = dict(trivial_on_us=small_on, trivial_off_us=small_off, minilm_512x64_on_us=big_on,
+                    minilm_512x64_off_us=big_off, rail_us=wrapper_us, rail_stub_on_us=stub_on,
+                    rail_stub_off_us=stub_off, rail_share_trivial=wrapper_us / small_off,
+                    rail_share_minilm=wrapper_us / big_off, end_to_end_share_minilm=(big_on - big_off) / big_off,
+                    reference_pin=RAIL_PIN, trip_ms=float(np.median(trips)),
+                    open_fallback_ms=float(np.median(opened)))
+    log("executor", part="overhead", **overhead)
+
+    # 5. accounting: the (512, 64) key's counted FLOPs against the analytic
+    # count, the rate over the overhead part's MiniLM dispatches, memory
+    key = next((k for k in ex.costs(enc._callable) if k[0][-1][0] == (EXEC_BATCH, 64)), None)
+    if key is None:
+        fail("executor: no (512, 64) cache key was counted")
+    cost = ex.costs(enc._callable)[key]
+    B, S, H, F = EXEC_BATCH, 64, cfg.hidden, cfg.intermediate
+    analytic = cfg.layers * (2 * B * S * (4 * H * H + 2 * H * F) + 4 * B * S * S * H)
+    flops = acc_after["flops_total"] - acc_before["flops_total"]
+    seconds = acc_after["device_seconds"] - acc_before["device_seconds"]
+    snap = ex.metrics_snapshot()
+    in_use = torch.cuda.memory_allocated(device)
+    accounting = dict(key_flops=cost["flops"], analytic_flops=analytic, analyzed=cost["analyzed"],
+                      key_bytes=cost["bytes_accessed"],
+                      dispatches=acc_after["costed_dispatches"] - acc_before["costed_dispatches"],
+                      dispatch_seconds=seconds, achieved_tflops=flops / seconds / 1e12,
+                      utilization=flops / seconds / ex._accountant.peak,
+                      peak_tflops=ex._accountant.peak / 1e12, peak_source=ex._accountant.peak_source,
+                      hbm_bytes_in_use=snap["device.hbm.bytes_in_use"], memory_allocated=in_use,
+                      hbm_peak=snap["device.hbm.peak"])
+    log("executor", part="accounting", **accounting)
+    if cost["flops"] != analytic or cost["analyzed"] != 1.0:
+        fail(f"executor: the (512, 64) key's flops {cost['flops']} != analytic {analytic}")
+    if snap["device.hbm.bytes_in_use"] != in_use:
+        fail(f"executor: device.hbm.bytes_in_use {snap['device.hbm.bytes_in_use']} != memory_allocated {in_use}")
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    for h in hooks:
+        h.remove()
+    remove_events()
+
+    expected = sum(seen.values())
+    if launches["encoder_attention"] != expected or not expected:
+        fail(f"executor: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen})")
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    for shape in sorted(set(seen) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("executor", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": launches, "attention_launches": dict(seen), "overlap": overlap, "batcher": batcher_line,
+            "rail": rail, "oom": oom, "overhead": overhead, "accounting": accounting}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: decoder generation, dense DecoderLM and the continuous scheduler.
 # ---------------------------------------------------------------------------
 
 GEN_MODEL = "mistral-7b-instruct"
@@ -1491,8 +1953,8 @@ def generate_timing(lm, prompt_lens, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: mixtral-8x7b-instruct with int8 weights through the scheduler;
-# phase 9: self-speculative decoding at mistral-7b-instruct width.
+# Phase 9: mixtral-8x7b-instruct with int8 weights through the scheduler;
+# phase 10: self-speculative decoding at mistral-7b-instruct width.
 # ---------------------------------------------------------------------------
 
 MOE_MODEL = "mixtral-8x7b-instruct"
@@ -1807,7 +2269,7 @@ def speculative_phase(device, seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the SigLIP dual encoder; phase 11: LoRA-adapted decoder serving.
+# Phase 11: the SigLIP dual encoder; phase 12: LoRA-adapted decoder serving.
 # ---------------------------------------------------------------------------
 
 VISION_MODEL = "siglip-base-patch16-224"
@@ -2176,13 +2638,32 @@ def main(argv=None) -> int:
     attention, checked, timed = attention_phase(device)
     log("kernels", **{k: v for k, v in attention.items() if k != "launches"})
 
+    # phases 4-6 run on the shared default executor with the rail on: each
+    # must serve every batch on the card
+    seconds = {}  # each phase's wall seconds, for [total]
+    t_phase = time.perf_counter()
+    rail = rail_state(device)
     result = main_path(device, args.docs, args.seed, checked)
+    result["rail"] = rail_gate("main", device, rail)
     texts, lengths = result.pop("texts"), result.pop("lengths")
     phases = {"main": result}
+    seconds["main"] = time.perf_counter() - t_phase
     if "rerank" not in skip:
+        t_phase = time.perf_counter()
+        rail = rail_state(device)
         phases["rerank"] = rerank_phase(device, args.seed, checked)
+        phases["rerank"]["rail"] = rail_gate("rerank", device, rail)
+        seconds["rerank"] = time.perf_counter() - t_phase
     if "encoders" not in skip:
+        t_phase = time.perf_counter()
+        rail = rail_state(device)
         phases["encoders"] = encoders_phase(device, args.seed, checked, texts, lengths)
+        phases["encoders"]["rail"] = rail_gate("encoders", device, rail)
+        seconds["encoders"] = time.perf_counter() - t_phase
+    if "executor" not in skip:
+        t_phase = time.perf_counter()
+        phases["executor"] = executor_phase(device, args.seed, checked, texts)
+        seconds["executor"] = time.perf_counter() - t_phase
     del texts, lengths
     # the decoder phases and the multimodal encoder, one model on the card at a time
     for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase),
@@ -2190,7 +2671,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         if name not in skip:
+            t_phase = time.perf_counter()
             phases[name] = phase(device, args.seed, card)
+            seconds[name] = time.perf_counter() - t_phase
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)
@@ -2208,7 +2691,7 @@ def main(argv=None) -> int:
                 fail(f"kernel {kern['name']} was launched {n} times on the {phase} path")
             if phase not in NO_KERNEL_PHASES and not n:
                 fail(f"kernel {kern['name']} was not launched on the {phase} path")
-    log("total", seconds=time.perf_counter() - started, phases=sorted(phases))
+    log("total", seconds=time.perf_counter() - started, phases=sorted(phases), phase_seconds=seconds)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,14 @@ continuous-batching ``GenerationScheduler`` over a paged KV cache; a
 LoRA-adapted tree (``models/lora.py``'s ``lora_decoder_tree``) serves
 through both unchanged.  Multimodal embedding: ``MultimodalEncoder`` (a
 SigLIP ViT image tower and a projected text tower in one space, with
-SigLIP's pairwise logits).  Entry points run on the first CUDA device
-unless the caller passes ``device=`` (``"cpu"`` runs the kernels' plain
-PyTorch versions).  The port imports nothing of JAX or of
-``pathway_tpu``.
+SigLIP's pairwise logits).  Every device call of the encoders and the
+index goes through the device's shared ``DeviceExecutor``
+(``device.get_default_executor``: bucketing, async ``submit``, the
+typed failure rail, cost accounting), with ``utils.batching``'s
+``AsyncMicroBatcher`` as the coalescing front end.  Entry points run on
+the first CUDA device unless the caller passes ``device=`` (``"cpu"``
+runs the kernels' plain PyTorch versions).  The port imports nothing of
+JAX or of ``pathway_tpu``.
 """
 
 from pathway_tpu_torch.device import resolve_device

@@ -7,8 +7,9 @@ the kernels see, keeps padded rows out of real rows' outputs (all-zero
 rows with a zero attention mask), and keeps the port's batching identical
 to the JAX package's so the two can be compared row for row.
 
-The OOM ratchet (``plan(cap=...)``, ``next_smaller``, ``floor_bucket``)
-belongs to executor resilience and waits for a later slice.
+``plan(cap=...)``, ``next_smaller`` and ``floor_bucket`` serve the
+executor's OOM ratchet: a chunk that runs out of device memory drops one
+bucket, and later batches plan under the ratcheted cap.
 """
 
 from __future__ import annotations
@@ -87,12 +88,29 @@ class BucketPolicy:
         out.append(self.max_bucket)
         return tuple(out)
 
-    def plan(self, n: int) -> list[BatchChunk]:
+    def next_smaller(self, bucket: int) -> int | None:
+        """The declared bucket just below ``bucket``, or ``None`` when it
+        is the smallest: the OOM ratchet's step."""
+        below = [b for b in self.buckets() if b < bucket]
+        return below[-1] if below else None
+
+    def floor_bucket(self, cap: int) -> int:
+        """The largest declared bucket <= ``cap`` (the smallest declared
+        bucket when none fits), so capped planning emits declared shapes."""
+        declared = self.buckets()
+        fitting = [b for b in declared if b <= cap]
+        return fitting[-1] if fitting else declared[0]
+
+    def plan(self, n: int, *, cap: int | None = None) -> list[BatchChunk]:
         """Split ``n`` rows into fixed-shape chunks: full largest-bucket
-        chunks first, then one bucketed remainder."""
+        chunks first, then one bucketed remainder.  ``cap`` (the
+        callable's OOM ratchet) bounds the largest chunk below
+        ``max_bucket``."""
         if n < 1:
             raise ValueError("cannot plan an empty batch")
         largest = self.max_bucket
+        if cap is not None:
+            largest = self.floor_bucket(min(cap, self.max_bucket))
         chunks: list[BatchChunk] = []
         start = 0
         while n - start > largest:

@@ -1,10 +1,13 @@
 """Typed serving rejections and request deadlines.
 
 A slim copy of the part of ``pathway_tpu/engine/serving.py`` that the
-generation scheduler uses: the typed errors a request future fails with,
-:class:`Deadline`, and the ambient deadline of the calling context.  The
-admission controller, load shedding, drain and the metrics they feed wait
-for the host-engine slice of the port.
+generation scheduler and the device layer use: the typed errors a request
+future fails with, :class:`Deadline`, the ambient deadline of the calling
+context, and the shed-before-work check (:func:`shed_if_expired`) with its
+``serve.deadline.exceeded``/``serve.shed`` counters, which
+``DeviceExecutor.submit`` and ``AsyncMicroBatcher`` call before any device
+work.  The admission controller, load shedding and drain wait for the
+host-engine slice of the port.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import time
+
+from pathway_tpu_torch.engine import metrics as metrics_mod
 
 
 class ServeRejected(Exception):
@@ -90,3 +95,24 @@ def deadline_scope(deadline: Deadline | None):
         yield deadline
     finally:
         _AMBIENT.reset(token)
+
+
+def shed_if_expired(where: str) -> None:
+    """Raise :class:`DeadlineExceededError` when the ambient deadline has
+    lapsed: the shed-before-work check a wait point calls before paying
+    for dispatch.  No ambient deadline, no-op."""
+    ddl = _AMBIENT.get()
+    if ddl is not None and ddl.expired():
+        note_deadline_shed(where)
+        raise DeadlineExceededError(
+            f"request deadline lapsed before {where} dispatch (shed-before-work)"
+        )
+
+
+def note_deadline_shed(where: str) -> None:
+    """Count a deadline-driven shed at a named wait point."""
+    reg = metrics_mod.get_registry()
+    reg.counter(
+        "serve.deadline.exceeded", "requests answered 504, by where the lapse was caught", where=where
+    ).inc()
+    reg.counter("serve.shed", "requests shed before pipeline work", reason=where).inc()

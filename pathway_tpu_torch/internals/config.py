@@ -1,0 +1,118 @@
+"""The ``PATHWAY_DEVICE_*`` environment knobs of the device executor.
+
+A copy of the executor's part of ``pathway_tpu/internals/config.py``
+(``ENV_KNOBS`` and the typed accessors): the same names, types, defaults
+and parsing, so one environment configures both packages alike.  Only the
+knobs the port's device layer reads are declared; reading any other name
+raises ``KeyError``.  Accessors read ``os.environ`` live, so tests can
+monkeypatch between runs.
+
+Not carried over: ``PATHWAY_DEVICE_DONATE`` (buffer donation is an XLA
+notion; an eager PyTorch call never donates its inputs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvKnob:
+    """One declared ``PATHWAY_*`` environment knob."""
+
+    name: str
+    kind: str  # "bool" | "int" | "float" | "str"
+    default: Any
+    doc: str
+
+
+ENV_KNOBS: tuple[EnvKnob, ...] = (
+    EnvKnob("PATHWAY_DEVICE_MAX_BATCH", "int", 512,
+            "largest batch bucket of the executor's default bucketing policy"),
+    EnvKnob("PATHWAY_DEVICE_INFLIGHT_MB", "float", 256.0,
+            "in-flight byte budget of the async dispatch queue"),
+    EnvKnob("PATHWAY_DEVICE_INFLIGHT_REQUESTS", "int", 64,
+            "in-flight request budget of the async dispatch queue"),
+    EnvKnob("PATHWAY_DEVICE_COST_ANALYSIS", "bool", True,
+            "count FLOPs once per cache key; `0` leaves every dispatch uncosted"),
+    EnvKnob("PATHWAY_DEVICE_PEAK_FLOPS", "float", None,
+            "peak FLOP/s for the utilization estimate (default: the device-kind table)"),
+    EnvKnob("PATHWAY_DEVICE_TRACE_DIR", "str", None,
+            "base directory for on-demand torch.profiler traces; unset disables capture"),
+    EnvKnob("PATHWAY_DEVICE_RESILIENCE", "bool", True,
+            "the typed failure rail (retry, OOM ratchet, breaker, quarantine)"),
+    EnvKnob("PATHWAY_DEVICE_RETRIES", "int", 2,
+            "bounded retries of a transient device failure per dispatch"),
+    EnvKnob("PATHWAY_DEVICE_RETRY_DEADLINE_S", "float", 30.0,
+            "wall-clock cap on one dispatch's retries"),
+    EnvKnob("PATHWAY_DEVICE_RETRY_BACKOFF_MS", "float", 50.0,
+            "initial retry backoff (doubles per attempt, jittered by half)"),
+    EnvKnob("PATHWAY_DEVICE_BREAKER_THRESHOLD", "int", 5,
+            "consecutive device failures that trip a callable's breaker open"),
+    EnvKnob("PATHWAY_DEVICE_BREAKER_COOLDOWN_S", "float", 10.0,
+            "open-breaker cooldown before one half-open probe"),
+    EnvKnob("PATHWAY_DEVICE_DISPATCH_DEADLINE_S", "float", 0.0,
+            "hard per-job dispatch deadline; 0 disables hang escalation"),
+    EnvKnob("PATHWAY_DEVICE_QUARANTINE_KEEP", "int", 32,
+            "poisoned-batch quarantine records kept per executor"),
+)
+
+ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}
+
+_TRUTHY = ("1", "true", "yes", "on")
+_FALSY = ("0", "false", "no", "off")
+
+
+def _knob(name: str) -> EnvKnob:
+    knob = ENV_REGISTRY.get(name)
+    if knob is None:
+        raise KeyError(f"{name} is not a declared environment knob of the port")
+    return knob
+
+
+def env_str(name: str, default: Any = ...) -> Any:
+    knob = _knob(name)
+    raw = os.environ.get(name)
+    if raw is None:
+        return knob.default if default is ... else default
+    return raw
+
+
+def env_bool(name: str, default: Any = ...) -> bool:
+    knob = _knob(name)
+    fallback = knob.default if default is ... else default
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return bool(fallback)  # empty = unset, as env_int/env_float read it
+    v = raw.strip().lower()
+    if v in _TRUTHY:
+        return True
+    if v in _FALSY:
+        return False
+    return bool(fallback)
+
+
+def env_int(name: str, default: Any = ...) -> Any:
+    knob = _knob(name)
+    fallback = knob.default if default is ... else default
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return fallback
+    try:
+        return int(raw)
+    except ValueError:
+        return fallback
+
+
+def env_float(name: str, default: Any = ...) -> Any:
+    knob = _knob(name)
+    fallback = knob.default if default is ... else default
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return fallback
+    try:
+        return float(raw)
+    except ValueError:
+        return fallback

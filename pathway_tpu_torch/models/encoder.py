@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pathway_tpu_torch.device import BucketPolicy, DeviceExecutor, resolve_device
+from pathway_tpu_torch.device import BucketPolicy, get_default_executor, resolve_device
 from pathway_tpu_torch.models.tokenizer import (
     bucket_seq_len,
     load_tokenizer,
@@ -654,11 +654,18 @@ def init_model_params(model_name: str, config: EncoderConfig, seed: int = 0, *, 
 _FALSY = ("0", "false", "no", "off")
 
 
+def _forward(model, input_ids, attention_mask):
+    """The registered device callable: the model (its weights) is the
+    operand of every dispatch, not a closure, so instances of one model
+    share one registration and each runs its own weights."""
+    return model(input_ids, attention_mask)
+
+
 class _EncoderModel:
     """What the sentence encoder and the cross-encoder share: config,
-    tokenizer, params, the model on the device and its executor
-    registration, ``set_params``, ``n_params``, ``warmup`` and
-    ``_run_padded``.
+    tokenizer, params, the model on the device and its registration on
+    the device's default executor, ``set_params``, ``n_params``,
+    ``warmup`` and ``_run_padded``.
 
     ``PATHWAY_FUSED_ENCODER`` (on by default) selects the fused path, and
     ``0`` the Flax module forward, which runs on the host only: its
@@ -668,7 +675,12 @@ class _EncoderModel:
     default for sentence encoders only (a cross-encoder quantizes only when
     asked per instance, as its score fidelity is not pinned).  Runs on
     ``cuda:0`` unless ``device`` names another device; without a card and
-    without ``device`` it raises."""
+    without ``device`` it raises.
+
+    ``host_fallback`` serves the batches the executor's breaker routes
+    away from the device (``DeviceExecutor.register``); there is none
+    unless one is passed, such as :meth:`as_host_fallback` of an encoder
+    of the same model and seed on ``device="cpu"``."""
 
     _head = False  # the cross-encoder's scoring head
 
@@ -679,6 +691,7 @@ class _EncoderModel:
         max_batch: int = 512,
         quantize: str | None = None,
         device=None,
+        host_fallback=None,
     ):
         env_q = None if self._head else os.environ.get("PATHWAY_ENCODER_QUANTIZE")
         self._quantize = quantize or env_q or None
@@ -698,13 +711,21 @@ class _EncoderModel:
         self.model_name = model_name
         self.tokenizer = load_tokenizer(model_name, self.config.vocab_size, self.config.max_len)
         self.max_batch = max_batch
-        self._executor = DeviceExecutor(self.device)
-        self._callable = (
+        params, self.pretrained = init_model_params(model_name, self.config, seed, head=self._head)
+        self.set_params(params)
+        # keyed by everything the callable's behaviour depends on but the
+        # weights: a re-created instance replaces the registration instead
+        # of growing the shared executor; a fallback is per instance
+        name = (
             f"encoder:{type(self).__name__}:{model_name}:b{max_batch}"
             f":f{int(self._fused)}:q{self._quantize or '-'}"
         )
-        params, self.pretrained = init_model_params(model_name, self.config, seed, head=self._head)
-        self.set_params(params)
+        if host_fallback is not None:
+            name += f":h{id(host_fallback):x}"
+        self._executor = get_default_executor(self.device)
+        self._callable = self._executor.register(
+            name, _forward, policy=BucketPolicy(max_bucket=self.max_batch), host_fallback=host_fallback
+        )
 
     def set_params(self, params) -> None:
         """Replace the weights with a Flax-structured tree, such as the JAX
@@ -719,9 +740,16 @@ class _EncoderModel:
         else:
             module = CrossEncoderModule if self._head else SentenceEncoderModule
             self.model = module(self.config, self.params, self.device)
-        self._executor.register(
-            self._callable, self.model, policy=BucketPolicy(max_bucket=self.max_batch)
-        )
+
+    def as_host_fallback(self):
+        """A ``host_fallback`` for an encoder of the same model on another
+        device: runs this instance's model (e.g. on ``device="cpu"``) on
+        the padded rows and ignores the card's weights it is handed."""
+
+        def fallback(_model, input_ids, attention_mask):
+            return self.model(input_ids.to(self.device), attention_mask.to(self.device))
+
+        return fallback
 
     def n_params(self) -> int:
         def count(tree):
@@ -731,7 +759,8 @@ class _EncoderModel:
 
     @property
     def forward_batches(self) -> int:
-        """Fixed-shape forward passes run so far (warm-up not counted)."""
+        """Fixed-shape forward passes of this model's registration so far
+        (warm-up not counted)."""
         return self._executor.dispatches(self._callable)
 
     def warmup(self, *, seq_lens: tuple[int, ...] = (), buckets=None) -> int:
@@ -740,7 +769,11 @@ class _EncoderModel:
         seq_lens = seq_lens or (bucket_seq_len(self.config.max_len),)
         return sum(
             self._executor.warmup(
-                self._callable, row_shapes=((seq,), (seq,)), dtypes=(np.int32, np.int32), buckets=buckets
+                self._callable,
+                row_shapes=((seq,), (seq,)),
+                dtypes=(np.int32, np.int32),
+                operands=(self.model,),
+                buckets=buckets,
             )
             for seq in seq_lens
         )
@@ -754,7 +787,7 @@ class _EncoderModel:
         longest = max(len(x) for x in id_lists)
         seq = bucket_seq_len(min(longest, max_length or self.config.max_len))
         ids, mask = pad_batch(id_lists, seq)
-        return self._executor.run_batch(self._callable, (ids, mask))
+        return self._executor.run_batch(self._callable, (ids, mask), operands=(self.model,))
 
 
 class SentenceEncoder(_EncoderModel):
@@ -767,8 +800,9 @@ class SentenceEncoder(_EncoderModel):
         max_batch: int = 512,
         quantize: str | None = None,
         device=None,
+        host_fallback=None,
     ):
-        super().__init__(model_name, seed, max_batch, quantize, device)
+        super().__init__(model_name, seed, max_batch, quantize, device, host_fallback)
 
     @property
     def dimensions(self) -> int:
@@ -794,8 +828,9 @@ class CrossEncoder(_EncoderModel):
         max_batch: int = 512,
         quantize: str | None = None,
         device=None,
+        host_fallback=None,
     ):
-        super().__init__(model_name, seed, max_batch, quantize, device)
+        super().__init__(model_name, seed, max_batch, quantize, device, host_fallback)
 
     def score(self, pairs: list[tuple[str, str]], max_length: int | None = None) -> np.ndarray:
         """One f32 score per pair, from ``[CLS] query [SEP] doc [SEP]``."""

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from pathway_tpu_torch.device.telemetry import note_flops
 from pathway_tpu_torch.ops import _build
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -186,6 +187,9 @@ def encoder_attention(q, k, v, mask_bias, heads: int):
     if rc:
         raise RuntimeError(f"encoder_attention kernel launch failed: CUDA error {rc}")
     encoder_attention.launches += 1
+    # the launch is outside the aten dispatcher: report its FLOPs (QK^T and
+    # PV, 2*B*S*S*H each) to a cost count running on this thread
+    note_flops(4.0 * B * S * S * H)
     return out
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pathway_tpu_torch.device import DeviceExecutor, next_pow2, resolve_device
+from pathway_tpu_torch.device import get_default_executor, next_pow2, resolve_device
 
 MIN_DEVICE_ROWS = 256  # below this, host numpy beats a device round trip
 
@@ -61,6 +61,15 @@ def masked_topk_block(matrix, mask, queries, *, metric: str, k: int):
     return exact_topk(scores + mask[None, :], k)
 
 
+def _topk_executor(device):
+    """The device's default executor with the masked top-k registered once
+    (``metric`` and ``k`` ride as static keyword arguments)."""
+    ex = get_default_executor(device)
+    if not ex.registered(_TOPK_CALLABLE):
+        ex.register(_TOPK_CALLABLE, masked_topk_block)
+    return ex
+
+
 class DeviceIndexCache:
     """Keeps the padded index matrix (and its padding mask) resident on the
     device across queries.
@@ -77,8 +86,7 @@ class DeviceIndexCache:
                 "a sharded multi-card index is a later slice of the port"
             )
         self.device = resolve_device(device)
-        self.executor = DeviceExecutor(self.device)
-        self.executor.register(_TOPK_CALLABLE, masked_topk_block)
+        self.executor = _topk_executor(self.device)
         self._version = -1
         self._metric = None
         self._padded = None

@@ -157,8 +157,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     transformers, which the card lacks), the port imports and runs the
     embed-and-retrieve slice, reranking with the cross-encoder, W8A8
     embeddings, the generation path, an int8 MoE decoder,
-    self-speculative decoding, a LoRA-adapted MoE decoder and the
-    multimodal encoder on the CPU."""
+    self-speculative decoding, a LoRA-adapted MoE decoder, the
+    multimodal encoder, and the encoder behind ``AsyncMicroBatcher`` and
+    ``DeviceExecutor.submit`` on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -212,6 +213,22 @@ def test_port_imports_nothing_of_jax(model_dir):
         scores = mm.score(imgs, ["a photo", "a report"])
         assert scores.shape == (3, 2) and np.isfinite(scores).all(), scores
         assert vision.shared_multimodal_encoder("pw-tiny-siglip", device="cpu").dimensions == 32
+        import asyncio
+        from pathway_tpu_torch.device import get_default_executor
+        from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+        ex = get_default_executor("cpu")
+        batcher = AsyncMicroBatcher(enc.encode, max_batch_size=8, executor=ex)
+
+        async def embed():
+            return await asyncio.gather(*(batcher.submit(t) for t in texts[:20]))
+
+        rows = np.stack(asyncio.run(embed()))
+        assert (rows * enc.encode(texts[:20])).sum(axis=1).min() > 0.999
+        fut = ex.submit(lambda: enc.encode(texts[:3]), name="direct")
+        assert fut.result(timeout=60).shape == (3, enc.dimensions)
+        ex.close()
+        assert ex.metrics_snapshot()["backlog.device.queue"] == 0.0
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
