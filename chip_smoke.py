@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -58,10 +58,11 @@ Phases, each on a line of its own; any failure exits non-zero:
    injected transient retried once with bitwise-equal rows; a breaker
    tripped onto an explicit CPU MiniLM fallback, held to the card's rows,
    and closed again by the half-open probe with launches resuming; an
-   injected hang failed at a 2 s dispatch deadline with the next submit
-   served on the card), ``overhead`` (host µs per dispatch with the rail
-   on and off, interleaved, on a trivial callable and a (512, 64) MiniLM
-   dispatch, the rail alone with the device call stubbed, and its share
+   injected hang failed at a 10 s dispatch deadline with the next submit
+   served on the card by the fresh dispatch thread, its ms reported),
+   ``overhead`` (host µs per dispatch with the rail on and off,
+   interleaved, on a trivial callable and a (512, 64) MiniLM dispatch,
+   the rail alone with the device call stubbed, and its share
    against the reference's 2% pin, reported and not gated; the trip and
    open-breaker fallback latency) and ``accounting`` (the (512, 64) key's
    counted FLOPs against the analytic count, the achieved TFLOP/s and
@@ -124,11 +125,34 @@ Phases, each on a line of its own; any failure exits non-zero:
    rows differing from the base rows, zero-init adapters giving the base
    tree's greedy tokens on 4 prompts; device and host ms of a decode tick
    at 8 slots over the base, the adapted and a timing-only rank-16
-   adapter on all seven targets, beside the bytes bound.
+   adapter on all seven targets, beside the bytes bound;
+13. train: training on the card, seeded random weights.  ``contrastive``:
+   all-MiniLM-L6-v2 then BAAI/bge-base-en-v1.5 (f32 trees, bf16 compute),
+   20 Adam steps of symmetric InfoNCE at temperature 0.05 on 256 fresh
+   (query, passage) pairs at seq 128 (a passage is a main-corpus text, its
+   query a 6-20 word span of it drawn as phase 5 draws queries); the
+   losses finite and the last 5 below the first 5, step 1 in bf16 held to
+   f32 compute (|Δloss| ≤ 1e-2·|loss|, gradient cosine > 0.99); pairs/s,
+   step ms (host, CUDA events), peak memory.  ``lm_full``:
+   mistral-7b-instruct at full width and depth in bf16 with remat and
+   fused Adam (bf16 moments), 6 steps on one batch of 4 × 512 ids (lengths
+   256-512): finite, falling; remat on against off at 2 layers of full
+   width (gradient cosine > 0.9999); tokens/s, step ms, peak memory,
+   TFLOP/s at 8·N·tokens.  ``lora``: the same model at full depth with
+   rank-8 adapters on wq/wv and remat, 10 steps on one batch of 8 × 512:
+   every base leaf's checksum unchanged, every b moved, the loss falling,
+   Adam's moments 2 × the adapter bytes; the state saved after step 5,
+   restored into a fresh state and run 5 steps (losses within 1e-3
+   relative of the run's); then 4 greedy prompts served by the trained
+   tree, held to the merged tree's dense path by phase 8's checks.
+   ``moe``: the MoE layer at mixtral-8x7b width (8 experts, top-2,
+   capacity factor 2.0, bf16), 10 Adam steps of the denoising regression
+   on 4,096 fresh tokens each: falling, aux finite; step ms and the share
+   of assignments dropped at capacity.
 
-Phases 8-12 run one model at a time; the encoder kernel is on none of
+Phases 8-13 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-12 (all run by default), to
+``--skip`` leaves out the named phases of 5-13 (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -139,8 +163,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import faulthandler
+import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -663,9 +691,9 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora")
+SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora", "train")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
-NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora")
+NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
 RERANK_CHUNKS = 16384
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
@@ -1034,7 +1062,11 @@ OOM_ROWS = 512
 OOM_CAP = 64  # the largest bucket the OOM part's scratch lets fit
 FAULT_TEXTS = 16
 BREAKER_COOLDOWN_S = 1.0
-HANG_DEADLINE_S = 2.0
+# The deadline bounds every job of the hang part's executor, the healthy
+# submit after the wedge too: that one takes milliseconds (``next_submit_ms``),
+# but a 2 s deadline once failed it in a host stall, so the deadline leaves
+# it room; the wedge sleeps twice as long.
+HANG_DEADLINE_S = 10.0
 RAIL_PIN = 0.02  # the reference's happy-path pin (benchmarks/device_fault_recovery.py:11)
 
 
@@ -1345,11 +1377,17 @@ def executor_phase(device, seed: int, checked: dict, texts) -> dict:
         else:
             fail("executor: the wedged job returned")
         launches = encoder_attention.launches
-        after = hx.submit(lambda: enc._run_padded(few_ids), name="executor:after").result(timeout=60)
+        t0 = time.perf_counter()
+        try:
+            after = hx.submit(lambda: enc._run_padded(few_ids), name="executor:after").result(timeout=60)
+        except resilience.DeviceDispatchHangError as exc:
+            faulthandler.dump_traceback(all_threads=True)  # where the healthy job stood
+            fail(f"executor: the submit after the hang was failed too: {exc}")
+        next_ms = (time.perf_counter() - t0) * 1e3
     finally:
         faults.clear_plan()
         hx.close()
-    hang = dict(deadline_s=HANG_DEADLINE_S, failed_after_s=hang_s,
+    hang = dict(deadline_s=HANG_DEADLINE_S, failed_after_s=hang_s, next_submit_ms=next_ms,
                 restarts=reg.counter("device.dispatch.restarts").value - restarts,
                 next_submit_launches=encoder_attention.launches - launches,
                 next_submit_equal=bool(np.array_equal(after, ref)))
@@ -1741,19 +1779,20 @@ def check_generation(lm, prompts, outs, greedy, sampled, new_tokens: int, device
     log(phase, step="check_logits", **check)
 
     # each sampled token lies in the support its filters leave
-    feed = [outs[i] for i in sampled]
-    lg = dense_step_logits(ref, [prompts[i] for i in sampled], feed, new_tokens)
-    kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
-    kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
-    tok, live = fed_tokens(feed, new_tokens, device)
-    chosen = lg.gather(-1, tok[..., None])[..., 0]
-    inside = kept.gather(-1, tok[..., None])[..., 0] & live
-    near = (chosen >= kept_min - near_tie_tol(lg)) & live
-    log(phase, step="check_sampled", rows=sampled, tokens=int(live.sum()),
-        in_support=int(inside.sum()), within_tol_of_support=int(near.sum()),
-        mean_support_size=float(kept.sum(-1).float()[live].mean()))
-    if int(near.sum()) != int(live.sum()):
-        problems.append(f"{phase}: {int(live.sum()) - int(near.sum())} sampled token(s) outside the top-p support")
+    if sampled:
+        feed = [outs[i] for i in sampled]
+        lg = dense_step_logits(ref, [prompts[i] for i in sampled], feed, new_tokens)
+        kept = torch.isfinite(dec._filter_logits(lg / GEN_TEMP, top_p=GEN_TOP_P))
+        kept_min = torch.where(kept, lg, float("inf")).amin(dim=-1)
+        tok, live = fed_tokens(feed, new_tokens, device)
+        chosen = lg.gather(-1, tok[..., None])[..., 0]
+        inside = kept.gather(-1, tok[..., None])[..., 0] & live
+        near = (chosen >= kept_min - near_tie_tol(lg)) & live
+        log(phase, step="check_sampled", rows=sampled, tokens=int(live.sum()),
+            in_support=int(inside.sum()), within_tol_of_support=int(near.sum()),
+            mean_support_size=float(kept.sum(-1).float()[live].mean()))
+        if int(near.sum()) != int(live.sum()):
+            problems.append(f"{phase}: {int(live.sum()) - int(near.sum())} sampled token(s) outside the top-p support")
     if problems:
         fail("; ".join(problems))
     return len(parted)
@@ -1930,7 +1969,7 @@ def generate_timing(lm, prompt_lens, device) -> dict:
          2 * 2 * S * (NH + KH) * D),
         ("KV writes + paged attention", lambda lp, kp, vp: paged_attention(kp, vp), L, attn_bytes),
         ("o projection + residual", lambda lp, kp, vp: x + ctx_ @ lp["wo"], L, wb("wo") + 3 * act),
-        ("SwiGLU MLP + residual", lambda lp, kp, vp: x + dec._ffn(lp, h, cfg), L,
+        ("SwiGLU MLP + residual", lambda lp, kp, vp: x + dec._ffn(lp, h, cfg)[0], L,
          wb("wg", "wu", "wd") + 3 * act),
         ("lm_head", lambda lp, kp, vp: dec._logits(tree, x[:, 0]), 1,
          tensor_bytes(tree["lm_head"]) + act + S * V * 4),
@@ -2306,6 +2345,10 @@ def to_f32(tree):
     return {k: to_f32(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.float()
 
 
+def detached(tree):
+    return {k: detached(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.detach()
+
+
 def vision_phase(device, seed: int, card: str) -> dict:
     """Embed images and texts at full siglip-base-patch16-224 width through
     ``MultimodalEncoder`` (bge-base-en-v1.5 text tower), check them against
@@ -2600,6 +2643,445 @@ def lora_phase(device, seed: int, card: str) -> dict:
     return {"launches": launches, "attention_launches": {}, **summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training on one card.
+# ---------------------------------------------------------------------------
+
+TRAIN_ENCODERS = ("all-MiniLM-L6-v2", BGE_MODEL)
+TRAIN_PAIRS = 256  # (query, passage) pairs a step
+TRAIN_SEQ = 128
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-4
+TRAIN_LOSS_REL = 1e-2  # step 1: bf16 compute against f32 compute, |Δloss| / |loss|
+TRAIN_GRAD_COS = 0.99  # and the flattened gradients' cosine
+LM_SHAPE = (4, 512)  # one fixed batch of ids, real lengths in LM_LENS
+LM_LENS = (256, 512)
+LM_STEPS = 6
+LM_LR = 1e-4
+REMAT_LAYERS = 2  # remat on against off at full width, this many layers
+REMAT_COS = 0.9999
+LORA_SHAPE = (8, 512)
+LORA_STEPS = 10
+LORA_LR = 2e-3
+LORA_SERVE_PROMPTS = 4
+LORA_SERVE_TOKENS = 32
+CKPT_STEP = 5  # the LoRA state is saved after this many steps and resumed
+RESUME_REL = 1e-3
+MOE_TRAIN_TOKENS = 4096
+MOE_TRAIN_STEPS = 10
+MOE_TRAIN_LR = 3e-4
+
+
+def adam(lr: float, **kw):
+    """``optax.adam(lr)``'s counterpart, as ``parallel/train.py`` maps it."""
+    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999), eps=1e-8, **kw)
+
+
+def timed_step(run, state, *batch):
+    """One train step: ``(state, loss, host ms, device ms)``, the host clock
+    around the step and its loss read back, CUDA events around the step."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    state, loss = run(state, *batch)
+    end.record()
+    loss = float(loss)
+    host = (time.perf_counter() - t0) * 1e3
+    return state, loss, host, start.elapsed_time(end)
+
+
+def profile_step(fn, step_ms: float, top: int = 6) -> dict:
+    """One more step, ``fn``, under ``torch.profiler`` with CUDA activity:
+    the kernels' summed device ms (user annotations such as the optimizer's
+    step range left out: they span kernels already counted), the card's
+    idle share of an unprofiled step of ``step_ms`` host ms (the profiler
+    slows the host), and the ``top`` kernels by device time.  If the
+    profiler cannot trace the card, ``kernel_ms`` is ``None``: not
+    measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as err:  # no CUPTI on the machine: the breakdown is not measured
+        return {"kernel_ms": None, "error": str(err)[:200]}
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    total = sum(ms for _, ms, _ in kernels)
+    if not total:
+        return {"kernel_ms": None, "wall_ms": wall}
+    kernels.sort(key=lambda k: -k[1])
+    return {"wall_ms": wall, "kernel_ms": total, "idle_share": 1.0 - total / step_ms, "kernels": len(kernels),
+            "launches": sum(n for _, _, n in kernels),
+            "top": [{"kernel": name[:80], "ms": ms, "share": ms / total, "calls": n} for name, ms, n in kernels[:top]]}
+
+
+def grad_cosine(ga, gb) -> float:
+    """Cosine of two gradient lists, flattened, summed in float64."""
+    dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(ga, gb))
+    na = math.sqrt(sum(float(a.double().square().sum()) for a in ga))
+    nb = math.sqrt(sum(float(b.double().square().sum()) for b in gb))
+    return dot / (na * nb)
+
+
+def step_stats(losses, host, dev) -> dict:
+    """Losses and per-step times; the means leave out step 1 (first-call
+    allocation and autotuning)."""
+    return {"losses": losses, "step_ms_host": float(np.mean(host[1:])), "step_ms_device": float(np.mean(dev[1:])),
+            "step1_ms_host": host[0]}
+
+
+def span_queries(rng, lengths, word_ids, vocab) -> list[str]:
+    """One query per text: a span of 6-20 of its words (at most the text)
+    with a quarter of them swapped, as ``rerank_queries`` draws them."""
+    out = []
+    for c in range(len(lengths)):
+        n = min(int(rng.integers(QUERY_WORDS[0], QUERY_WORDS[1] + 1)), int(lengths[c]))
+        start = int(rng.integers(0, lengths[c] - n + 1))
+        words = word_ids[c][start : start + n].copy()
+        swap = rng.random(n) < QUERY_SWAP
+        words[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+        out.append(" ".join(vocab[w] for w in words))
+    return out
+
+
+def contrastive_part(device, seed: int) -> dict:
+    """MiniLM then BGE-base: 20 Adam steps of symmetric InfoNCE on 256
+    fresh (query, passage) pairs at seq 128, f32 trees with bf16 compute;
+    step 1 held to f32 compute."""
+    from pathway_tpu_torch.models import encoder as enc
+    from pathway_tpu_torch.models.tokenizer import load_tokenizer, pad_batch
+    from pathway_tpu_torch.parallel import train
+
+    n = TRAIN_PAIRS * TRAIN_STEPS
+    texts, lengths, word_ids, vocab = synthetic_corpus(n, seed)
+    queries = span_queries(np.random.default_rng(seed + 43), lengths, word_ids, vocab)
+    out = {}
+    for model in TRAIN_ENCODERS:
+        cfg = enc.config_for(model)
+        tok = load_tokenizer(model, cfg.vocab_size, cfg.max_len)
+
+        def tokens(rows):
+            ids, mask = pad_batch([tok.encode(t, max_length=TRAIN_SEQ) for t in rows], TRAIN_SEQ)
+            return torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+
+        batches = [(*tokens(queries[s * TRAIN_PAIRS : (s + 1) * TRAIN_PAIRS]),
+                    *tokens(texts[s * TRAIN_PAIRS : (s + 1) * TRAIN_PAIRS])) for s in range(TRAIN_STEPS)]
+        tree = enc.init_params(cfg, seed)
+        module = enc.SentenceEncoderModule(cfg, tree, device=device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = train.init_train_state(module, adam(TRAIN_LR), device=device)
+        leaves = [state.params[k] for k in sorted(state.params)]
+
+        # step 1 in bf16 compute against the same step in f32 compute
+        loss_bf = train.contrastive_loss(module, state.params, *batches[0])
+        g_bf = torch.autograd.grad(loss_bf, leaves)
+        module32 = enc.SentenceEncoderModule(dataclasses.replace(cfg, dtype=torch.float32), tree, device=device)
+        loss_32 = train.contrastive_loss(module32, state.params, *batches[0])
+        g_32 = torch.autograd.grad(loss_32, leaves)
+        loss_bf, loss_32 = float(loss_bf.detach()), float(loss_32.detach())
+        check = {"loss_bf16": loss_bf, "loss_f32": loss_32, "loss_rel_diff": abs(loss_bf - loss_32) / abs(loss_32),
+                 "grad_cosine": grad_cosine(g_bf, g_32), "check_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del module32, g_bf, g_32
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        run = train.make_contrastive_train_step(module, device=device)
+        losses, host, dev = [], [], []
+        for b in batches:
+            state, loss, h, d = timed_step(run, state, *b)
+            losses.append(loss)
+            host.append(h)
+            dev.append(d)
+        res = {"model": model, "hidden": cfg.hidden, "layers": cfg.layers, "dtype": str(cfg.dtype),
+               "params_m": sum(t.numel() for t in leaves) / 1e6, "pairs": TRAIN_PAIRS, "seq": TRAIN_SEQ,
+               "steps": TRAIN_STEPS, "lr": TRAIN_LR, **check, **step_stats(losses, host, dev),
+               "pairs_per_s": TRAIN_PAIRS * (TRAIN_STEPS - 1) / (sum(host[1:]) / 1e3),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        res["profile"] = profile_step(lambda: run(state, *batches[-1]), res["step_ms_host"])
+        log("train", part="contrastive", **res)
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not np.isfinite(losses).all():
+            fail(f"train: contrastive {model}: a loss is not finite: {losses}")
+        if not last < first:
+            fail(f"train: contrastive {model}: the last 5 losses ({last}) are not below the first 5 ({first})")
+        if check["loss_rel_diff"] > TRAIN_LOSS_REL or check["grad_cosine"] <= TRAIN_GRAD_COS:
+            fail(f"train: contrastive {model}: bf16 compute left f32's: {check}")
+        out[model] = res
+        del state, run, module, leaves, batches
+    return out
+
+
+def lm_full_part(device, seed: int) -> dict:
+    """mistral-7b-instruct at full width and depth in bf16 with bf16 Adam
+    moments and remat: 6 steps on one batch of 4 × 512 ids; first remat on
+    against off at 2 layers of full width."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import train
+
+    cfg = dataclasses.replace(dec.decoder_config_for(GEN_MODEL), remat=True)
+    widths = {k: getattr(cfg, k) for k in GEN_WIDTHS}
+    if widths != GEN_WIDTHS:
+        fail(f"decoder widths {widths} are not mistral-7b-instruct's {GEN_WIDTHS}")
+    rng = np.random.default_rng(seed + 47)
+    B, S = LM_SHAPE
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).to(device)
+    lens = torch.from_numpy(rng.integers(LM_LENS[0], LM_LENS[1] + 1, size=B)).to(device)
+
+    # remat on against off, at REMAT_LAYERS layers of full width
+    small = dataclasses.replace(cfg, layers=REMAT_LAYERS)
+    tree = dec.init_decoder_params(small, seed, device)
+    leaves = list(train.named_leaves(tree).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    remat = {}
+    for on in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        loss = train.lm_loss(tree, ids, lens, dataclasses.replace(small, remat=on))
+        grads = torch.autograd.grad(loss, leaves)
+        remat[on] = (float(loss), grads, (torch.cuda.max_memory_allocated() - before) / 1e9)
+    check = {"layers": REMAT_LAYERS, "loss_off": remat[False][0], "loss_on": remat[True][0],
+             "grad_cosine": grad_cosine(remat[False][1], remat[True][1]),
+             "step_mem_gb_off": remat[False][2], "step_mem_gb_on": remat[True][2]}
+    log("train", part="lm_full", step="remat_check", **check)
+    if check["grad_cosine"] <= REMAT_COS:
+        fail(f"train: lm_full: remat on and off give other gradients: {check}")
+    del tree, leaves, remat, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    init_state, run = train.make_causal_lm_train_step(cfg, adam(LM_LR, fused=True), device=device)
+    state = init_state(seed)
+    n_params = sum(t.numel() for t in train.named_leaves(state.params).values())
+    reckoned = n_params * (2 + 2 + 2 + 2) / 1e9  # bf16 params, grads and two Adam moments
+    log("train", part="lm_full", step="memory", params_b=n_params / 1e9, reckoned_state_gb=reckoned,
+        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    losses, host, dev = [], [], []
+    for _ in range(LM_STEPS):
+        state, loss, h, d = timed_step(run, state, ids, lens)
+        losses.append(loss)
+        host.append(h)
+        dev.append(d)
+    stats = step_stats(losses, host, dev)
+    flops = 8 * n_params * B * S  # forward, remat forward, backward (4)
+    res = {"model": GEN_MODEL, **widths, "dtype": str(cfg.dtype), "remat": cfg.remat, "optimizer": "Adam fused",
+           "lr": LM_LR, "batch": LM_SHAPE, "tokens": int(lens.sum()), "params_b": n_params / 1e9,
+           "reckoned_state_gb": reckoned, **stats,
+           "tokens_per_s": int(lens.sum()) / (stats["step_ms_host"] / 1e3),
+           "tflops_per_s": flops / (stats["step_ms_host"] / 1e3) / 1e12,
+           "tflops_share_of_989": flops / (stats["step_ms_host"] / 1e3) / BF16_FLOPS_PER_S,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "remat_check": check}
+    res["profile"] = profile_step(lambda: run(state, ids, lens), stats["step_ms_host"])
+    log("train", part="lm_full", **{k: v for k, v in res.items() if k != "remat_check"})
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"train: lm_full: the losses are not finite and falling: {losses}")
+    del state, run, init_state
+    return res
+
+
+def base_checksums(tree) -> dict:
+    """Every leaf's bits summed as int16 words (layer by layer), exact."""
+    from pathway_tpu_torch.parallel.train import named_leaves
+
+    return {name: sum(int(m.reshape(-1).view(torch.int16).long().sum()) for m in t.reshape(-1, t.shape[-1]).split(4096))
+            for name, t in named_leaves(tree).items()}
+
+
+def lora_part(device, seed: int) -> dict:
+    """mistral-7b-instruct at full depth with rank-8 adapters on wq/wv and
+    remat: 10 steps on one batch of 8 × 512 ids, the state saved after 5,
+    restored into a fresh state and run 5 more steps; then the trained tree
+    serves 4 greedy prompts, held to the merged tree's dense path."""
+    import copy
+    import tempfile
+
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models import lora
+    from pathway_tpu_torch.parallel import TrainCheckpointer
+    from pathway_tpu_torch.parallel.train import named_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    lm = dec.DecoderLM(GEN_MODEL, seed=seed, max_cache=GEN_CACHE, device=device)
+    cfg = dataclasses.replace(lm.config, remat=True)
+    base = lm.params
+    before = base_checksums(base)
+    init_state, run = lora.make_lora_train_step(cfg, base, adam(LORA_LR, fused=True), device=device,
+                                                rank=LORA_RANK, alpha=LORA_ALPHA, seed=seed)
+    state = init_state()
+    rng = np.random.default_rng(seed + 59)
+    B, S = LORA_SHAPE
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).to(device)
+    lens = torch.from_numpy(rng.integers(LM_LENS[0], LM_LENS[1] + 1, size=B)).to(device)
+    losses, host, dev = [], [], []
+    with tempfile.TemporaryDirectory() as tmp, TrainCheckpointer(tmp) as ck:
+        for step in range(LORA_STEPS):
+            if step == CKPT_STEP:
+                t0 = time.perf_counter()
+                ck.save(state)
+                save_ms = (time.perf_counter() - t0) * 1e3
+                ckpt_mb = os.path.getsize(os.path.join(tmp, str(CKPT_STEP), "state.pt")) / 1e6
+            state, loss, h, d = timed_step(run, state, ids, lens)
+            losses.append(loss)
+            host.append(h)
+            dev.append(d)
+        t0 = time.perf_counter()
+        resumed = ck.restore(init_state())
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    resumed_losses = []
+    for _ in range(LORA_STEPS - CKPT_STEP):
+        resumed, loss = run(resumed, ids, lens)
+        resumed_losses.append(float(loss))
+    after = base_checksums(base)
+    adapters = {name: t for name, t in named_leaves(state.params).items() if name[-2:] in ("/a", "/b")}
+    adapter_bytes = sum(t.numel() * t.element_size() for t in adapters.values())
+    opt = state.opt_state
+    held = {id(p) for group in opt.param_groups for p in group["params"]}
+    moment_bytes = sum(s[k].numel() * s[k].element_size() for s in opt.state.values() for k in ("exp_avg", "exp_avg_sq"))
+    b_moved = {name: float(state.params["layers"][name]["b"].detach().abs().max()) for name in lora.DEFAULT_TARGETS}
+    resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed_losses, losses[CKPT_STEP:]))
+    stats = step_stats(losses, host, dev)
+    profile = profile_step(lambda: run(resumed, ids, lens), stats["step_ms_host"])
+    res = {"model": GEN_MODEL, "rank": LORA_RANK, "alpha": LORA_ALPHA, "targets": lora.DEFAULT_TARGETS,
+           "remat": cfg.remat, "lr": LORA_LR, "batch": LORA_SHAPE, "tokens": int(lens.sum()), **stats,
+           "tokens_per_s": int(lens.sum()) / (stats["step_ms_host"] / 1e3),
+           "adapter_mb": adapter_bytes / 1e6, "adam_moment_mb": moment_bytes / 1e6,
+           "base_leaves_unchanged": sum(before[k] == after[k] for k in before), "base_leaves": len(before),
+           "b_max_abs": b_moved, "checkpoint": {"step": CKPT_STEP, "file_mb": ckpt_mb, "save_ms": save_ms,
+                                                "restore_ms": restore_ms, "resumed_losses": resumed_losses,
+                                                "max_rel_diff": resume_rel}, "profile": profile}
+    log("train", part="lora", **res)
+    problems = []
+    if before != after:
+        problems.append(f"base leaves changed: {[k for k in before if before[k] != after[k]]}")
+    if not all(v > 0 for v in b_moved.values()):
+        problems.append(f"an adapter b did not move: {b_moved}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        problems.append(f"the losses are not finite and falling: {losses}")
+    if held != {id(t) for t in adapters.values()} or moment_bytes != 2 * adapter_bytes:
+        problems.append(f"Adam holds {moment_bytes} moment bytes over {len(held)} tensors, not 2 x {adapter_bytes} "
+                        f"over the {len(adapters)} adapters")
+    if resume_rel > RESUME_REL:
+        problems.append(f"the resumed losses {resumed_losses} left the run's {losses[CKPT_STEP:]}")
+    if problems:
+        fail("train: lora: " + "; ".join(problems))
+    del resumed, opt
+
+    # the trained tree serves, held to the merged tree's dense path
+    with torch.inference_mode():
+        trained = detached(state.params)
+        del state
+        prompts, sampled, greedy = burst_prompts(np.random.default_rng(seed + 61), LORA_SERVE_PROMPTS, 0,
+                                                 MOE_PROMPT_LENS, cfg.vocab_size)
+        lm.params = trained
+        outs = lm.generate_ids(prompts, max_new_tokens=LORA_SERVE_TOKENS)
+        reference = copy.copy(lm)
+        reference.params = lora.merge_lora(trained)
+        res["serve_parted_rows"] = check_generation(lm, prompts, outs, greedy, sampled, LORA_SERVE_TOKENS, device,
+                                                    "train", reference=reference)
+        del reference, trained
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del lm, base
+    return res
+
+
+def moe_train_part(device, seed: int) -> dict:
+    """The MoE layer at mixtral-8x7b width (8 experts, top-2, capacity
+    factor 2.0, bf16): 10 Adam steps of the denoising regression on 4,096
+    fresh tokens each, with the share of assignments dropped at capacity."""
+    from pathway_tpu_torch.parallel import moe
+
+    H, F_ = GEN_WIDTHS["hidden"], GEN_WIDTHS["intermediate"]
+    cfg = moe.MoEConfig(hidden=H, experts=8, intermediate=F_, top_k=2, capacity_factor=2.0, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn = moe.make_moe_train_step(cfg, adam(MOE_TRAIN_LR, fused=True), device=device)
+    params, opt = init_fn(seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 53)
+    target_map = torch.randn((H, H), generator=gen, device=device) / math.sqrt(H)
+    xs = [torch.randn((MOE_TRAIN_TOKENS, H), generator=gen, device=device) for _ in range(MOE_TRAIN_STEPS)]
+
+    def dropped(x) -> tuple[float, float]:
+        with torch.no_grad():
+            logits = (x.float() @ params["router"])[None]
+            dispatch, _, _ = moe._routing(logits, cfg, cfg.capacity(MOE_TRAIN_TOKENS))
+            _, aux = moe.moe_ffn(params, x, cfg)
+        return 1.0 - float(dispatch.sum()) / (cfg.top_k * MOE_TRAIN_TOKENS), float(aux)
+
+    drop0, aux0 = dropped(xs[0])
+    losses, host, dev = [], [], []
+
+    def run(state, x):
+        p, o, loss = step_fn(*state, x, torch.tanh(x @ target_map))
+        return (p, o), loss
+
+    state = (params, opt)
+    for x in xs:
+        state, loss, h, d = timed_step(run, state, x)
+        losses.append(loss)
+        host.append(h)
+        dev.append(d)
+    drop1, aux1 = dropped(xs[-1])
+    stats = step_stats(losses, host, dev)
+    res = {"hidden": H, "experts": cfg.experts, "intermediate": F_, "top_k": cfg.top_k,
+           "capacity_factor": cfg.capacity_factor, "capacity": cfg.capacity(MOE_TRAIN_TOKENS), "dtype": str(cfg.dtype),
+           "tokens": MOE_TRAIN_TOKENS, "lr": MOE_TRAIN_LR, **stats,
+           "tokens_per_s": MOE_TRAIN_TOKENS / (stats["step_ms_host"] / 1e3),
+           "dropped_share_first": drop0, "dropped_share_last": drop1, "aux_first": aux0, "aux_last": aux1,
+           "params_b": sum(t.numel() for t in params.values()) / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["profile"] = profile_step(lambda: run(state, xs[-1]), stats["step_ms_host"])
+    log("train", part="moe", **res)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"train: moe: the losses are not finite and falling: {losses}")
+    if not (np.isfinite(aux0) and np.isfinite(aux1)):
+        fail(f"train: moe: the aux loss is not finite: {aux0}, {aux1}")
+    del state, params, opt, xs
+    return res
+
+
+def train_phase(device, seed: int, card: str) -> dict:
+    """Training on one card: the contrastive encoder step, causal-LM full
+    fine-tuning and LoRA with remat, checkpoint/resume, and the MoE step.
+    The encoder kernel is on none of these paths (both packages train
+    through the module forward's plain attention): its launches are
+    counted over the whole phase and must be 0."""
+    from pathway_tpu_torch.ops import attention as attn
+
+    parts, seconds = {}, {}
+    attn.encoder_attention.launches = 0
+    for name, part in (("contrastive", contrastive_part), ("lm_full", lm_full_part), ("lora", lora_part),
+                       ("moe", moe_train_part)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        parts[name] = part(device, seed)
+        seconds[name] = time.perf_counter() - t0
+    launches = {"encoder_attention": attn.encoder_attention.launches}
+    summary = {
+        **{f"contrastive_{m}_{k}": parts["contrastive"][m][k] for m in TRAIN_ENCODERS
+           for k in ("pairs_per_s", "step_ms_host", "step_ms_device", "peak_mem_gb", "loss_rel_diff", "grad_cosine")},
+        **{f"{p}_{k}": parts[p][k] for p in ("lm_full", "lora", "moe")
+           for k in ("tokens_per_s", "step_ms_host", "step_ms_device", "peak_mem_gb")},
+        "lm_full_tflops_per_s": parts["lm_full"]["tflops_per_s"],
+        "lm_full_remat_grad_cosine": parts["lm_full"]["remat_check"]["grad_cosine"],
+        "lora_resume_max_rel_diff": parts["lora"]["checkpoint"]["max_rel_diff"],
+        "moe_dropped_share": parts["moe"]["dropped_share_first"],
+        "part_seconds": seconds, "kernel_launches": launches,
+    }
+    log("train", step="summary", card=card, **summary)
+    return {"launches": launches, "attention_launches": {}, **summary}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -2667,7 +3149,7 @@ def main(argv=None) -> int:
     del texts, lengths
     # the decoder phases and the multimodal encoder, one model on the card at a time
     for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase),
-                        ("vision", vision_phase), ("lora", lora_phase)):
+                        ("vision", vision_phase), ("lora", lora_phase), ("train", train_phase)):
         gc.collect()
         torch.cuda.empty_cache()
         if name not in skip:

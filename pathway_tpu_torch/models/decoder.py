@@ -31,8 +31,14 @@ carried across (:func:`from_jax_decoder_params`).
 LoRA-adapted trees (``models/lora.py``) run through every path unchanged:
 :func:`_mm` takes their ``{"w", "a", "b"}`` leaves.
 
-Not ported yet (ROADMAP Queue 1, "Multi-GPU and training"): tensor-parallel
-specs and the training logits (``causal_lm_logits*``, ``remat``).
+Training: :func:`causal_lm_logits_and_aux` is the next-token training
+forward (all positions, no K/V cache, the MoE aux loss summed over the
+layers, capacity dropping as in the JAX package); ``DecoderConfig.remat``
+recomputes each layer in the backward pass.  ``parallel/train.py`` and
+``make_lora_train_step`` (``models/lora.py``) drive it.
+
+Not ported yet (ROADMAP Queue 1, "Multi-GPU"): the tensor-parallel specs
+(``tp_param_specs``, ``tp_cache_specs``).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.tokenizer import load_tokenizer
@@ -86,6 +93,10 @@ class DecoderConfig:
     # Mistral-v0.1-style sliding-window attention: each query attends to
     # at most the last `sliding_window` positions (None = full causal)
     sliding_window: int | None = None
+    # recompute each layer in the backward pass (torch.utils.checkpoint
+    # around the layer, under grad only): activation memory drops from
+    # O(layers) to O(1) layers at ~1/3 extra FLOPs
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -307,6 +318,22 @@ def _layer(tree, i: int) -> dict:
     return {name: _at(w, i) for name, w in tree["layers"].items()}
 
 
+def _unstack(w) -> list:
+    if isinstance(w, dict):
+        parts = {k: v.unbind(0) for k, v in w.items()}
+        return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    return list(w.unbind(0))
+
+
+def _layers(tree) -> list[dict]:
+    """Every layer's weights, as :func:`_layer` gives them, from one
+    ``unbind`` per stacked leaf: under autograd the backward then stacks
+    each leaf's layer gradients once, where a view per layer would add a
+    zero-filled gradient of the whole stack for every layer."""
+    cols = {name: _unstack(w) for name, w in tree["layers"].items()}
+    return [dict(zip(cols, vals)) for vals in zip(*cols.values())]
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -381,12 +408,13 @@ def moe_params(lp) -> dict:
 def _ffn(lp, h, cfg: DecoderConfig, *, full_capacity: bool = False):
     """SwiGLU MLP: dense, or Mixtral-style sparse MoE when
     ``cfg.experts > 0`` (the GShard dispatch of ``parallel/moe.py``).
-    ``full_capacity`` selects the lossless dispatch that every serving
-    path asks for (a capacity drop there would silently change the
-    generation); the MoE aux loss is not returned (no training path)."""
+    Returns ``(y, aux)``: ``aux`` is the MoE load-balance loss, and 0.0
+    for a dense MLP.  ``full_capacity`` selects the lossless dispatch that
+    every serving path asks for (a capacity drop there would silently
+    change the generation); training drops at capacity."""
     if cfg.experts:
-        return moe_ffn(moe_params(lp), h, moe_config(cfg), full_capacity=full_capacity)[0]
-    return _mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"])
+        return moe_ffn(moe_params(lp), h, moe_config(cfg), full_capacity=full_capacity)
+    return _mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"]), 0.0
 
 
 def _qkv(lp, x, rope, cfg: DecoderConfig):
@@ -401,9 +429,11 @@ def _qkv(lp, x, rope, cfg: DecoderConfig):
 
 
 def _finish_layer(lp, x, ctx, cfg: DecoderConfig, *, full_capacity: bool = False):
-    """Output projection, residual, and the MLP half of the block."""
+    """Output projection, residual, and the MLP half of the block;
+    returns ``(x, aux)`` with the MLP's aux loss (see :func:`_ffn`)."""
     x = x + _mm(ctx, lp["wo"])
-    return x + _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg, full_capacity=full_capacity)
+    mlp, aux = _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg, full_capacity=full_capacity)
+    return x + mlp, aux
 
 
 def decoder_layer(lp, x, rope, mask, cfg: DecoderConfig, *, full_capacity: bool = False):
@@ -411,20 +441,28 @@ def decoder_layer(lp, x, rope, mask, cfg: DecoderConfig, *, full_capacity: bool 
 
     ``lp`` holds a single layer's weights, ``rope`` the ``(cos, sin)``
     tables of :func:`_rope_tables` at the block's positions, ``mask``
-    ``[B, S, S]`` boolean (True = attend).  Returns ``(x, (k, v))``: the
-    new residual stream and this layer's keys and values ``[B, S, KH, D]``.
-    ``full_capacity`` selects lossless MoE dispatch (serving).
+    ``[B, S, S]`` boolean (True = attend).  Returns ``(x, (k, v), aux)``:
+    the new residual stream, this layer's keys and values ``[B, S, KH,
+    D]`` and its MoE aux loss (0.0 for a dense MLP).  ``full_capacity``
+    selects lossless MoE dispatch (serving).
     """
     q, k, v = _qkv(lp, x, rope, cfg)
-    x = _finish_layer(lp, x, _attend(q, k, v, mask), cfg, full_capacity=full_capacity)
-    return x, (k, v)
+    x, aux = _finish_layer(lp, x, _attend(q, k, v, mask), cfg, full_capacity=full_capacity)
+    return x, (k, v), aux
 
 
-def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int, *,
+def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int | None, *,
                   full_capacity: bool = False):
-    """Shared causal forward: final-norm token reps + K/V caches
-    ``[L, B, cache_len, KH, D]`` holding the prompt at ``[0, S)`` and
-    zeros past each row's length."""
+    """Shared causal forward: ``(x, k_cache, v_cache, aux)``, the
+    final-norm token reps, K/V caches ``[L, B, cache_len, KH, D]`` holding
+    the prompt at ``[0, S)`` and zeros past each row's length, and the MoE
+    aux loss summed over the layers (0.0 for dense configs).
+
+    ``cache_len=None`` is the training forward: no cache is made (the
+    caches are ``None``; XLA drops them as dead code under ``grad``, an
+    eager forward would allocate them), and with ``cfg.remat`` each layer
+    runs under ``torch.utils.checkpoint`` while grad is enabled, the
+    counterpart of ``jax.checkpoint`` over the JAX package's scan body."""
     B, S = ids.shape
     dev = ids.device
     x = tree["embed"][ids]  # [B, S, H]
@@ -436,17 +474,29 @@ def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int, *,
         causal = causal & _sw_mask(pos[:, None], pos[None, :], cfg.sliding_window)
     mask = causal[None, :, :] & valid[:, None, :]  # [B, S(q), S(kv)]
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    aux = 0.0
+    if cache_len is None:
+        layer = functools.partial(decoder_layer, rope=rope, mask=mask, cfg=cfg, full_capacity=full_capacity)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in _layers(tree):
+            if remat:
+                x, _, a = torch.utils.checkpoint.checkpoint(layer, lp, x, use_reentrant=False)
+            else:
+                x, _, a = layer(lp, x)
+            aux = aux + a
+        return _rms(x, tree["final_norm"], cfg.norm_eps), None, None, aux
     shape = (cfg.layers, B, cache_len, cfg.kv_heads, cfg.head_dim)
     k_cache = torch.zeros(shape, dtype=x.dtype, device=dev)
     v_cache = torch.zeros(shape, dtype=x.dtype, device=dev)
     # zero K/V beyond each row's real length: decode steps only write
     # their own position, so untouched slots must hold zeros
     keep = valid[:, :, None, None].to(x.dtype)
-    for i in range(cfg.layers):
-        x, (k, v) = decoder_layer(_layer(tree, i), x, rope, mask, cfg, full_capacity=full_capacity)
+    for i, lp in enumerate(_layers(tree)):
+        x, (k, v), a = decoder_layer(lp, x, rope, mask, cfg, full_capacity=full_capacity)
         k_cache[i, :, :S] = k * keep
         v_cache[i, :, :S] = v * keep
-    return _rms(x, tree["final_norm"], cfg.norm_eps), k_cache, v_cache
+        aux = aux + a
+    return _rms(x, tree["final_norm"], cfg.norm_eps), k_cache, v_cache, aux
 
 
 def _logits(tree, x):
@@ -461,9 +511,26 @@ def prefill(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
     the prompt keys/values written at positions ``[0, S)``.
     """
     # serving path: lossless MoE dispatch, as in every step below
-    x, k_cache, v_cache = _causal_trunk(tree, ids, lengths, cfg, cache_len, full_capacity=True)
+    x, k_cache, v_cache, _ = _causal_trunk(tree, ids, lengths, cfg, cache_len, full_capacity=True)
     last = x[torch.arange(ids.shape[0], device=ids.device), lengths - 1]
     return _logits(tree, last), k_cache, v_cache
+
+
+def causal_lm_logits(tree, ids, lengths, cfg: DecoderConfig):
+    """All-position logits ``[B, S, vocab]`` (f32) for next-token
+    training: the forward of :func:`causal_lm_logits_and_aux`."""
+    return causal_lm_logits_and_aux(tree, ids, lengths, cfg)[0]
+
+
+def causal_lm_logits_and_aux(tree, ids, lengths, cfg: DecoderConfig):
+    """``(logits [B, S, vocab] f32, aux)``: aux is the MoE load-balance
+    loss summed over the layers (a 0 tensor for dense configs), which MoE
+    training adds to the LM loss so routing stays spread over experts.
+    The MoE layers drop tokens at capacity, as the JAX package's training
+    forward does; no K/V cache is made."""
+    x, _, _, aux = _causal_trunk(tree, ids, lengths, cfg, None)
+    logits = _logits(tree, x)
+    return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
 
 
 def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
@@ -490,7 +557,7 @@ def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
         q, k, v = _qkv(lp, x, rope, cfg)
         kc[rows, at] = torch.where(inside, k[:, 0], kc[rows, at])
         vc[rows, at] = torch.where(inside, v[:, 0], vc[rows, at])
-        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
+        x, _ = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
     x = _rms(x, tree["final_norm"], cfg.norm_eps)
     return _logits(tree, x[:, 0, :]), k_cache, v_cache
 
@@ -701,7 +768,7 @@ def _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, 
         attention_ops.write_kv_rows(kp, rows, k)
         attention_ops.write_kv_rows(vp, rows, v)
         ctx = attention_ops.paged_gqa_attention(q, kp, vp, block_tables, mask)
-        x = _finish_layer(lp, x, ctx, cfg, full_capacity=full_capacity)
+        x, _ = _finish_layer(lp, x, ctx, cfg, full_capacity=full_capacity)
     return _rms(x, tree["final_norm"], cfg.norm_eps)
 
 
@@ -803,7 +870,7 @@ def verify_block(tree, k_cache, v_cache, tokens, pos0, cfg: DecoderConfig):
         q, k, v = _qkv(lp, x, rope, cfg)
         kc[rows, at] = torch.where(inside, k, kc[rows, at])
         vc[rows, at] = torch.where(inside, v, vc[rows, at])
-        x = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
+        x, _ = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
     x = _rms(x, tree["final_norm"], cfg.norm_eps)
     return _logits(tree, x), k_cache, v_cache
 

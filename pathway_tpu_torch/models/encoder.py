@@ -500,7 +500,10 @@ class Encoder(_Tree):
     def forward(self, input_ids, attention_mask):
         cfg, dt = self.config, self.config.dtype
         S = input_ids.shape[1]
-        tok = self.Embed_0.embedding.to(dt)[input_ids.long()]
+        # F.embedding, not indexing: the same gather forward, and a backward
+        # that reduces repeated ids (padding) in parallel where the indexing
+        # backward walks them one by one
+        tok = nn.functional.embedding(input_ids.long(), self.Embed_0.embedding.to(dt))
         pos = self.Embed_1.embedding.to(dt)[:S][None, :, :]
         x = _layer_norm(tok + pos, self.LayerNorm_0, dt)
         mask = attention_mask[:, None, None, :].bool()  # [B, 1, 1, S]: keys

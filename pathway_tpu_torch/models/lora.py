@@ -1,4 +1,5 @@
-"""LoRA adapters for the decoder family (low-rank adaptation), for serving.
+"""LoRA adapters for the decoder family (low-rank adaptation): serving and
+training.
 
 Counterpart of ``pathway_tpu/models/lora.py``.  A targeted layer weight
 becomes ``{"w": frozen base, "a": [..., H, r], "b": [..., r, O]}``, and
@@ -10,18 +11,20 @@ decoding (which quantizes its draft) need plain trees: :func:`merge_lora`
 first; ``quantize_decoder_tree`` rejects adapted trees with that
 instruction.
 
-Not ported yet: ``make_lora_train_step`` (data-parallel adapter training
-over a mesh) waits for the training slice (ROADMAP Queue 1, "Multi-GPU and
-training").
+:func:`make_lora_train_step` trains the adapters of a frozen base on one
+device; the data-parallel form over a mesh waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
+from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderConfig
+from pathway_tpu_torch.parallel.train import TrainState, make_lm_step_runner, train_state
 
 # attention projections (+ optionally the dense MLP) — the usual targets;
 # MoE expert weights go through the GShard einsums, not _mm, so they are
@@ -103,3 +106,43 @@ def lora_mask(tree) -> dict:
         return adapter
 
     return mark(tree, False)
+
+
+def make_lora_train_step(
+    cfg: DecoderConfig,
+    base_tree,
+    optimizer,
+    *,
+    device=None,
+    rank: int = 8,
+    alpha: float = 16.0,
+    targets: tuple[str, ...] = DEFAULT_TARGETS,
+    moe_aux_weight: float = 0.01,
+    seed: int = 0,
+) -> tuple[Callable, Callable]:
+    """LoRA fine-tuning of a frozen ``base_tree`` on one device (``cuda:0``
+    unless given; the base moves there if it is elsewhere).
+
+    Only the adapter leaves (:func:`lora_mask`) require grad and go to the
+    optimizer (a ``torch.optim`` factory, see ``parallel/train.py``): the
+    semantics of optax's ``multi_transform`` with ``set_to_zero`` on the
+    rest, not of ``optax.masked``.  The base stays bitwise unchanged and the
+    optimizer state is the size of the adapters.  Returns ``(init_state,
+    run)`` as ``TrainCheckpointer`` takes them: every ``init_state()`` has
+    adapters of its own (the draws of ``seed``) over the shared base."""
+    device = resolve_device(device)
+
+    def on_device(node):
+        return {k: on_device(v) for k, v in node.items()} if isinstance(node, dict) else node.to(device)
+
+    tree0 = lora_decoder_tree(on_device(base_tree), cfg, rank=rank, alpha=alpha, targets=targets, seed=seed)
+    mask = lora_mask(tree0)
+
+    def init_state() -> TrainState:
+        layers = {
+            name: ({**w, "a": w["a"].clone(), "b": w["b"].clone()} if isinstance(w, dict) else w)
+            for name, w in tree0["layers"].items()
+        }
+        return train_state({**tree0, "layers": layers}, optimizer, trainable=mask)
+
+    return init_state, make_lm_step_runner(cfg, device=device, moe_aux_weight=moe_aux_weight)

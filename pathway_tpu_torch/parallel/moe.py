@@ -21,8 +21,10 @@ experts through dense one-hot DISPATCH and COMBINE tensors:
 Expert weights are stacked on a leading ``[E, ...]`` axis, as float
 tensors or as weight-only int8 pairs ``{"q": int8, "s": f32}`` with
 per-output-channel scales (see ``models/decoder.py``).  Every function
-works on the device of its inputs.  The expert-parallel mesh
-(``ep_param_specs``, ``make_ep_mesh``) and the training step wait for the
+works on the device of its inputs, and the float path is differentiable
+(the gradient flows through the combine weights and the aux loss):
+:func:`make_moe_train_step` trains the layer on one device.  The
+expert-parallel mesh (``ep_param_specs``, ``make_ep_mesh``) waits for the
 multi-GPU slice.
 """
 
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -205,3 +207,37 @@ def moe_ffn(params, x, cfg: MoEConfig, *, full_capacity: bool = False):
     aux = (aux_g * w).sum() / w.sum().clamp_min(1.0)
     y = y_g.reshape(G * Tg, H)[:T]
     return y.reshape(orig_shape).to(x.dtype), aux
+
+
+def make_moe_train_step(cfg: MoEConfig, optimizer, *, device=None,
+                        aux_weight: float = 0.01) -> tuple[Callable, Callable]:
+    """Training of the MoE layer on one device (``cuda:0`` unless given):
+    the JAX package's denoising regression (fit the layer to a fixed
+    target map, the mean squared error plus ``aux_weight`` times the
+    load-balance loss), through routing, capacity-dropping dispatch and
+    combine.  ``optimizer`` is a ``torch.optim`` factory (see
+    ``parallel/train.py``).
+
+    Returns ``(init_fn, step_fn)``: ``init_fn(seed=0) -> (params,
+    opt_state)`` draws :func:`init_moe_params` with every leaf trainable;
+    ``step_fn(params, opt_state, x, target) -> (params, opt_state, loss)``
+    updates the params in place.  An int8 tree raises ``ValueError``: it is
+    for serving only.  The expert-parallel form over a mesh waits for the
+    multi-GPU slice."""
+    from pathway_tpu_torch.parallel.train import TrainState, apply_step, require_float, train_state
+
+    device = resolve_device(device)
+
+    def init_fn(seed: int = 0):
+        state = train_state(init_moe_params(cfg, seed, device=device), optimizer)
+        return state.params, state.opt_state
+
+    def step_fn(params, opt_state, x, target):
+        require_float(params)
+        x, target = torch.as_tensor(x, device=device), torch.as_tensor(target, device=device)
+        y, aux = moe_ffn(params, x, cfg)
+        loss = (y.float() - target.float()).square().mean() + aux_weight * aux
+        state, loss = apply_step(TrainState(params, opt_state), loss)
+        return state.params, state.opt_state, loss
+
+    return init_fn, step_fn

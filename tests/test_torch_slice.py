@@ -158,8 +158,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     embed-and-retrieve slice, reranking with the cross-encoder, W8A8
     embeddings, the generation path, an int8 MoE decoder,
     self-speculative decoding, a LoRA-adapted MoE decoder, the
-    multimodal encoder, and the encoder behind ``AsyncMicroBatcher`` and
-    ``DeviceExecutor.submit`` on the CPU."""
+    multimodal encoder, the encoder behind ``AsyncMicroBatcher`` and
+    ``DeviceExecutor.submit``, and a step of each training path (the
+    contrastive step, causal-LM, LoRA and MoE) with a checkpoint saved and
+    restored, on the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -229,6 +231,34 @@ def test_port_imports_nothing_of_jax(model_dir):
         assert fut.result(timeout=60).shape == (3, enc.dimensions)
         ex.close()
         assert ex.metrics_snapshot()["backlog.device.queue"] == 0.0
+
+        import functools, tempfile
+        import torch
+        from pathway_tpu_torch.models import decoder, encoder
+        from pathway_tpu_torch.parallel import (TrainCheckpointer, init_train_state,
+            make_causal_lm_train_step, make_contrastive_train_step, make_moe_train_step, MoEConfig)
+
+        adam = functools.partial(torch.optim.Adam, lr=1e-3)
+        ecfg = encoder.EncoderConfig(vocab_size=64, hidden=16, layers=1, heads=2, intermediate=32,
+                                     max_len=16, dtype=torch.float32)
+        module = encoder.SentenceEncoderModule(ecfg, encoder.init_params(ecfg, 0), device="cpu")
+        state, _ = init_train_state(module, adam, device="cpu")
+        ids = np.random.default_rng(0).integers(1, 64, size=(4, 8))
+        state, loss = make_contrastive_train_step(module, device="cpu")(state, ids, ids > 0, ids, ids > 0)
+        assert np.isfinite(float(loss)) and state.step == 1
+        dcfg = decoder.decoder_config_for("pw-tiny-decoder")
+        init_lm, run_lm = make_causal_lm_train_step(dcfg, adam, device="cpu")
+        lm_state, lm_loss = run_lm(init_lm(0), ids, np.full(4, 8))
+        init_lora, run_lora = lora.make_lora_train_step(dcfg, lm_state.params, adam, device="cpu", rank=2)
+        lo_state, lo_loss = run_lora(init_lora(), ids, np.full(4, 8))
+        init_moe, step_moe = make_moe_train_step(MoEConfig(hidden=8, experts=4, intermediate=16), adam,
+                                                 device="cpu")
+        x = np.random.default_rng(1).normal(size=(16, 8)).astype(np.float32)
+        params, opt, moe_loss = step_moe(*init_moe(0), x, np.tanh(x))
+        assert all(np.isfinite(float(v)) for v in (lm_loss, lo_loss, moe_loss))
+        with tempfile.TemporaryDirectory() as tmp, TrainCheckpointer(tmp) as ck:
+            ck.save(lo_state)
+            assert ck.restore(init_lora()).step == 1
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
