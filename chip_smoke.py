@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train,parallel]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -150,9 +150,28 @@ Phases, each on a line of its own; any failure exits non-zero:
    on 4,096 fresh tokens each: falling, aux finite; step ms and the share
    of assignments dropped at capacity.
 
-Phases 8-13 run one model at a time; the encoder kernel is on none of
+14. parallel: the multi-device layer (``parallel/``,
+   ``models/long_context.py``) as a world of one in this process, its
+   group made by ``make_mesh`` over NCCL.  ``index``: 2,097,152 seeded unit
+   rows × 384 stored in bf16 (1.61 GB) in a ``ShardedDeviceIndex``, a mesh
+   ``DeviceIndexCache`` through ``topk_search_cached`` and the
+   single-device cache, one untimed then 128 timed batches of 64 queries
+   at k=10, each with 8 planted corpus rows, the three paths in turns:
+   planted rows first, ids equal to the single-device answers but at
+   near-ties, scores within 1e-2 of f32, p50/p99 ms beside the bytes
+   bound.  ``ring``: ``ring_encoder_attention`` at
+   ``tests/test_ring_attention.py``'s shapes in bf16 with a masked tail of
+   10%, against the plain attention (0.05) and at (1, 2048, 384, 12) the
+   f32 truth (0.06), the masked-key pin (1e-3), device ms beside SDPA.
+   ``long_context``: ``LongContextSentenceEncoder`` (all-MiniLM-L6-v2,
+   seeded) on 4,096 main-corpus texts and 64 texts of 1,000-3,000 words
+   (cut at 512 ids at world 1) against ``SentenceEncoder`` on the same
+   weights (cosine > 0.99), padding invariance (0.02), emb/s of both and
+   the ms of one (64, 512) forward of each.
+
+Phases 8-14 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-13 (all run by default), to
+``--skip`` leaves out the named phases of 5-14 (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -691,9 +710,10 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora", "train")
+SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora", "train",
+             "parallel")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
-NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train")
+NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
 RERANK_CHUNKS = 16384
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
@@ -3082,6 +3102,265 @@ def train_phase(device, seed: int, card: str) -> dict:
     return {"launches": launches, "attention_launches": {}, **summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-device layer, a world of one in this process.
+# ---------------------------------------------------------------------------
+
+PAR_ROWS = 2_097_152  # 8x the embed phase's index
+PAR_DIM = 384  # all-MiniLM-L6-v2's width
+PAR_BATCHES = 128  # timed, after one untimed batch
+PAR_QUERIES = 64
+PAR_K = 10
+PAR_PLANTED = 8  # corpus rows planted as queries in each batch
+RING_SHAPES = [(2, 256, 384, 12), (1, 512, 768, 12), (1, 1024, 384, 12), (1, 2048, 384, 6)]  # tests/test_ring_attention.py:24-33
+RING_TRUTH_SHAPE = (1, 2048, 384, 12)  # :62
+RING_TRUTH_TOL = 0.06  # :85
+RING_PIN_SHAPE = (1, 256, 384, 12)  # :95
+LONG_TEXTS = 4096  # of the main corpus
+LONG_DOCS = 64
+LONG_WORDS = (1000, 3000)
+LONG_COS_MIN = 0.99  # tests/test_long_context.py:53
+LONG_PAD_TOL = 0.02  # :77
+
+
+def topk_parted(idx, vals, ref_idx, ref_vals) -> tuple[int, float]:
+    """Rows whose ids part from the reference's, and the largest score gap
+    between the two answers on those rows (a near-tie parts within
+    ``SCORE_TOL``)."""
+    rows = np.nonzero((idx != ref_idx).any(axis=1))[0]
+    gap = float(np.abs(vals[rows] - ref_vals[rows]).max()) if len(rows) else 0.0
+    return len(rows), gap
+
+
+def parallel_index_part(mesh, device, seed: int, card: str) -> dict:
+    """2,097,152 seeded unit rows x 384 in bf16 on the card through
+    ``ShardedDeviceIndex`` and a mesh ``DeviceIndexCache``, against the
+    single-device cache: planted rows found, ids equal but at near-ties,
+    scores within SCORE_TOL of f32, p50/p99 ms per batch of 64 at k=10."""
+    from pathway_tpu_torch.ops import topk
+    from pathway_tpu_torch.parallel import ShardedDeviceIndex
+
+    gen = torch.Generator(device=device).manual_seed(seed + 60)
+    t0 = time.perf_counter()
+    rows = torch.randn((PAR_ROWS, PAR_DIM), generator=gen, device=device)
+    rows /= torch.linalg.norm(rows, dim=1, keepdim=True)
+    matrix = rows.cpu().numpy()  # kept on the card too: the f32 scores of the same vectors
+    rng = np.random.default_rng(seed + 61)
+    batches = []
+    for _ in range(PAR_BATCHES + 1):
+        q = rng.normal(size=(PAR_QUERIES, PAR_DIM)).astype(np.float32)
+        planted = rng.choice(PAR_ROWS, size=PAR_PLANTED, replace=False)
+        slots = rng.choice(PAR_QUERIES, size=PAR_PLANTED, replace=False)
+        q[slots] = matrix[planted]
+        batches.append((q, slots, planted))
+    setup_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sharded = ShardedDeviceIndex(mesh, PAR_DIM, dtype=torch.bfloat16)
+    sharded.add(matrix)
+    sharded._sync()
+    mesh_cache = topk.DeviceIndexCache(mesh=mesh)
+    single_cache = topk.DeviceIndexCache(device=device)
+    mesh_cache.get(matrix, 1, "cos")
+    single_cache.get(matrix, 1, "cos")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def unit(q):
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    paths = {
+        "sharded_index": lambda q: sharded.search(unit(q), PAR_K),
+        "mesh_cache": lambda q: topk.topk_search_cached(matrix, q, PAR_K, "cos", cache=mesh_cache, version=1),
+        "single_cache": lambda q: topk.topk_search_cached(matrix, q, PAR_K, "cos", cache=single_cache, version=1),
+    }
+    times = {name: [] for name in paths}
+    answers = {name: [] for name in paths}
+    for b, (q, _, _) in enumerate(batches):
+        for name, search in paths.items():  # in turns, batch by batch
+            t0 = time.perf_counter()
+            answers[name].append(search(q))
+            if b:  # the first batch is untimed
+                times[name].append((time.perf_counter() - t0) * 1e3)
+
+    worst_score, missed, parted, gaps = 0.0, 0, {}, {}
+    for name in paths:
+        n_parted, gap = 0, 0.0
+        for (q, slots, planted), (idx, vals), (ref_idx, ref_vals) in zip(
+            batches, answers[name], answers["single_cache"]
+        ):
+            missed += int((idx[slots, 0] != planted).sum())
+            p, g_ = topk_parted(idx, vals, ref_idx, ref_vals)
+            n_parted += p
+            gap = max(gap, g_)
+            qs = torch.from_numpy(unit(q)).to(device)
+            f32 = (qs[:, None, :] * rows[torch.from_numpy(idx).to(device)]).sum(-1)
+            worst_score = max(worst_score, float((f32.cpu() - torch.from_numpy(vals)).abs().max()))
+        parted[name], gaps[name] = n_parted, gap
+    index_bytes = PAR_ROWS * PAR_DIM * 2 + PAR_ROWS * 4  # bf16 rows and the f32 mask, read once a batch
+    res = {"card": card, "rows": PAR_ROWS, "dim": PAR_DIM, "index_gb": PAR_ROWS * PAR_DIM * 2 / 1e9,
+           "capacity": int(sharded._docs.shape[0]), "batches": PAR_BATCHES, "queries": PAR_QUERIES, "k": PAR_K,
+           "planted_per_batch": PAR_PLANTED, "setup_s": setup_s, "build_s": build_s,
+           **{f"{name}_ms": percentiles(t) for name, t in times.items()},
+           "bound_ms": index_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "planted_missed": missed, "parted_rows": parted, "parted_max_gap": gaps,
+           "max_score_err": worst_score}
+    log("parallel", part="index", **res)
+    if missed:
+        fail(f"parallel: index: {missed} planted rows not found first")
+    if max(gaps.values()) >= SCORE_TOL:
+        fail(f"parallel: index: ids part from the single-device answers beyond a near-tie: {gaps}")
+    if worst_score >= SCORE_TOL:
+        fail(f"parallel: index: scores differ from f32 scores of the stored rows by {worst_score}")
+    del sharded, mesh_cache, single_cache, rows, matrix
+    return res
+
+
+def sdpa(q, k, v, bias, heads):
+    """The library call for the same attention: SDPA on [B, heads, S, hd]."""
+    B, S, H = q.shape
+
+    def split(x):
+        return x.reshape(B, S, heads, H // heads).transpose(1, 2)
+
+    mask = bias[:, None, None, :].to(q.dtype)
+    out = torch.nn.functional.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=mask)
+    return out.transpose(1, 2).reshape(B, S, H)
+
+
+def ring_part(mesh, device, seed: int, card: str) -> dict:
+    """``ring_encoder_attention`` at the JAX test's shapes in bf16 with a
+    masked tail of 10%: against the plain attention (< ATTN_TOL), against
+    the f32 truth at (1, 2048, 384, 12) (< 0.06), the masked-key pin
+    (< PIN_TOL); device ms per shape beside SDPA on the same q, k, v."""
+    from pathway_tpu_torch.ops.attention import encoder_attention_reference
+    from pathway_tpu_torch.parallel import ring_encoder_attention
+
+    gen = torch.Generator(device=device).manual_seed(seed + 62)
+
+    def inputs(B, S, H, masked_from, dtype=torch.bfloat16):
+        q, k, v = (torch.randn((B, S, H), generator=gen, device=device).to(dtype) for _ in range(3))
+        bias = torch.zeros((B, S), device=device)
+        bias[:, int(S * masked_from):] = -1e9
+        return q, k, v, bias
+
+    shapes = []
+    for shape in RING_SHAPES:
+        B, S, H, heads = shape
+        q, k, v, bias = inputs(B, S, H, 0.9)
+        with torch.inference_mode():
+            out = ring_encoder_attention(mesh, q, k, v, bias, heads)
+            err = float((out.float() - encoder_attention_reference(q, k, v, bias, heads).float()).abs().max())
+            row = {"shape": list(shape), "max_abs_err": err,
+                   "ms": device_ms([lambda: ring_encoder_attention(mesh, q, k, v, bias, heads)]),
+                   "library_ms": device_ms([lambda: sdpa(q, k, v, bias, heads)])}
+        shapes.append(row)
+        if not err < ATTN_TOL:
+            fail(f"parallel: ring at {shape}: {err} from the plain attention")
+    B, S, H, heads = RING_TRUTH_SHAPE
+    q, k, v, bias = inputs(B, S, H, 0.95, torch.float32)
+    with torch.inference_mode():
+        truth = encoder_attention_reference(q, k, v, bias, heads)
+        ring = ring_encoder_attention(mesh, q.bfloat16(), k.bfloat16(), v.bfloat16(), bias, heads)
+        truth_err = float((ring.float() - truth).abs().max())
+        B, S, H, heads = RING_PIN_SHAPE
+        q, k, v, bias = inputs(B, S, H, 0.5)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, S // 2:] = 77.0
+        v2[:, S // 2:] = -77.0
+        pin = float((ring_encoder_attention(mesh, q, k, v, bias, heads).float()
+                     - ring_encoder_attention(mesh, q, k2, v2, bias, heads).float()).abs().max())
+    res = {"card": card, "shapes": shapes, "truth_err": truth_err, "pin_err": pin}
+    log("parallel", part="ring", **res)
+    if not truth_err < RING_TRUTH_TOL:
+        fail(f"parallel: ring against the f32 truth: {truth_err}")
+    if not pin < PIN_TOL:
+        fail(f"parallel: masked keys moved the ring's output by {pin}")
+    return res
+
+
+def long_context_part(mesh, device, seed: int, card: str, texts) -> dict:
+    """``LongContextSentenceEncoder`` (all-MiniLM-L6-v2, full width, seeded)
+    on main-corpus texts and 64 texts of 1,000-3,000 words (cut at 512 ids
+    at world 1), against ``SentenceEncoder`` on the same weights; emb/s of
+    both and the ms of one (64, 512) forward of each.  The encoder kernel's
+    launches in the long-context forwards are counted (the phase's count)."""
+    import pathway_tpu_torch as pt
+    from pathway_tpu_torch.models.long_context import LongContextSentenceEncoder, long_context_sentence_apply
+    from pathway_tpu_torch.models.tokenizer import pad_batch
+    from pathway_tpu_torch.ops import attention as attn
+
+    long_docs = synthetic_corpus(LONG_DOCS, seed + 63, LONG_WORDS)[0]
+    lce = LongContextSentenceEncoder("all-MiniLM-L6-v2", mesh, seed=seed)
+    enc = pt.SentenceEncoder("all-MiniLM-L6-v2", seed=seed)
+    alone_text = "a modest sentence"
+
+    def run(encoder, docs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encoder.encode(docs)
+        return out, time.perf_counter() - t0
+
+    lce.encode(texts[:PAR_QUERIES])  # warm-up, untimed
+    attn.encoder_attention.launches = 0
+    lce_corpus, lce_corpus_s = run(lce, texts)
+    lce_long, lce_long_s = run(lce, long_docs)
+    alone = lce.encode([alone_text])[0]
+    padded = lce.encode([alone_text, long_docs[0]])[0]
+    cfg = lce.config
+    ids, mask = pad_batch([lce.tokenizer.encode(t, max_length=cfg.max_len) for t in long_docs], cfg.max_len)
+    ids_t, mask_t = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+    with torch.inference_mode():
+        lce_ms = time_ms(lambda: long_context_sentence_apply(lce._tree, ids_t, mask_t, cfg, mesh), iters=10)
+    launches = attn.encoder_attention.launches
+
+    enc.encode(texts[:PAR_QUERIES])
+    enc_corpus, enc_corpus_s = run(enc, texts)
+    enc_long, enc_long_s = run(enc, long_docs)
+    with torch.inference_mode():
+        enc_ms = time_ms(lambda: enc.model(ids_t, mask_t), iters=10)
+    cos = float(min(cosine_rows(lce_corpus, enc_corpus).min(), cosine_rows(lce_long, enc_long).min()))
+    pad_err = float(np.abs(alone - padded).max())
+    res = {"card": card, "model": "all-MiniLM-L6-v2", "world": mesh.size(), "texts": len(texts),
+           "long_docs": LONG_DOCS, "long_words": list(LONG_WORDS), "max_ids": cfg.max_len * mesh.size(),
+           "lce_emb_per_s": len(texts) / lce_corpus_s, "encoder_emb_per_s": len(texts) / enc_corpus_s,
+           "lce_long_emb_per_s": LONG_DOCS / lce_long_s, "encoder_long_emb_per_s": LONG_DOCS / enc_long_s,
+           "forward_shape": list(ids.shape), "lce_forward_ms": lce_ms, "encoder_forward_ms": enc_ms,
+           "min_cos": cos, "padding_err": pad_err, "encoder_kernel_launches": launches}
+    log("parallel", part="long_context", **res)
+    if not cos > LONG_COS_MIN:
+        fail(f"parallel: long-context embeddings against SentenceEncoder: min cosine {cos}")
+    if not pad_err < LONG_PAD_TOL:
+        fail(f"parallel: a batch-mate moved a long-context embedding by {pad_err}")
+    del lce, enc
+    return res
+
+
+def parallel_phase(device, seed: int, card: str, texts) -> dict:
+    """The multi-device layer as a world of one in this process, over NCCL:
+    the sharded index top-k, ring attention and the long-context encoder.
+    The encoder kernel is on none of their paths: its launches in the
+    long-context forwards are the phase's count and must be 0."""
+    import torch.distributed as dist
+
+    from pathway_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    try:
+        log("parallel", step="mesh", card=card, backend=dist.get_backend(), world=dist.get_world_size(),
+            axes=list(mesh.mesh_dim_names), shape=list(mesh.shape), seconds=time.perf_counter() - t0)
+        parts = {"index": parallel_index_part(mesh, device, seed, card)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["ring"] = ring_part(mesh, device, seed, card)
+        parts["long_context"] = long_context_part(mesh, device, seed, card, texts)
+    finally:
+        dist.destroy_process_group()
+    launches = {"encoder_attention": parts["long_context"]["encoder_kernel_launches"]}
+    return {"launches": launches, "attention_launches": {}, **parts}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -3146,6 +3425,7 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["executor"] = executor_phase(device, args.seed, checked, texts)
         seconds["executor"] = time.perf_counter() - t_phase
+    parallel_texts = texts[:LONG_TEXTS]
     del texts, lengths
     # the decoder phases and the multimodal encoder, one model on the card at a time
     for name, phase in (("generate", generate_phase), ("moe", moe_phase), ("speculative", speculative_phase),
@@ -3156,6 +3436,12 @@ def main(argv=None) -> int:
             t_phase = time.perf_counter()
             phases[name] = phase(device, args.seed, card)
             seconds[name] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "parallel" not in skip:
+        t_phase = time.perf_counter()
+        phases["parallel"] = parallel_phase(device, args.seed, card, parallel_texts)
+        seconds["parallel"] = time.perf_counter() - t_phase
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)

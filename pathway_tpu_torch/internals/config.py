@@ -1,11 +1,13 @@
-"""The ``PATHWAY_DEVICE_*`` environment knobs of the device executor.
+"""The ``PATHWAY_DEVICE_*`` environment knobs of the device executor, and
+the worker topology that ``parallel/mesh.py::initialize_distributed`` reads.
 
 A copy of the executor's part of ``pathway_tpu/internals/config.py``
-(``ENV_KNOBS`` and the typed accessors): the same names, types, defaults
-and parsing, so one environment configures both packages alike.  Only the
-knobs the port's device layer reads are declared; reading any other name
-raises ``KeyError``.  Accessors read ``os.environ`` live, so tests can
-monkeypatch between runs.
+(``ENV_KNOBS`` and the typed accessors) and of its worker-topology fields
+(``processes``, ``process_id``, ``first_port``, ``peer_hosts``): the same
+names, types, defaults and parsing, so one environment configures both
+packages alike.  Only the knobs the port reads are declared; reading any
+other name raises ``KeyError``.  Accessors read ``os.environ`` live, so
+tests can monkeypatch between runs.
 
 Not carried over: ``PATHWAY_DEVICE_DONATE`` (buffer donation is an XLA
 notion; an eager PyTorch call never donates its inputs).
@@ -57,6 +59,13 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
             "hard per-job dispatch deadline; 0 disables hang escalation"),
     EnvKnob("PATHWAY_DEVICE_QUARANTINE_KEEP", "int", 32,
             "poisoned-batch quarantine records kept per executor"),
+    EnvKnob("PATHWAY_DEVICE_COORDINATOR", "str", None,
+            "host:port of the multi-process device group's rendezvous"),
+    EnvKnob("PATHWAY_PROCESSES", "int", 1, "worker processes of the cluster"),
+    EnvKnob("PATHWAY_PROCESS_ID", "int", 0, "this worker's process id"),
+    EnvKnob("PATHWAY_FIRST_PORT", "int", 10000, "first port of the workers' TCP mesh"),
+    EnvKnob("PATHWAY_PEER_HOSTS", "str", None,
+            "comma-separated hostname per worker id; unset = localhost"),
 )
 
 ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}
@@ -116,3 +125,24 @@ def env_float(name: str, default: Any = ...) -> Any:
         return float(raw)
     except ValueError:
         return fallback
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerTopology:
+    """The worker-topology fields of the JAX package's ``PathwayConfig``
+    (``config.rs:88-120`` in the reference), read from the environment."""
+
+    processes: int
+    process_id: int
+    first_port: int
+    peer_hosts: list | None
+
+
+def worker_topology() -> WorkerTopology:
+    hosts = env_str("PATHWAY_PEER_HOSTS")
+    return WorkerTopology(
+        processes=env_int("PATHWAY_PROCESSES"),
+        process_id=env_int("PATHWAY_PROCESS_ID"),
+        first_port=env_int("PATHWAY_FIRST_PORT"),
+        peer_hosts=[h.strip() for h in hosts.split(",")] if hosts else None,
+    )

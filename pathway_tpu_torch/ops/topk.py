@@ -7,8 +7,8 @@ top-k.  Below :data:`MIN_DEVICE_ROWS` rows the host numpy path answers, as
 in the JAX package, because a device round trip costs more than the scan.
 
 Every op here is a plain PyTorch composition (the JAX module had no Pallas
-kernel either).  Sharded top-k over several cards (the JAX ``mesh``
-branch) waits for the multi-GPU slice of the port.
+kernel either).  With a ``mesh`` the index is sharded row-wise over its
+ranks and answered by ``parallel/index.py::sharded_topk``.
 """
 
 from __future__ import annotations
@@ -70,6 +70,22 @@ def _topk_executor(device):
     return ex
 
 
+def padded_rows(matrix: np.ndarray, start: int, rows: int, *, normalize: bool, dtype: torch.dtype, device):
+    """Rows ``[start, start + rows)`` of the index padded with zero rows past
+    its end, on ``device``, and their mask (0, or -inf on padding).  With
+    ``normalize`` (cos) the real rows are L2-normalised in f32, once, so a
+    query runs a plain inner product; then the rows are cast to ``dtype``."""
+    valid = max(0, min(matrix.shape[0] - start, rows))
+    padded = torch.zeros((rows, matrix.shape[1]), dtype=torch.float32, device=device)
+    padded[:valid] = torch.from_numpy(np.ascontiguousarray(matrix[start : start + valid], np.float32)).to(device)
+    if normalize:
+        norms = torch.linalg.norm(padded[:valid], dim=1, keepdim=True)
+        padded[:valid] /= torch.clamp(norms, min=1e-12)
+    mask = torch.full((rows,), -torch.inf, dtype=torch.float32, device=device)
+    mask[:valid] = 0.0
+    return padded.to(dtype), mask
+
+
 class DeviceIndexCache:
     """Keeps the padded index matrix (and its padding mask) resident on the
     device across queries.
@@ -78,15 +94,25 @@ class DeviceIndexCache:
     grows in power-of-two steps.  Padded rows carry a -inf mask so they never
     win top-k.  For cos the rows are normalised once here, so a query runs a
     plain inner product; for cos and ip the matrix is stored in bf16 on the
-    card, halving the bytes each query sweeps."""
+    card, halving the bytes each query sweeps.
+
+    With a ``mesh`` (``parallel/mesh.py::make_mesh``) the capacity is
+    rounded up to a multiple of the rank count, each rank keeps its row
+    slice on its own device (``DTensor`` shards over the flattened
+    mesh), and queries run through ``sharded_topk``, not the executor."""
 
     def __init__(self, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded multi-card index is a later slice of the port"
-            )
-        self.device = resolve_device(device)
-        self.executor = _topk_executor(self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.executor = _topk_executor(self.device)
+        else:
+            from pathway_tpu_torch.parallel.mesh import mesh_device
+
+            self.device = mesh_device(mesh)
+            if device is not None and torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's {self.device}")
+            self.executor = None
         self._version = -1
         self._metric = None
         self._padded = None
@@ -96,6 +122,9 @@ class DeviceIndexCache:
     def get(self, matrix: np.ndarray, version: int, metric: str = "raw"):
         n = matrix.shape[0]
         cap = next_pow2(max(n, MIN_DEVICE_ROWS))
+        ranks = 1 if self.mesh is None else self.mesh.size()
+        if cap % ranks:  # non-power-of-two meshes: equal slices per rank
+            cap = ((cap + ranks - 1) // ranks) * ranks
         if (
             self._padded is None
             or version != self._version
@@ -103,18 +132,18 @@ class DeviceIndexCache:
             or self._padded.shape[0] != cap
             or self._padded.shape[1] != matrix.shape[1]
         ):
-            self._padded = None  # let the old matrix go before the new one lands
-            padded = torch.zeros((cap, matrix.shape[1]), dtype=torch.float32, device=self.device)
-            padded[:n] = torch.from_numpy(np.ascontiguousarray(matrix, np.float32)).to(self.device)
-            if metric == "cos":
-                norms = torch.linalg.norm(padded[:n], dim=1, keepdim=True)
-                padded[:n] /= torch.clamp(norms, min=1e-12)
-            mask = torch.full((cap,), -torch.inf, dtype=torch.float32, device=self.device)
-            mask[:n] = 0.0
-            if metric in ("cos", "ip") and self.device.type != "cpu":
-                padded = padded.to(torch.bfloat16)
-            self._padded = padded
-            self._mask = mask
+            self._padded = self._mask = None  # let the old matrix go before the new one lands
+            dtype = torch.bfloat16 if metric in ("cos", "ip") and self.device.type != "cpu" else torch.float32
+            if self.mesh is None:
+                self._padded, self._mask = padded_rows(
+                    matrix, 0, cap, normalize=metric == "cos", dtype=dtype, device=self.device
+                )
+            else:
+                from pathway_tpu_torch.parallel.index import shard_rows
+
+                self._padded, self._mask = shard_rows(
+                    self.mesh, matrix, cap, normalize=metric == "cos", dtype=dtype
+                )
             self._version = version
             self._metric = metric
             self._n = n
@@ -134,7 +163,7 @@ def topk_search_cached(
     returns ``(indices, scores)`` as numpy."""
     n = matrix.shape[0]
     k_eff = min(k, n)
-    if n < MIN_DEVICE_ROWS:
+    if n < MIN_DEVICE_ROWS and cache.mesh is None:
         scores = _score_numpy(
             matrix.astype(np.float32), queries.astype(np.float32), metric
         )
@@ -148,6 +177,13 @@ def topk_search_cached(
         # batch on the host and score a plain inner product
         q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         kernel_metric = "ip"
+    if cache.mesh is not None:
+        # a sharded index answers at any size (the JAX package's routing)
+        from pathway_tpu_torch.parallel.index import sharded_topk
+
+        with torch.no_grad():
+            idx, vals = sharded_topk(cache.mesh, device_matrix, mask, q, k_eff, kernel_metric)
+        return idx.cpu().numpy(), vals.cpu().numpy()
     vals, idx = cache.executor.run_batch(
         _TOPK_CALLABLE,
         (q.astype(np.float32, copy=False),),

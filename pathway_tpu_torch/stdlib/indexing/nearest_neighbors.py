@@ -35,8 +35,12 @@ class BruteForceKnnIndex:
     """Exact top-k by dense similarity scan on the device.
 
     Runs on ``cuda:0`` unless ``device`` names another device; without a
-    card and without ``device`` it raises.  ``mesh`` (a sharded index over
-    several cards) raises ``NotImplementedError`` until the multi-GPU slice.
+    card and without ``device`` it raises.  With a ``mesh``
+    (``parallel/mesh.py::make_mesh``) the matrix is sharded row-wise over
+    the mesh's ranks, each on its own device, and answered by the
+    distributed top-k at any size (``ops/topk.py::DeviceIndexCache``).
+    The factories' late-bound default mesh comes with the host-engine
+    slice.
     """
 
     def __init__(

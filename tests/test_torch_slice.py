@@ -161,7 +161,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     multimodal encoder, the encoder behind ``AsyncMicroBatcher`` and
     ``DeviceExecutor.submit``, and a step of each training path (the
     contrastive step, causal-LM, LoRA and MoE) with a checkpoint saved and
-    restored, on the CPU."""
+    restored, and the multi-device layer (``parallel/mesh.py``,
+    ``sharding.py``, ``index.py``, ``ring_attention.py`` and
+    ``models/long_context.py``) on a one-rank gloo mesh made on demand, on
+    the CPU."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -215,6 +218,30 @@ def test_port_imports_nothing_of_jax(model_dir):
         scores = mm.score(imgs, ["a photo", "a report"])
         assert scores.shape == (3, 2) and np.isfinite(scores).all(), scores
         assert vision.shared_multimodal_encoder("pw-tiny-siglip", device="cpu").dimensions == 32
+        import torch
+        from torch.distributed.tensor import Shard
+        from pathway_tpu_torch.models.long_context import LongContextSentenceEncoder
+        from pathway_tpu_torch.parallel import (ShardedDeviceIndex, make_mesh, put_global,
+            ring_encoder_attention, shard_params)
+
+        mesh = make_mesh(device="cpu")
+        assert mesh.mesh_dim_names == ("data", "model") and tuple(mesh.shape) == (1, 1)
+        sharded = pt.BruteForceKnnIndex(pt.DistanceMetric.COS, mesh=mesh)
+        for i, vec in enumerate(enc.encode(texts[:40])):
+            sharded.add(i, vec)
+        assert sharded.search(enc.encode_one(texts[17]), 3)[0][0] == 17
+        six = ShardedDeviceIndex(mesh, enc.dimensions, block=16)
+        six.add(enc.encode(texts[:40]))
+        assert six.search(enc.encode(texts[17:18]), 1)[0][0, 0] == 17
+        assert put_global(np.ones((4, 2), np.float32), mesh, (Shard(0), Shard(0))).shape == (4, 2)
+        assert shard_params({{"Embed_0": {{"embedding": np.ones((8, 4), np.float32)}}}}, mesh)
+        q = torch.randn(1, 32, 16)
+        ctx = ring_encoder_attention(mesh, q, q, q, torch.zeros(1, 32), 2)
+        assert ctx.shape == (1, 32, 16) and torch.isfinite(ctx).all()
+        lce = LongContextSentenceEncoder({model_dir!r}, mesh)
+        lce.set_params(enc.params)
+        assert (lce.encode(texts[:4]) * enc.encode(texts[:4])).sum(axis=1).min() > 0.99
+        torch.distributed.destroy_process_group()
         import asyncio
         from pathway_tpu_torch.device import get_default_executor
         from pathway_tpu_torch.utils.batching import AsyncMicroBatcher

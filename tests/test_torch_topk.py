@@ -63,9 +63,17 @@ def test_device_index_cache_rebuilds_only_on_change():
     assert cache.get(matrix, 2, "cos")[0] is not first
 
 
-def test_mesh_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError):
-        ttopk.DeviceIndexCache(device="cpu", mesh=object())
+def test_mesh_branch_answers(tmp_path):
+    """A cache on a two-rank gloo mesh answers what the single-device path
+    and the JAX package answer (tests/test_torch_parallel.py holds every
+    metric, size and world)."""
+    from tests import gloo_ranks
+
+    matrix, queries = _data(300, q=7)
+    jidx, jvals = jtopk.topk_search_cached(matrix, queries, 5, "cos", cache=jtopk.DeviceIndexCache(), version=1)
+    for idx, vals in gloo_ranks.run_ranks(gloo_ranks.mesh_branch_case, 2, tmp_path, matrix, queries):
+        np.testing.assert_array_equal(idx, jidx)
+        np.testing.assert_allclose(vals, jvals, atol=SCORE_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("n", [100, 300, 1500])  # host path below 256 rows, device path above
