@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train,parallel]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train,parallel,sharded]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -168,10 +168,36 @@ Phases, each on a line of its own; any failure exits non-zero:
    (cut at 512 ids at world 1) against ``SentenceEncoder`` on the same
    weights (cosine > 0.99), padding invariance (0.02), emb/s of both and
    the ms of one (64, 512) forward of each.
+15. sharded: tensor-, data-, expert- and pipeline-parallel
+   (``models/decoder.py``'s TP layout, ``parallel/train.py``,
+   ``moe.py``, ``pipeline.py``, ``checkpoint.py``, ``dryrun.py``) as a
+   world of one in this process over NCCL, every gate held to the
+   unsharded or single-device form on the same seeded weights.
+   ``tp_serve``: mistral-7b-instruct at full width and depth in bf16
+   placed by ``tp_param_specs``: ``prefill`` of 8 prompts of 64-896 ids
+   and 31 ``decode_step`` calls, the logits teacher-forced on the
+   unsharded greedy tokens within the near-tie tol of each step and the
+   sharded greedy tokens within tol of the unsharded max (``[generate]``'s
+   gates), ms per prefill and per decode step of both (CUDA events) and
+   of the placed leaves re-checked on every call, host µs per view.
+   ``tp_moe``: the MoE decoder at mixtral-8x7b-instruct width, depth cut
+   to 2 layers, its experts over ``model``, 4 prompts of 64-512 ids and
+   16 steps, the same gates.  ``train``: the contrastive step (MiniLM, 256
+   pairs × 128, ``make_mesh(1)``), the causal-LM step (mistral-7b width, 8
+   layers, 4 × 512, remat) and the EP MoE step (one mixtral-width layer,
+   4,096 tokens, ``make_ep_mesh(1)``), each against its single-device form
+   on the same tree and batches: step-0 loss within 1e-3 relative,
+   gradient cosine > 0.999 and relative L2 < 0.045, 5 steps falling, step ms (host, CUDA events)
+   and the sharded/device ratio.  ``pp``: ``make_pp_train_step`` at
+   mistral-7b width, 8 layers, one stage, ``n_micro`` 4, 8 × 512 ids, 6
+   steps, step 0 held to the causal-LM step's.  ``checkpoint``: a
+   mesh-placed LoRA state saved through ``torch.distributed.checkpoint``
+   after step 3 and resumed, the resumed losses bit-equal.  ``dryrun``:
+   ``dryrun_multichip(1)`` on the card.
 
-Phases 8-14 run one model at a time; the encoder kernel is on none of
+Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-14 (all run by default), to
+``--skip`` leaves out the named phases of 5-15 (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -711,9 +737,9 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora", "train",
-             "parallel")
+             "parallel", "sharded")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
-NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel")
+NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
 RERANK_CHUNKS = 16384
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
@@ -1991,7 +2017,7 @@ def generate_timing(lm, prompt_lens, device) -> dict:
         ("o projection + residual", lambda lp, kp, vp: x + ctx_ @ lp["wo"], L, wb("wo") + 3 * act),
         ("SwiGLU MLP + residual", lambda lp, kp, vp: x + dec._ffn(lp, h, cfg)[0], L,
          wb("wg", "wu", "wd") + 3 * act),
-        ("lm_head", lambda lp, kp, vp: dec._logits(tree, x[:, 0]), 1,
+        ("lm_head", lambda lp, kp, vp: dec._logits(tree, x[:, 0], cfg), 1,
          tensor_bytes(tree["lm_head"]) + act + S * V * 4),
         ("greedy argmax", lambda lp, kp, vp: logits.argmax(-1), 1, S * V * 4),
     ]
@@ -2750,6 +2776,13 @@ def grad_cosine(ga, gb) -> float:
     return dot / (na * nb)
 
 
+def grad_rel_l2(ga, gb) -> float:
+    """``|ga - gb| / |gb|`` of two gradient lists, flattened, in float64:
+    unlike the cosine, it fails a gradient off by a constant factor."""
+    diff = math.sqrt(sum(float((a.double() - b.double()).square().sum()) for a, b in zip(ga, gb)))
+    return diff / math.sqrt(sum(float(b.double().square().sum()) for b in gb))
+
+
 def step_stats(losses, host, dev) -> dict:
     """Losses and per-step times; the means leave out step 1 (first-call
     allocation and autotuning)."""
@@ -3361,6 +3394,382 @@ def parallel_phase(device, seed: int, card: str, texts) -> dict:
     return {"launches": launches, "attention_launches": {}, **parts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tensor-, data-, expert- and pipeline-parallel, a world of one.
+# ---------------------------------------------------------------------------
+
+SHARD_PROMPTS = 8
+SHARD_DECODE_STEPS = 32
+SHARD_MOE_LAYERS = 2  # bf16 mixtral is 93.4 GB: its full depth needs EP across cards
+SHARD_MOE_PROMPTS = 4
+SHARD_MOE_STEPS = 16
+SHARD_TRAIN_LAYERS = 8  # mistral-7b width, depth cut: two states and their moments fit one card
+SHARD_STEPS = 4  # after the compared step 0
+SHARD_LR = 1e-4
+SHARD_LOSS_REL = 1e-3  # step 0: the sharded step against its single-device form
+SHARD_GRAD_COS = 0.999
+SHARD_GRAD_REL = 0.045  # relative L2 of the step-0 gradients: the cosine's angle, sqrt(2 * (1 - 0.999))
+PP_SHAPE = (8, 512)
+PP_MICRO = 4
+PP_STEPS = 6
+CKPT_STEPS = 3
+
+
+class CaptureAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` that keeps a copy of every gradient of its first
+    step (the local shard of a DTensor's; the whole one at world 1)."""
+
+    def step(self, closure=None):
+        if not hasattr(self, "first_grads"):
+            self.first_grads = [(p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad).clone()
+                                for g in self.param_groups for p in g["params"]]
+        return super().step(closure)
+
+
+def capture_adam(lr: float):
+    return functools.partial(CaptureAdam, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def teacher_forced(tree, cfg, ids, lens, cache: int, steps: int, feed=None):
+    """Logits ``[B, steps, V]`` of ``prefill`` then ``steps - 1``
+    ``decode_step`` calls, each fed the greedy token of its own logits, or
+    ``feed [B, steps]`` (teacher forcing); and the tokens chosen."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    with torch.no_grad():
+        logits, kc, vc = dec.prefill(tree, ids, lens, cfg, cache)
+        out, toks = [logits], [logits.argmax(-1) if feed is None else feed[:, 0]]
+        for t in range(steps - 1):
+            logits, kc, vc = dec.decode_step(tree, kc, vc, toks[-1], lens + t, cfg)
+            out.append(logits)
+            toks.append(logits.argmax(-1) if feed is None else feed[:, t + 1])
+    return torch.stack(out, dim=1), torch.stack(toks, dim=1)
+
+
+def tp_serve_check(name: str, tree, placed, cfg, ids, lens, steps: int) -> dict:
+    """The tensor-parallel tree against the unsharded one on the same
+    weights: the unsharded greedy chain's logits against the placed
+    tree's, teacher-forced on the same tokens (within the near-tie tol of
+    each step), and the placed tree's own greedy tokens, each within tol of
+    the unsharded max of its step (``[generate]``'s gates); then ms per
+    prefill and per decode step of both, CUDA events, and of the placed
+    leaves in a plain dict (``checked``: the layout checked every call,
+    not once at placement), with host µs per ``shard_view`` of each."""
+    from pathway_tpu_torch.models import decoder as dec
+
+    cache = GEN_CACHE
+    ref, ref_tok = teacher_forced(tree, cfg, ids, lens, cache, steps)
+    got, _ = teacher_forced(placed, cfg, ids, lens, cache, steps, feed=ref_tok)
+    tol = near_tie_tol(ref)
+    err = (got - ref).abs().amax(dim=-1)
+    own, own_tok = teacher_forced(placed, cfg, ids, lens, cache, steps)
+    parted = {r: t for r in range(len(ids)) if (t := first_parting(own_tok[r].tolist(), ref_tok[r].tolist()))
+              is not None}
+    live = torch.ones_like(own_tok, dtype=torch.bool)
+    gaps = below_max(teacher_forced(tree, cfg, ids, lens, cache, steps, feed=own_tok)[0] if parted else ref,
+                     own_tok, live)
+    with torch.no_grad():
+        timing = {}
+        for label, t in (("unsharded", tree), ("sharded", placed), ("checked", dict(placed))):
+            _, kc, vc = dec.prefill(t, ids, lens, cfg, cache)
+            tok = ref_tok[:, 0]
+            timing[f"prefill_ms_{label}"] = time_ms(lambda: dec.prefill(t, ids, lens, cfg, cache), iters=3, warmup=1)
+            timing[f"decode_ms_{label}"] = time_ms(lambda: dec.decode_step(t, kc, vc, tok, lens, cfg), iters=10)
+            del kc, vc
+        timing["view_us_placed"] = host_us(lambda: dec.shard_view(placed, cfg))
+        timing["view_us_checked"] = host_us(lambda: dec.shard_view(dict(placed), cfg))
+    res = {"model": name, "layers": cfg.layers, "prompts": len(ids), "prompt_ids": [int(lens.min()), int(lens.max())],
+           "steps": steps, "max_abs_err": float(err.max()), "worst_err_over_tol": float((err / tol).max()),
+           "min_tol": float(tol.min()), "greedy_rows_parted": parted, **gaps, **timing,
+           "prefill_ratio": timing["prefill_ms_sharded"] / timing["prefill_ms_unsharded"],
+           "decode_ratio": timing["decode_ms_sharded"] / timing["decode_ms_unsharded"]}
+    problems = []
+    if not bool(torch.isfinite(got).all()):
+        problems.append("sharded logits are not finite")
+    if res["worst_err_over_tol"] >= 1.0:
+        problems.append(f"sharded logits left the unsharded ones by {res['worst_err_over_tol']} tol")
+    if gaps["tokens_over_tol"]:
+        problems.append(f"{gaps['tokens_over_tol']} sharded greedy token(s) lie tol or more below the unsharded max")
+    if problems:
+        fail(f"sharded: {name}: " + "; ".join(problems))
+    return res
+
+
+def serve_prompts(rng, n: int, lens: tuple[int, int], vocab: int, device):
+    lengths = rng.integers(lens[0], lens[1] + 1, size=n)
+    ids = torch.zeros((n, int(lengths.max())), dtype=torch.int64)
+    for r, m in enumerate(lengths):
+        ids[r, :m] = torch.from_numpy(rng.integers(3, vocab, size=int(m)))
+    return ids.to(device), torch.from_numpy(lengths).to(device)
+
+
+def tp_serve_part(device, seed: int, card: str) -> dict:
+    """mistral-7b-instruct at full width and depth, placed by
+    ``tp_param_specs`` on a ``("model",)`` mesh of one, against the
+    unsharded tree on the same weights."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import world_mesh
+
+    cfg = dec.decoder_config_for(GEN_MODEL)
+    tree = dec.init_decoder_params(cfg, seed, device)
+    placed = dec.place_tp_params(tree, cfg, world_mesh((1,), ("model",), device=device))
+    ids, lens = serve_prompts(np.random.default_rng(seed + 71), SHARD_PROMPTS, GEN_PROMPT_LENS, cfg.vocab_size, device)
+    res = {"card": card, "params_b": sum(t.numel() for _, t in dec._leaf_items(tree)) / 1e9,
+           **tp_serve_check(GEN_MODEL, tree, placed, cfg, ids, lens, SHARD_DECODE_STEPS)}
+    log("sharded", part="tp_serve", **res)
+    return res
+
+
+def tp_moe_part(device, seed: int, card: str) -> dict:
+    """The MoE decoder at mixtral-8x7b-instruct width in bf16, depth cut to
+    ``SHARD_MOE_LAYERS``, its experts placed over ``model``."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import world_mesh
+
+    cfg = dataclasses.replace(dec.decoder_config_for(MOE_MODEL), layers=SHARD_MOE_LAYERS)
+    tree = dec.init_decoder_params(cfg, seed, device)
+    placed = dec.place_tp_params(tree, cfg, world_mesh((1,), ("model",), device=device))
+    ids, lens = serve_prompts(np.random.default_rng(seed + 73), SHARD_MOE_PROMPTS, MOE_PROMPT_LENS, cfg.vocab_size,
+                              device)
+    res = {"card": card, **tp_serve_check(MOE_MODEL, tree, placed, cfg, ids, lens, SHARD_MOE_STEPS)}
+    log("sharded", part="tp_moe", **res)
+    return res
+
+
+def compared_steps(name: str, runs: dict, batch_fn) -> dict:
+    """Each of ``runs`` (``{"device": (state, run), "sharded": ...}``, states
+    over ``CaptureAdam``) takes ``1 + SHARD_STEPS`` steps on the batches of
+    ``batch_fn(step)``; step 0's loss and gradients are compared.  Step ms
+    (host and CUDA events) leave out step 0."""
+    out, grads = {}, {}
+    for label, (state, run) in runs.items():
+        losses, host, devs = [], [], []
+        for s in range(1 + SHARD_STEPS):
+            state, loss, h, d = timed_step(run, state, *batch_fn(s))
+            losses.append(loss)
+            host.append(h)
+            devs.append(d)
+        grads[label] = state.opt_state.first_grads
+        out[label] = step_stats(losses, host, devs)
+        del state
+    dev, sh = out["device"], out["sharded"]
+    check = {"loss_rel_diff": abs(sh["losses"][0] - dev["losses"][0]) / abs(dev["losses"][0]),
+             "grad_cosine": grad_cosine(grads["sharded"], grads["device"]),
+             "grad_rel_l2": grad_rel_l2(grads["sharded"], grads["device"]),
+             "ratio_host": sh["step_ms_host"] / dev["step_ms_host"],
+             "ratio_device": sh["step_ms_device"] / dev["step_ms_device"]}
+    for label in ("device", "sharded"):
+        losses = out[label]["losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            fail(f"sharded: {name}: the {label} losses are not finite and falling: {losses}")
+    if (check["loss_rel_diff"] > SHARD_LOSS_REL or not check["grad_cosine"] > SHARD_GRAD_COS
+            or not check["grad_rel_l2"] < SHARD_GRAD_REL):
+        fail(f"sharded: {name}: the sharded step left its single-device form: {check}")
+    return {**out, **check}
+
+
+def train_parts(device, seed: int, card: str) -> dict:
+    """The contrastive step (MiniLM, 256 pairs × 128, ``make_mesh(1)``), the
+    causal-LM step (mistral-7b width, 8 layers, 4 × 512) and the EP MoE
+    step (one mixtral-width layer, 4,096 tokens, ``make_ep_mesh(1)``), each
+    against its single-device form on the same tree and batches."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models import encoder as enc
+    from pathway_tpu_torch.parallel import make_ep_mesh, make_mesh, moe, train
+
+    mesh = make_mesh(1, device=device)
+    parts = {}
+    rng = np.random.default_rng(seed + 79)
+    ecfg = enc.config_for("all-MiniLM-L6-v2")
+    module = enc.SentenceEncoderModule(ecfg, enc.init_params(ecfg, seed), device=device)
+    lens = rng.integers(16, TRAIN_SEQ + 1, size=(2, TRAIN_PAIRS))
+    batch = []
+    for side in range(2):
+        ids = torch.from_numpy(rng.integers(3, ecfg.vocab_size, size=(TRAIN_PAIRS, TRAIN_SEQ))).to(device)
+        mask = (torch.arange(TRAIN_SEQ)[None, :] < torch.from_numpy(lens[side])[:, None]).long().to(device)
+        batch += [ids, mask]
+    runs = {}
+    for label, kw in (("device", dict(device=device)), ("sharded", dict(mesh=mesh))):
+        state, _ = train.init_train_state(module, capture_adam(TRAIN_LR), **kw)
+        runs[label] = (state, train.make_contrastive_train_step(module, **kw))
+    parts["contrastive"] = {"model": "all-MiniLM-L6-v2", "pairs": TRAIN_PAIRS, "seq": TRAIN_SEQ,
+                            **compared_steps("contrastive", runs, lambda s: batch)}
+    log("sharded", part="train", step="contrastive", card=card, **parts["contrastive"])
+    del runs, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(dec.decoder_config_for(GEN_MODEL), layers=SHARD_TRAIN_LAYERS, remat=True)
+    B, S = LM_SHAPE
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).to(device)
+    lm_lens = torch.from_numpy(rng.integers(LM_LENS[0], LM_LENS[1] + 1, size=B)).to(device)
+    runs = {}
+    for label, kw in (("device", dict(device=device)), ("sharded", dict(mesh=mesh))):
+        init_state, run = train.make_causal_lm_train_step(cfg, capture_adam(SHARD_LR), **kw)
+        runs[label] = (init_state(seed), run)
+    parts["lm"] = {"model": GEN_MODEL, "layers": cfg.layers, "batch": LM_SHAPE, "remat": cfg.remat,
+                   **compared_steps("lm", runs, lambda s: (ids, lm_lens))}
+    log("sharded", part="train", step="lm", card=card, **parts["lm"])
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    H, F_ = GEN_WIDTHS["hidden"], GEN_WIDTHS["intermediate"]
+    mcfg = moe.MoEConfig(hidden=H, experts=8, intermediate=F_, top_k=2, capacity_factor=2.0, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(seed + 83)
+    target_map = torch.randn((H, H), generator=gen, device=device) / math.sqrt(H)
+    xs = [torch.randn((MOE_TRAIN_TOKENS, H), generator=gen, device=device) for _ in range(1 + SHARD_STEPS)]
+    runs = {}
+    for label, kw in (("device", dict(device=device)), ("sharded", dict(mesh=make_ep_mesh(1, device=device)))):
+        init_fn, step_fn = moe.make_moe_train_step(mcfg, capture_adam(MOE_TRAIN_LR), **kw)
+
+        def run(state, x, step_fn=step_fn):
+            p, o, loss = step_fn(state.params, state.opt_state, x, torch.tanh(x @ target_map))
+            return train.TrainState(p, o, state.step + 1), loss
+
+        runs[label] = (train.TrainState(*init_fn(seed)), run)
+    parts["moe_ep"] = {"hidden": H, "experts": 8, "tokens": MOE_TRAIN_TOKENS,
+                       **compared_steps("moe_ep", runs, lambda s: (xs[s],))}
+    log("sharded", part="train", step="moe_ep", card=card, **parts["moe_ep"])
+    del runs, xs
+    return parts
+
+
+def pp_part(device, seed: int, card: str) -> dict:
+    """``make_pp_train_step`` at mistral-7b width, 8 layers, one stage,
+    ``n_micro`` 4, 8 × 512 ids, ``PP_STEPS`` steps; step 0's loss and
+    gradients against the single-device causal-LM step's on the same tree
+    and batch."""
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.parallel import make_pp_mesh, make_pp_train_step, train
+
+    cfg = dataclasses.replace(dec.decoder_config_for(GEN_MODEL), layers=SHARD_TRAIN_LAYERS, remat=True)
+    rng = np.random.default_rng(seed + 89)
+    B, S = PP_SHAPE
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).to(device)
+    lens = torch.from_numpy(rng.integers(LM_LENS[0], LM_LENS[1] + 1, size=B)).to(device)
+    init_ref, run_ref = train.make_causal_lm_train_step(cfg, capture_adam(SHARD_LR), device=device)
+    ref, ref_loss = run_ref(init_ref(seed), ids, lens)
+    ref_loss, ref_grads = float(ref_loss), ref.opt_state.first_grads
+    del ref, init_ref, run_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_state, run = make_pp_train_step(cfg, capture_adam(SHARD_LR), make_pp_mesh(1, device=device), PP_MICRO)
+    state = init_state(seed)
+    losses, host, devs = [], [], []
+    for _ in range(PP_STEPS):
+        state, loss, h, d = timed_step(run, state, ids, lens)
+        losses.append(loss)
+        host.append(h)
+        devs.append(d)
+    grads = [g.reshape(r.shape) for g, r in zip(state.opt_state.first_grads, ref_grads)]
+    res = {"card": card, "model": GEN_MODEL, "layers": cfg.layers, "stages": 1, "n_micro": PP_MICRO, "batch": PP_SHAPE,
+           **step_stats(losses, host, devs), "ref_loss": ref_loss,
+           "loss_rel_diff": abs(losses[0] - ref_loss) / abs(ref_loss), "grad_cosine": grad_cosine(grads, ref_grads),
+           "grad_rel_l2": grad_rel_l2(grads, ref_grads), "tokens_per_s": int(lens.sum()) / (float(np.mean(host[1:])) / 1e3)}
+    log("sharded", part="pp", **res)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"sharded: pp: the losses are not finite and falling: {losses}")
+    if (res["loss_rel_diff"] > SHARD_LOSS_REL or not res["grad_cosine"] > SHARD_GRAD_COS
+            or not res["grad_rel_l2"] < SHARD_GRAD_REL):
+        fail(f"sharded: pp: the pipelined step left the causal-LM step: {res['loss_rel_diff']}, {res['grad_cosine']}, "
+             f"{res['grad_rel_l2']}")
+    del state, grads, ref_grads
+    return res
+
+
+def checkpoint_part(device, seed: int, card: str) -> dict:
+    """A mesh-placed LoRA state (mistral-7b width, 8 layers, rank 8 on
+    wq/wv) saved through ``torch.distributed.checkpoint`` after
+    ``CKPT_STEPS`` steps and resumed into a fresh state: the resumed losses
+    must equal the uninterrupted run's, bit for bit."""
+    import tempfile
+
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models.lora import make_lora_train_step
+    from pathway_tpu_torch.parallel import TrainCheckpointer, make_mesh
+
+    cfg = dataclasses.replace(dec.decoder_config_for(GEN_MODEL), layers=SHARD_TRAIN_LAYERS, remat=True)
+    rng = np.random.default_rng(seed + 97)
+    B, S = LORA_SHAPE
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).to(device)
+    lens = torch.from_numpy(rng.integers(LM_LENS[0], LM_LENS[1] + 1, size=B)).to(device)
+    init_state, run = make_lora_train_step(cfg, dec.init_decoder_params(cfg, seed, device), adam(LORA_LR),
+                                           mesh=make_mesh(1, device=device), rank=LORA_RANK)
+    state = init_state()
+    for _ in range(CKPT_STEPS):
+        state, _ = run(state, ids, lens)
+    with tempfile.TemporaryDirectory() as tmp, TrainCheckpointer(tmp) as ck:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        files = sorted(os.listdir(os.path.join(tmp, str(CKPT_STEPS))))
+        size_mb = sum(os.path.getsize(os.path.join(tmp, str(CKPT_STEPS), f)) for f in files) / 1e6
+        after = [float(run(state, ids, lens)[1]) for _ in range(CKPT_STEPS)]
+        fresh = init_state()
+        t0 = time.perf_counter()
+        restored = ck.restore(fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        resumed = [float(run(restored, ids, lens)[1]) for _ in range(CKPT_STEPS)]
+    res = {"card": card, "layers": cfg.layers, "rank": LORA_RANK, "files": files, "size_mb": size_mb,
+           "save_ms": save_ms, "restore_ms": restore_ms, "after": after, "resumed": resumed}
+    log("sharded", part="checkpoint", **res)
+    if resumed != after:
+        fail(f"sharded: checkpoint: the resumed losses {resumed} are not the run's {after}")
+    del state, fresh, restored
+    return res
+
+
+def sharded_phase(device, seed: int, card: str) -> dict:
+    """Tensor-, data-, expert- and pipeline-parallel paths as a world of one
+    in this process, over NCCL: TP serving of mistral-7b and the MoE
+    decoder, the sharded train steps against their single-device forms,
+    the GPipe step, a sharded checkpoint and ``dryrun_multichip(1)``.  The
+    encoder kernel is on none of their paths: its launches over the whole
+    phase are its count and must be 0."""
+    import torch.distributed as dist
+
+    from pathway_tpu_torch.ops import attention as attn
+    from pathway_tpu_torch.parallel import dryrun_multichip
+
+    attn.encoder_attention.launches = 0
+    parts, seconds = {}, {}
+    try:
+        for name, part in (("tp_serve", tp_serve_part), ("tp_moe", tp_moe_part), ("train", train_parts),
+                           ("pp", pp_part), ("checkpoint", checkpoint_part)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            parts[name] = part(device, seed, card)
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dryrun_multichip(1, device=device)
+        seconds["dryrun"] = time.perf_counter() - t0
+        log("sharded", part="dryrun", world=dist.get_world_size(), backend=dist.get_backend(), ok=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches = {"encoder_attention": attn.encoder_attention.launches}
+    summary = {
+        "tp_serve_prefill_ms": [parts["tp_serve"]["prefill_ms_sharded"], parts["tp_serve"]["prefill_ms_unsharded"]],
+        "tp_serve_decode_ms": [parts["tp_serve"]["decode_ms_sharded"], parts["tp_serve"]["decode_ms_unsharded"]],
+        "tp_moe_decode_ms": [parts["tp_moe"]["decode_ms_sharded"], parts["tp_moe"]["decode_ms_unsharded"]],
+        "tp_serve_decode_ms_checked": parts["tp_serve"]["decode_ms_checked"],
+        "tp_serve_view_us": [parts["tp_serve"]["view_us_placed"], parts["tp_serve"]["view_us_checked"]],
+        **{f"{k}_step_ms_host": [parts["train"][k]["sharded"]["step_ms_host"], parts["train"][k]["device"]["step_ms_host"]]
+           for k in parts["train"]},
+        **{f"{k}_ratio_device": parts["train"][k]["ratio_device"] for k in parts["train"]},
+        **{f"{k}_grad_rel_l2": parts["train"][k]["grad_rel_l2"] for k in parts["train"]},
+        "pp_step_ms_host": parts["pp"]["step_ms_host"], "pp_grad_cosine": parts["pp"]["grad_cosine"],
+        "pp_grad_rel_l2": parts["pp"]["grad_rel_l2"],
+        "checkpoint_save_ms": parts["checkpoint"]["save_ms"], "part_seconds": seconds, "kernel_launches": launches,
+    }
+    log("sharded", step="summary", card=card, **summary)
+    return {"launches": launches, "attention_launches": {}, **parts}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -3442,6 +3851,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["parallel"] = parallel_phase(device, args.seed, card, parallel_texts)
         seconds["parallel"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "sharded" not in skip:
+        t_phase = time.perf_counter()
+        phases["sharded"] = sharded_phase(device, args.seed, card)
+        seconds["sharded"] = time.perf_counter() - t_phase
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)

@@ -37,8 +37,17 @@ layers, capacity dropping as in the JAX package); ``DecoderConfig.remat``
 recomputes each layer in the backward pass.  ``parallel/train.py`` and
 ``make_lora_train_step`` (``models/lora.py``) drive it.
 
-Not ported yet (ROADMAP Queue 1, "Multi-GPU"): the tensor-parallel specs
-(``tp_param_specs``, ``tp_cache_specs``).
+Tensor parallelism: :func:`tp_param_specs` and :func:`tp_cache_specs` are
+the JAX package's Megatron layout (heads and FFN width split over a
+``model`` mesh axis; an MoE config splits its experts instead), and
+:func:`place_tp_params` places a tree by it.  :func:`prefill`,
+:func:`decode_step` and :func:`causal_lm_logits_and_aux` take a placed
+tree: each rank runs the layer on its local shards (:class:`ShardConfig`:
+its heads, kv heads, FFN columns or experts) and the ranks' results are
+joined by hand, the Megatron way: an all-reduce of the partial sums after
+``wo`` and after ``wd`` (or the experts' combine), an all-gather of the
+vocab-sharded logits, and their gradients (``parallel/collectives.py``).
+The paged path has no tensor-parallel form: a placed tree raises there.
 """
 
 from __future__ import annotations
@@ -55,12 +64,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.tokenizer import load_tokenizer
 from pathway_tpu_torch.ops import attention as attention_ops
 from pathway_tpu_torch.ops.attention import gqa_attention as _attend
-from pathway_tpu_torch.parallel.moe import MoEConfig, moe_ffn
+from pathway_tpu_torch.parallel.collectives import copy_to, gather_from, reduce_from
+from pathway_tpu_torch.parallel.moe import ExpertShard, MoEConfig, moe_ffn
+from pathway_tpu_torch.parallel.sharding import place_tree, spec_placements
 
 _log = logging.getLogger(__name__)
 
@@ -101,6 +113,27 @@ class DecoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
+
+    # A rank's share of a tensor-parallel layer (ShardConfig) joins its
+    # partial results through these; a whole layer has nothing to join.
+    def enter(self, h):
+        return h
+
+    def reduce(self, y):
+        return y
+
+    def gather_vocab(self, logits):
+        return logits
+
+    @property
+    def expert_shard(self):
+        return None
+
+    def local_cache(self, cache):
+        return cache
+
+    def place_cache(self, cache):
+        return cache
 
 
 PRESETS: dict[str, DecoderConfig] = {
@@ -413,15 +446,16 @@ def _ffn(lp, h, cfg: DecoderConfig, *, full_capacity: bool = False):
     every serving path asks for (a capacity drop there would silently
     change the generation); training drops at capacity."""
     if cfg.experts:
-        return moe_ffn(moe_params(lp), h, moe_config(cfg), full_capacity=full_capacity)
-    return _mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"]), 0.0
+        return moe_ffn(moe_params(lp), h, moe_config(cfg), full_capacity=full_capacity, shard=cfg.expert_shard)
+    h = cfg.enter(h)
+    return cfg.reduce(_mm(F.silu(_mm(h, lp["wg"])) * _mm(h, lp["wu"]), lp["wd"])), 0.0
 
 
 def _qkv(lp, x, rope, cfg: DecoderConfig):
     """Pre-norm q ``[B, S, NH, D]`` and k, v ``[B, S, KH, D]``, rotated."""
     B, S = x.shape[0], x.shape[1]
     KH, D = cfg.kv_heads, cfg.head_dim
-    h = _rms(x, lp["ln0"], cfg.norm_eps)
+    h = cfg.enter(_rms(x, lp["ln0"], cfg.norm_eps))
     q = _apply_rope(_mm(h, lp["wq"]).reshape(B, S, cfg.heads, D), *rope)
     k = _apply_rope(_mm(h, lp["wk"]).reshape(B, S, KH, D), *rope)
     v = _mm(h, lp["wv"]).reshape(B, S, KH, D)
@@ -431,7 +465,7 @@ def _qkv(lp, x, rope, cfg: DecoderConfig):
 def _finish_layer(lp, x, ctx, cfg: DecoderConfig, *, full_capacity: bool = False):
     """Output projection, residual, and the MLP half of the block;
     returns ``(x, aux)`` with the MLP's aux loss (see :func:`_ffn`)."""
-    x = x + _mm(ctx, lp["wo"])
+    x = x + cfg.reduce(_mm(ctx, lp["wo"]))
     mlp, aux = _ffn(lp, _rms(x, lp["ln1"], cfg.norm_eps), cfg, full_capacity=full_capacity)
     return x + mlp, aux
 
@@ -499,8 +533,8 @@ def _causal_trunk(tree, ids, lengths, cfg: DecoderConfig, cache_len: int | None,
     return _rms(x, tree["final_norm"], cfg.norm_eps), k_cache, v_cache, aux
 
 
-def _logits(tree, x):
-    return _mm(x, tree["lm_head"]).float()
+def _logits(tree, x, cfg: DecoderConfig):
+    return cfg.gather_vocab(_mm(cfg.enter(x), tree["lm_head"]).float())
 
 
 def prefill(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
@@ -508,12 +542,16 @@ def prefill(tree, ids, lengths, cfg: DecoderConfig, cache_len: int):
 
     Returns ``(logits_last, k_cache, v_cache)``: f32 logits at each row's
     final real token and caches of shape ``[L, B, cache_len, KH, D]`` with
-    the prompt keys/values written at positions ``[0, S)``.
+    the prompt keys/values written at positions ``[0, S)``.  A placed tree
+    (:func:`place_tp_params`) returns the whole logits on every rank and
+    its caches as DTensors split over the kv heads, which
+    :func:`decode_step` takes back.
     """
     # serving path: lossless MoE dispatch, as in every step below
+    tree, cfg = shard_view(tree, cfg)
     x, k_cache, v_cache, _ = _causal_trunk(tree, ids, lengths, cfg, cache_len, full_capacity=True)
     last = x[torch.arange(ids.shape[0], device=ids.device), lengths - 1]
-    return _logits(tree, last), k_cache, v_cache
+    return _logits(tree, last, cfg), cfg.place_cache(k_cache), cfg.place_cache(v_cache)
 
 
 def causal_lm_logits(tree, ids, lengths, cfg: DecoderConfig):
@@ -528,8 +566,9 @@ def causal_lm_logits_and_aux(tree, ids, lengths, cfg: DecoderConfig):
     training adds to the LM loss so routing stays spread over experts.
     The MoE layers drop tokens at capacity, as the JAX package's training
     forward does; no K/V cache is made."""
+    tree, cfg = shard_view(tree, cfg)
     x, _, _, aux = _causal_trunk(tree, ids, lengths, cfg, None)
-    logits = _logits(tree, x)
+    logits = _logits(tree, x, cfg)
     return logits, torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
 
 
@@ -540,8 +579,10 @@ def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
     ``(logits, k_cache, v_cache)``.  A row whose ``pos`` is past the cache
     writes nothing, as the JAX package's one-hot write does.
     """
+    tree, cfg = shard_view(tree, cfg)
+    k_local, v_local = cfg.local_cache(k_cache), cfg.local_cache(v_cache)
     B = token.shape[0]
-    C = k_cache.shape[2]
+    C = k_local.shape[2]
     dev = token.device
     x = tree["embed"][token][:, None, :]  # [B, 1, H]
     idx = torch.arange(C, device=dev)[None, None, :]
@@ -553,13 +594,192 @@ def decode_step(tree, k_cache, v_cache, token, pos, cfg: DecoderConfig):
     inside = (pos < C)[:, None, None]
     at = pos.clamp(max=C - 1)
     for i in range(cfg.layers):
-        lp, kc, vc = _layer(tree, i), k_cache[i], v_cache[i]
+        lp, kc, vc = _layer(tree, i), k_local[i], v_local[i]
         q, k, v = _qkv(lp, x, rope, cfg)
         kc[rows, at] = torch.where(inside, k[:, 0], kc[rows, at])
         vc[rows, at] = torch.where(inside, v[:, 0], vc[rows, at])
         x, _ = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
     x = _rms(x, tree["final_norm"], cfg.norm_eps)
-    return _logits(tree, x[:, 0, :]), k_cache, v_cache
+    return _logits(tree, x[:, 0, :], cfg), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the Megatron layout)
+# ---------------------------------------------------------------------------
+
+
+def tp_param_specs(cfg: DecoderConfig, axis: str = "model") -> dict:
+    """The JAX package's tensor-parallel layout, leaf for leaf, as
+    ``PartitionSpec`` tuples (``parallel/sharding.py``): ``wq``/``wk``/
+    ``wv``/``wg``/``wu`` split on their output dim, ``wo``/``wd`` on their
+    input dim, ``lm_head`` on the vocab, the rest replicated.  An MoE
+    config splits the expert axis of ``wg``/``wu``/``wd`` instead (each rank
+    owns ``E / |axis|`` whole experts) and replicates the router."""
+    layers = {
+        "ln0": (None, None),
+        "ln1": (None, None),
+        "wq": (None, None, axis),
+        "wk": (None, None, axis),
+        "wv": (None, None, axis),
+        "wo": (None, axis, None),
+    }
+    if cfg.experts:
+        layers.update(moe_router=(None, None, None), wg=(None, axis, None, None), wu=(None, axis, None, None),
+                      wd=(None, axis, None, None))
+    else:
+        layers.update(wg=(None, None, axis), wu=(None, None, axis), wd=(None, axis, None))
+    return {"embed": (None, None), "final_norm": (None,), "lm_head": (None, axis), "layers": layers}
+
+
+def tp_cache_specs(axis: str = "model") -> tuple:
+    """The KV cache ``[L, B, C, KH, D]`` split over its kv heads."""
+    return (None, None, None, axis, None)
+
+
+def place_tp_params(tree, cfg: DecoderConfig, mesh, axis: str = "model") -> PlacedTree:
+    """``tree`` (the same full tree on every rank) placed on ``mesh`` by
+    :func:`tp_param_specs`: each rank keeps its shards.  A float tree only:
+    a LoRA or int8 leaf raises ``ValueError``, as the JAX spec tree cannot
+    map one either."""
+    return PlacedTree(place_tree(tree, mesh, tp_param_specs(cfg, axis)), cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(DecoderConfig):
+    """One rank's share of a mesh-placed decoder (:func:`shard_view`).
+
+    ``heads`` and ``kv_heads`` are the rank's (``head_dim`` stays the
+    model's); an MoE layer keeps ``experts`` (every token is routed over
+    all of them) and runs the rank's ``experts / model_size`` from
+    ``expert_first``.  The joins are Megatron's: a replicated activation
+    enters a split matmul through ``copy_to`` and the partial sums leave
+    through ``reduce_from`` over ``model_group``; the vocab-split logits are
+    gathered.  With ``data_group`` the batch is the rank's rows of the
+    global one, and the MoE layers gather the tokens over it, so that
+    routing and capacity follow the global token order."""
+
+    shard_head_dim: int = 0
+    model_size: int = 1
+    expert_first: int = 0
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    cache_placements: tuple = ()
+
+    @property
+    def head_dim(self) -> int:
+        return self.shard_head_dim
+
+    def enter(self, h):
+        return h if self.model_group is None else copy_to(h, self.model_group)
+
+    def reduce(self, y):
+        return y if self.model_group is None else reduce_from(y, self.model_group)
+
+    def gather_vocab(self, logits):
+        return logits if self.model_group is None else gather_from(logits, self.model_group, -1)
+
+    @property
+    def expert_shard(self):
+        if not self.experts:
+            return None
+        return ExpertShard(self.model_group, self.expert_first, self.experts // self.model_size, self.data_group)
+
+    def local_cache(self, cache):
+        return cache.to_local()
+
+    def place_cache(self, cache):
+        """The rank's cache ``[L, B, C, KH, D]`` as a DTensor: kv heads over
+        the model axis (:func:`tp_cache_specs`), rows over ``data``."""
+        shape = list(cache.shape)
+        for dim, p in enumerate(self.cache_placements):
+            if p.is_shard():
+                shape[p.dim] *= self.mesh.size(dim)
+        return DTensor.from_local(cache, self.mesh, self.cache_placements, run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(shape, device="meta").stride())
+
+
+def _leaf_items(tree, path=()):
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            yield from _leaf_items(node, path + (key,))
+        else:
+            yield path + (key,), node
+
+
+class PlacedTree(dict):
+    """A mesh-placed decoder tree (a dict of its leaves, as placed) that
+    carries its rank's :class:`ShardConfig` for ``cfg``, checked and worked
+    out once, here, so the steps that take the tree do not redo it."""
+
+    def __init__(self, tree, cfg: DecoderConfig):
+        super().__init__(tree)
+        self.cfg = cfg
+        self.view = _shard_config(self, cfg)
+
+
+def shard_view(tree, cfg: DecoderConfig):
+    """``(local tree, ShardConfig)`` of a tree placed on a mesh (every leaf
+    a DTensor, laid out by :func:`tp_param_specs` over one mesh axis, or
+    replicated); ``(tree, cfg)`` unchanged for a tree of plain tensors.
+    The local tree holds each leaf's ``to_local()`` (differentiable), so a
+    gradient reaches the placed leaves.  A :class:`PlacedTree` gives the
+    view it worked out at placement; any other placed tree is checked on
+    every call."""
+    if not isinstance(tree["embed"], DTensor):
+        return tree, cfg
+    if isinstance(tree, PlacedTree) and (tree.cfg is cfg or tree.cfg == cfg):
+        view = tree.view
+    else:
+        view = _shard_config(tree, cfg)
+    local = {k: (_map_leaves(lambda t: t.to_local(), v) if isinstance(v, dict) else v.to_local())
+             for k, v in tree.items()}
+    return local, view
+
+
+def _shard_config(tree, cfg: DecoderConfig) -> ShardConfig:
+    """The rank's :class:`ShardConfig` of a placed tree.  A leaf placed
+    otherwise than :func:`shard_view` takes, or heads that do not split
+    evenly, raise ``ValueError``."""
+    mesh = tree["embed"].device_mesh
+    names = mesh.mesh_dim_names
+    head = tree["lm_head"]
+    axis = next((names[d] for d, p in enumerate(head.placements) if p.is_shard(1)), None) \
+        if isinstance(head, DTensor) else None
+    specs = dict(_leaf_items(tp_param_specs(cfg, axis))) if axis else {}
+    for path, leaf in _leaf_items(tree):
+        want = spec_placements(specs.get(path[:2] if path[0] == "layers" else path[:1], ()), mesh)
+        if not isinstance(leaf, DTensor) or leaf.device_mesh != mesh or tuple(leaf.placements) != want:
+            got = tuple(leaf.placements) if isinstance(leaf, DTensor) else type(leaf).__name__
+            raise ValueError(f"leaf {'/'.join(path)!r} is placed {got}, not {want}: place the tree with "
+                             "place_tp_params (tensor parallel) or place_tree (replicated)")
+    m = mesh.size(names.index(axis)) if axis else 1
+    if cfg.heads % m or cfg.kv_heads % m:
+        raise ValueError(f"{cfg.heads} heads and {cfg.kv_heads} kv heads do not split over {m} ranks")
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(DecoderConfig)}
+    fields.update(heads=cfg.heads // m, kv_heads=cfg.kv_heads // m)
+    cache = {3: axis, 1: "data" if "data" in names and axis != "data" else None}
+    return ShardConfig(
+        **fields,
+        shard_head_dim=cfg.head_dim,
+        model_size=m,
+        expert_first=mesh.get_local_rank(axis) * (cfg.experts // m) if axis else 0,
+        mesh=mesh,
+        model_group=mesh.get_group(axis) if axis else None,
+        data_group=mesh.get_group("data") if cache[1] else None,
+        cache_placements=spec_placements(tuple(cache.get(d) for d in range(5)), mesh),
+    )
+
+
+def _map_leaves(fn, node):
+    return {k: _map_leaves(fn, v) for k, v in node.items()} if isinstance(node, dict) else fn(node)
+
+
+def _plain_only(tree, what: str) -> None:
+    if isinstance(tree["embed"], DTensor):
+        raise NotImplementedError(
+            f"{what} has no tensor-parallel form: a mesh-placed tree runs through prefill and decode_step"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -783,6 +1003,7 @@ def paged_decode_step(tree, k_pool, v_pool, block_tables, seq_lens, token,
     Inactive slots (block table all null) write into and gather from the
     null page: finite garbage, masked everywhere.
     """
+    _plain_only(tree, "paged_decode_step")
     page = k_pool.shape[2]
     C = block_tables.shape[1] * page
     x = tree["embed"][token][:, None, :]  # [S, 1, H]
@@ -794,7 +1015,7 @@ def paged_decode_step(tree, k_pool, v_pool, block_tables, seq_lens, token,
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     rows = attention_ops.kv_rows(block_tables, positions, page)
     x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, full_capacity=True)
-    return _logits(tree, x[:, 0, :]), k_pool, v_pool
+    return _logits(tree, x[:, 0, :], cfg), k_pool, v_pool
 
 
 def paged_prefill_chunk(tree, k_pool, v_pool, block_tables, chunk_ids,
@@ -809,6 +1030,7 @@ def paged_prefill_chunk(tree, k_pool, v_pool, block_tables, chunk_ids,
     v_pool)``; rows with ``chunk_lens == 0`` give garbage logits the
     scheduler ignores.
     """
+    _plain_only(tree, "paged_prefill_chunk")
     S, T = chunk_ids.shape
     dev = chunk_ids.device
     page = k_pool.shape[2]
@@ -828,7 +1050,7 @@ def paged_prefill_chunk(tree, k_pool, v_pool, block_tables, chunk_ids,
     rows = attention_ops.kv_rows(block_tables, write_positions, page)
     x = _paged_layers(tree, k_pool, v_pool, x, rope, rows, block_tables, mask, cfg, full_capacity=True)
     last = x[torch.arange(S, device=dev), (chunk_lens - 1).clamp(min=0)]
-    return _logits(tree, last), k_pool, v_pool
+    return _logits(tree, last, cfg), k_pool, v_pool
 
 
 # ---------------------------------------------------------------------------
@@ -847,6 +1069,7 @@ def verify_block(tree, k_cache, v_cache, tokens, pos0, cfg: DecoderConfig):
     A write at a position ``>= C`` is a no-op, as the JAX package's one-hot
     scatter is.
     """
+    _plain_only(tree, "verify_block")
     B, K = tokens.shape
     C = k_cache.shape[2]
     dev = tokens.device
@@ -872,7 +1095,7 @@ def verify_block(tree, k_cache, v_cache, tokens, pos0, cfg: DecoderConfig):
         vc[rows, at] = torch.where(inside, v, vc[rows, at])
         x, _ = _finish_layer(lp, x, _attend(q, kc, vc, mask), cfg, full_capacity=True)
     x = _rms(x, tree["final_norm"], cfg.norm_eps)
-    return _logits(tree, x), k_cache, v_cache
+    return _logits(tree, x, cfg), k_cache, v_cache
 
 
 def speculative_decode_chunk(tree, draft_tree, k_cache, v_cache, logits, pos,

@@ -12,7 +12,8 @@ first; ``quantize_decoder_tree`` rejects adapted trees with that
 instruction.
 
 :func:`make_lora_train_step` trains the adapters of a frozen base on one
-device; the data-parallel form over a mesh waits for the multi-GPU slice.
+device, or data-parallel on a mesh with the whole tree replicated, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ from typing import Callable
 
 import torch
 
-from pathway_tpu_torch.device import resolve_device
-from pathway_tpu_torch.models.decoder import DecoderConfig
+from pathway_tpu_torch.models.decoder import DecoderConfig, PlacedTree
 from pathway_tpu_torch.parallel.train import TrainState, make_lm_step_runner, train_state
 
 # attention projections (+ optionally the dense MLP) — the usual targets;
@@ -114,6 +114,7 @@ def make_lora_train_step(
     optimizer,
     *,
     device=None,
+    mesh=None,
     rank: int = 8,
     alpha: float = 16.0,
     targets: tuple[str, ...] = DEFAULT_TARGETS,
@@ -129,13 +130,23 @@ def make_lora_train_step(
     rest, not of ``optax.masked``.  The base stays bitwise unchanged and the
     optimizer state is the size of the adapters.  Returns ``(init_state,
     run)`` as ``TrainCheckpointer`` takes them: every ``init_state()`` has
-    adapters of its own (the draws of ``seed``) over the shared base."""
-    device = resolve_device(device)
+    adapters of its own (the draws of ``seed``) over the shared base.
+
+    On ``mesh`` (``make_mesh``'s ``("data", "model")``; ``device`` or
+    ``mesh``, not both) the adapted tree is replicated on every rank
+    (adapters are megabytes: data parallelism is LoRA's axis), placed once,
+    and the batch splits over ``data``."""
+    from pathway_tpu_torch.parallel.sharding import place_tree
+    from pathway_tpu_torch.parallel.train import step_target
+
+    device, _, _ = step_target(device, mesh)
 
     def on_device(node):
         return {k: on_device(v) for k, v in node.items()} if isinstance(node, dict) else node.to(device)
 
     tree0 = lora_decoder_tree(on_device(base_tree), cfg, rank=rank, alpha=alpha, targets=targets, seed=seed)
+    if mesh is not None:
+        tree0 = place_tree(tree0, mesh)
     mask = lora_mask(tree0)
 
     def init_state() -> TrainState:
@@ -143,6 +154,8 @@ def make_lora_train_step(
             name: ({**w, "a": w["a"].clone(), "b": w["b"].clone()} if isinstance(w, dict) else w)
             for name, w in tree0["layers"].items()
         }
-        return train_state({**tree0, "layers": layers}, optimizer, trainable=mask)
+        tree = {**tree0, "layers": layers}
+        return train_state(tree if mesh is None else PlacedTree(tree, cfg), optimizer, trainable=mask)
 
-    return init_state, make_lm_step_runner(cfg, device=device, moe_aux_weight=moe_aux_weight)
+    return init_state, make_lm_step_runner(cfg, device=None if mesh else device, mesh=mesh,
+                                           moe_aux_weight=moe_aux_weight)

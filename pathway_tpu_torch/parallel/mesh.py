@@ -17,6 +17,7 @@ array and keeps only its own slice, moved to its device and wrapped as a
 
 from __future__ import annotations
 
+import math
 from datetime import timedelta
 
 import torch
@@ -106,26 +107,48 @@ def mesh_shape_for(n_devices: int, max_model: int = 2) -> tuple[int, int]:
     return n_devices // model, model
 
 
-def make_mesh(n_devices: int | None = None, *, device=None, max_model: int = 2) -> DeviceMesh:
-    """An ``("data", "model")`` mesh over the process group's world, one
-    rank per device.  ``device`` picks the device type (default: a card;
-    ``"cpu"`` for a gloo mesh).  Without a group, a multi-process worker
-    env joins one (:func:`initialize_distributed`), and a single process
-    makes a one-rank group in memory.  ``n_devices`` other than the
-    world's size raises."""
+def _join(device) -> torch.device:
+    """Join the process group, or make a one-rank group in memory when a
+    single process has none; returns the rank's device."""
     dev = resolve_device(device)
     if not initialize_distributed(device=dev):
         backend = _backend(dev)
         if backend == "nccl" and dev.index is not None:
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return dev
+
+
+def world_size(n_devices: int | None = None, *, device=None) -> int:
+    """The size of the process group's world, joined as :func:`world_mesh`
+    joins it; ``n_devices`` other than it raises."""
+    _join(device)
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(
             f"a mesh covers the process group's world of {world} rank(s), one "
             f"device each; {n_devices} device(s) were asked for"
         )
-    return init_device_mesh(dev.type, mesh_shape_for(world, max_model), mesh_dim_names=AXES)
+    return world
+
+
+def world_mesh(shape: tuple[int, ...], names: tuple[str, ...], *, device=None) -> DeviceMesh:
+    """A mesh of ``shape`` with axes ``names`` over the process group's
+    world, one rank per device.  ``device`` picks the device type (default:
+    a card; ``"cpu"`` for a gloo mesh).  Without a group, a multi-process
+    worker env joins one (:func:`initialize_distributed`), and a single
+    process makes a one-rank group in memory.  A shape that does not cover
+    the world exactly raises."""
+    dev = _join(device)
+    world_size(math.prod(shape), device=dev)
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))
+
+
+def make_mesh(n_devices: int | None = None, *, device=None, max_model: int = 2) -> DeviceMesh:
+    """An ``("data", "model")`` mesh over the process group's world, as
+    :func:`world_mesh` makes it; ``n_devices`` other than the world's size
+    raises."""
+    return world_mesh(mesh_shape_for(world_size(n_devices, device=device), max_model), AXES, device=device)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
@@ -155,7 +178,7 @@ def put_global(arr, mesh: DeviceMesh, placements, *, dtype: torch.dtype | None =
     to its device, and nothing crosses ranks.  ``Shard(d)`` on several
     mesh dims splits ``d`` major dim first, as a JAX spec naming several
     axes does.  A sharded dim must divide evenly."""
-    full = torch.as_tensor(arr)
+    full = torch.as_tensor(arr).detach()
     local = full
     for dim, (placement, coord) in enumerate(zip(placements, mesh.get_coordinate())):
         if placement.is_shard():

@@ -23,9 +23,18 @@ tensors or as weight-only int8 pairs ``{"q": int8, "s": f32}`` with
 per-output-channel scales (see ``models/decoder.py``).  Every function
 works on the device of its inputs, and the float path is differentiable
 (the gradient flows through the combine weights and the aux loss):
-:func:`make_moe_train_step` trains the layer on one device.  The
-expert-parallel mesh (``ep_param_specs``, ``make_ep_mesh``) waits for the
-multi-GPU slice.
+:func:`make_moe_train_step` trains the layer on one device or on a mesh.
+
+**Expert parallelism.**  On a ``("data", "expert")`` mesh
+(:func:`make_ep_mesh`) each rank holds ``E / |expert|`` experts
+(:func:`ep_param_specs`) and its rows of the token batch.  The JAX
+program has global semantics: routing and capacity slots are a cumulative
+sum over each group of the GLOBAL token order.  So a rank gathers the
+tokens over ``data``, routes every token to every expert, runs its own
+experts on their slots, sums the partial outputs over ``expert``, and
+keeps its own rows (:class:`ExpertShard`).  Every rank's answer equals the
+unsharded layer's.  The ``all_to_all`` form that XLA lowers the JAX
+einsums to moves fewer bytes; it is a later speed change.
 """
 
 from __future__ import annotations
@@ -36,8 +45,11 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.parallel.collectives import copy_to, gather_rows, own_rows, reduce_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,19 +164,86 @@ def _qeinsum(spec: str, x, w):
     return torch.einsum(spec, x, w)
 
 
-def _groups_ffn(params, router_logits, valid, xg, cfg: MoEConfig, capacity: int):
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """A rank's share of an expert-parallel MoE layer: its weights are
+    experts ``[first, first + count)`` of the layer, their partial outputs
+    are summed over ``group`` (``None``: the rank holds every expert).
+    With ``data_group`` the rank's tokens are its rows of the batch,
+    gathered over that group so that routing and capacity follow the
+    global token order, and the rank keeps its rows of the output."""
+
+    group: Any
+    first: int
+    count: int
+    data_group: Any = None
+
+    def enter(self, x):
+        """A replicated tensor entering the rank's experts (Megatron's
+        copy: the experts' partial gradients summed backward)."""
+        return x if self.group is None else copy_to(x, self.group)
+
+    def reduce(self, y):
+        return y if self.group is None else reduce_from(y, self.group)
+
+
+def _groups_ffn(params, router_logits, valid, xg, cfg: MoEConfig, capacity: int, shard=None):
     """Dispatch → expert SwiGLU → combine over groups ``[G, Tg, ...]``;
-    returns ``(y [G, Tg, H], aux [G])``."""
+    returns ``(y [G, Tg, H], aux [G])``.  With ``shard`` every token is
+    routed over all experts and only the shard's run, their partial
+    outputs summed over its group."""
     dispatch, combine, aux_g = _routing(router_logits, cfg, capacity, valid)
+    if shard is not None:
+        own = slice(shard.first, shard.first + shard.count)
+        dispatch, combine, xg = dispatch[:, :, own], shard.enter(combine)[:, :, own], shard.enter(xg)
     expert_in = torch.einsum("gtec,gth->gech", dispatch.to(cfg.dtype), xg.to(cfg.dtype))
     h = F.silu(_qeinsum("gech,ehf->gecf", expert_in, params["wg"]))
     h = h * _qeinsum("gech,ehf->gecf", expert_in, params["wu"])
     expert_out = _qeinsum("gecf,efh->gech", h, params["wd"])
     y = torch.einsum("gtec,gech->gth", combine.to(cfg.dtype), expert_out)
-    return y, aux_g
+    return (y if shard is None else shard.reduce(y)), aux_g
 
 
-def moe_ffn(params, x, cfg: MoEConfig, *, full_capacity: bool = False):
+def ep_param_specs(axis: str = "expert") -> dict:
+    """Expert-parallel specs (``PartitionSpec`` tuples, see
+    ``parallel/sharding.py``): each rank owns ``E / |axis|`` experts' FFN
+    weights; the router (tiny) is replicated."""
+    return {"router": (None, None), "wg": (axis, None, None), "wu": (axis, None, None), "wd": (axis, None, None)}
+
+
+def make_ep_mesh(n_devices: int, expert_parallel: int | None = None, *, device=None) -> DeviceMesh:
+    """A ``("data", "expert")`` mesh over the process group's world with
+    ``expert_parallel`` ranks on the expert axis (default: all of them).
+    ``n_devices`` other than the world's size, or an expert axis that does
+    not divide it, raises."""
+    from pathway_tpu_torch.parallel.mesh import world_mesh, world_size
+
+    n = world_size(n_devices, device=device)
+    ep = expert_parallel or n
+    if n % ep:
+        raise ValueError(f"{n} devices do not split into expert groups of {ep}")
+    return world_mesh((n // ep, ep), ("data", "expert"), device=device)
+
+
+def expert_shard(params, mesh: DeviceMesh) -> tuple[dict, ExpertShard]:
+    """The rank's local weights of a mesh-placed layer and its
+    :class:`ExpertShard`: the expert axis is the mesh dim that splits
+    ``wg``'s experts (none when they are replicated), the data axis the
+    mesh dim named ``"data"`` if there is one."""
+    local = {k: (v.to_local() if isinstance(v, DTensor) else v) for k, v in params.items()}
+    names = mesh.mesh_dim_names
+    group, first, count = None, 0, local["wg"].shape[0]
+    wg = params["wg"]
+    if isinstance(wg, DTensor):
+        for dim, p in enumerate(wg.placements):
+            if p.is_shard(0):
+                group, first = mesh.get_group(names[dim]), mesh.get_local_rank(names[dim]) * count
+    data_group = mesh.get_group("data") if "data" in names else None
+    return local, ExpertShard(group, first, count, data_group)
+
+
+def moe_ffn(params, x, cfg: MoEConfig, mesh: DeviceMesh | None = None, *, full_capacity: bool = False,
+            shard: ExpertShard | None = None):
     """MoE feed-forward over tokens ``x [..., H]`` → ``(y [..., H], aux)``.
 
     Tokens beyond the group size are chunked into GShard groups and
@@ -176,10 +255,23 @@ def moe_ffn(params, x, cfg: MoEConfig, *, full_capacity: bool = False):
     at once (the JAX package maps the serving groups and vectorizes the
     others; the numbers are the same).  ``aux`` is the groups'
     load-balance loss, weighted by their real tokens.
+
+    With ``mesh`` (an :func:`make_ep_mesh` mesh) ``params`` is placed by
+    :func:`ep_param_specs` and ``x`` holds this rank's rows of the tokens
+    (a tensor, or a DTensor split over ``data``); ``y`` is the rank's rows
+    of the unsharded layer's output and ``aux`` the unsharded layer's.
+    ``shard`` is the same share given directly (the tensor-parallel
+    decoder's experts over ``model``), with ``params`` the local weights.
     """
+    if mesh is not None:
+        params, shard = expert_shard(params, mesh)
+    if isinstance(x, DTensor):
+        x = x.to_local()
     orig_shape = x.shape
     H = orig_shape[-1]
     xt = x.reshape(-1, H)
+    if shard is not None and shard.data_group is not None:
+        xt = gather_rows(xt, shard.data_group)
     T = xt.shape[0]
     group_size = cfg.group_size
     if full_capacity and cfg.serving_group_size:
@@ -197,7 +289,7 @@ def moe_ffn(params, x, cfg: MoEConfig, *, full_capacity: bool = False):
     valid = (torch.arange(G * Tg, device=x.device) < T).reshape(G, Tg)
 
     outs = [
-        _groups_ffn(params, router_logits[g : g + 1], valid[g : g + 1], xg[g : g + 1], cfg, C)
+        _groups_ffn(params, router_logits[g : g + 1], valid[g : g + 1], xg[g : g + 1], cfg, C, shard)
         for g in range(G)
     ]
     y_g = torch.cat([y for y, _ in outs])
@@ -206,12 +298,15 @@ def moe_ffn(params, x, cfg: MoEConfig, *, full_capacity: bool = False):
     w = valid.float().sum(dim=1)
     aux = (aux_g * w).sum() / w.sum().clamp_min(1.0)
     y = y_g.reshape(G * Tg, H)[:T]
+    if shard is not None and shard.data_group is not None:
+        y = own_rows(y, shard.data_group)
     return y.reshape(orig_shape).to(x.dtype), aux
 
 
-def make_moe_train_step(cfg: MoEConfig, optimizer, *, device=None,
+def make_moe_train_step(cfg: MoEConfig, optimizer, *, device=None, mesh: DeviceMesh | None = None,
                         aux_weight: float = 0.01) -> tuple[Callable, Callable]:
-    """Training of the MoE layer on one device (``cuda:0`` unless given):
+    """Training of the MoE layer on one device (``cuda:0`` unless given) or
+    expert-parallel on ``mesh`` (:func:`make_ep_mesh`; one or the other):
     the JAX package's denoising regression (fit the layer to a fixed
     target map, the mean squared error plus ``aux_weight`` times the
     load-balance loss), through routing, capacity-dropping dispatch and
@@ -219,25 +314,34 @@ def make_moe_train_step(cfg: MoEConfig, optimizer, *, device=None,
     ``parallel/train.py``).
 
     Returns ``(init_fn, step_fn)``: ``init_fn(seed=0) -> (params,
-    opt_state)`` draws :func:`init_moe_params` with every leaf trainable;
+    opt_state)`` draws :func:`init_moe_params` (on a mesh, on every rank,
+    placed by :func:`ep_param_specs`) with every leaf trainable;
     ``step_fn(params, opt_state, x, target) -> (params, opt_state, loss)``
-    updates the params in place.  An int8 tree raises ``ValueError``: it is
-    for serving only.  The expert-parallel form over a mesh waits for the
-    multi-GPU slice."""
-    from pathway_tpu_torch.parallel.train import TrainState, apply_step, require_float, train_state
+    updates the params in place.  ``x`` and ``target`` are the whole token
+    batch (on a mesh, on every rank); each rank's loss is its rows' share
+    of the squared error plus ``1 / |data|`` of the aux loss, and the
+    gradients and the loss are summed over ``data``: the step equals the
+    unsharded one.  An int8 tree raises ``ValueError``: it is for serving
+    only."""
+    from pathway_tpu_torch.parallel.sharding import place_tree
+    from pathway_tpu_torch.parallel.train import TrainState, apply_step, data_rows, require_float, step_target, train_state
 
-    device = resolve_device(device)
+    device, data_group, n_data = step_target(device, mesh)
 
     def init_fn(seed: int = 0):
-        state = train_state(init_moe_params(cfg, seed, device=device), optimizer)
+        params = init_moe_params(cfg, seed, device=device)
+        if mesh is not None:
+            params = place_tree(params, mesh, ep_param_specs())
+        state = train_state(params, optimizer)
         return state.params, state.opt_state
 
     def step_fn(params, opt_state, x, target):
         require_float(params)
-        x, target = torch.as_tensor(x, device=device), torch.as_tensor(target, device=device)
-        y, aux = moe_ffn(params, x, cfg)
-        loss = (y.float() - target.float()).square().mean() + aux_weight * aux
-        state, loss = apply_step(TrainState(params, opt_state), loss)
+        n = torch.as_tensor(target).numel()
+        x, target = data_rows(x, device, data_group), data_rows(target, device, data_group)
+        y, aux = moe_ffn(params, x, cfg, mesh)
+        loss = (y.float() - target.float()).square().sum() / n + aux_weight * aux / n_data
+        state, loss = apply_step(TrainState(params, opt_state), loss, data_group=data_group)
         return state.params, state.opt_state, loss
 
     return init_fn, step_fn

@@ -36,7 +36,7 @@ DEADLINE_S = 120
 METRICS = ("cos", "ip", "l2sq")
 
 
-def _rank_main(rank: int, fn, world: int, tmp: str, args: tuple) -> None:
+def _rank_main(rank: int, fn, world: int, tmp: str) -> None:
     torch.set_num_threads(1)
     sys.modules["transformers"] = None  # the hashing tokenizer and seeded weights, as on the card
     from pathway_tpu_torch.parallel.mesh import initialize_distributed
@@ -48,6 +48,8 @@ def _rank_main(rank: int, fn, world: int, tmp: str, args: tuple) -> None:
         coordinator_address=store, num_processes=world, process_id=rank, device="cpu", timeout=timeout
     ):
         dist.init_process_group("gloo", init_method=store, world_size=1, rank=0, timeout=timeout)
+    with open(os.path.join(tmp, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     try:
         result = fn(rank, world, *args)
     finally:
@@ -65,8 +67,13 @@ class RankGroup:
     def __init__(self, fn, world: int, tmp, *args, deadline_s: float = DEADLINE_S):
         self.name, self.world, self.tmp, self.deadline_s = fn.__name__, world, str(tmp), deadline_s
         self._end = time.monotonic() + deadline_s
+        # the arguments go through a file: through the spawn pipe, more than
+        # its 64 KiB buffer would make each rank wait for the one before it
+        # to boot and read its copy
+        with open(os.path.join(self.tmp, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
         self._ctx = mp.start_processes(
-            _rank_main, args=(fn, world, self.tmp, args), nprocs=world, join=False, start_method="spawn"
+            _rank_main, args=(fn, world, self.tmp), nprocs=world, join=False, start_method="spawn"
         )
         self._results = None
         self._error = None

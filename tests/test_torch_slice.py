@@ -164,7 +164,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     restored, and the multi-device layer (``parallel/mesh.py``,
     ``sharding.py``, ``index.py``, ``ring_attention.py`` and
     ``models/long_context.py``) on a one-rank gloo mesh made on demand, on
-    the CPU."""
+    the CPU, then ``dryrun_multichip(1)`` (tensor, pipeline, expert and
+    data×tensor parallelism) and a mesh LoRA state saved through
+    ``torch.distributed.checkpoint``."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -286,6 +288,17 @@ def test_port_imports_nothing_of_jax(model_dir):
         with tempfile.TemporaryDirectory() as tmp, TrainCheckpointer(tmp) as ck:
             ck.save(lo_state)
             assert ck.restore(init_lora()).step == 1
+        from pathway_tpu_torch.parallel import collectives, dryrun, pipeline  # noqa: F401
+        from pathway_tpu_torch.parallel import dryrun_multichip
+
+        dryrun_multichip(1, device="cpu")  # tp, pp, ep, dp×tp and the index on a one-rank group
+        mesh = make_mesh(device="cpu")
+        init_ml, run_ml = lora.make_lora_train_step(dcfg, lm_state.params, adam, mesh=mesh, rank=2)
+        ml_state, ml_loss = run_ml(init_ml(), ids, np.full(4, 8))
+        with tempfile.TemporaryDirectory() as tmp, TrainCheckpointer(tmp) as ck:
+            ck.save(ml_state)  # through torch.distributed.checkpoint
+            assert ck.restore(init_ml()).step == 1
+        torch.distributed.destroy_process_group()
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -201,3 +201,31 @@ def test_restore_without_checkpoint_raises(tmp_path):
         assert ck.latest_step() is None and ck.all_steps() == []
         with pytest.raises(FileNotFoundError):
             ck.restore(fresh)
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    from tests import gloo_model_ranks as gm
+    from tests import gloo_ranks as g
+
+    tmp = tmp_path_factory.mktemp("sharded")
+    return g.run_ranks(gm.sharded_checkpoint_case, 2, tmp, str(tmp / "ckpt"))
+
+
+@pytest.mark.parametrize("key", ["lm", "lora"])
+def test_sharded_state_resumes_bit_for_bit_across_ranks(sharded, key):
+    """A mesh-placed state (tensor-parallel causal LM; replicated LoRA) at
+    world 2, saved through ``torch.distributed.checkpoint`` by both ranks
+    and restored into a fresh state: the resumed losses are the
+    uninterrupted run's, bit for bit, on every rank."""
+    for res in sharded:
+        r = res[key]
+        assert r["resumed"] == r["after"] and r["restored_step"] == 2 and r["steps"] == [2]
+        assert r["same_tensors"]  # restored into the like-state's own tensors
+        assert r["again"].startswith("FileExistsError")  # a saved step is never overwritten
+        # each rank wrote its own shards; rank 0 the metadata
+        assert r["files"] == [".metadata", "__0_0.distcp", "__1_0.distcp", "meta.pt"]
+    lm, lora = sharded[0]["lm"], sharded[0]["lora"]
+    assert (lm["trainable"], lm["frozen"]) == (12, 0)
+    # the LoRA state writes its wq/wv adapters (a and b) and not its 12 frozen base leaves
+    assert (lora["trainable"], lora["frozen"]) == (4, 12)
