@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,generate,moe,speculative,vision,lora,train,parallel,sharded]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -68,6 +68,20 @@ Phases, each on a line of its own; any failure exits non-zero:
    counted FLOPs against the analytic count, the achieved TFLOP/s and
    utilization over dispatch seconds, ``device.hbm.bytes_in_use`` against
    ``torch.cuda.memory_allocated``);
+7b. dataflow: the Table API and the dataflow core (host engine H1) at
+   full all-MiniLM-L6-v2 width, through ``pw.run`` on the shared default
+   executor with the rail on: 65,536 synthetic texts keyed by ``doc_id``
+   with 64 source ids, staged by ``pw.debug.table_from_rows`` in 8 epochs
+   of 8,192 at times 2-16, a ninth retracting 4,096 docs and replacing
+   the text of 4,096; an async ``pw.udf`` embeds each row through
+   ``AsyncMicroBatcher`` (max batch 256) over ``SentenceEncoder.encode``,
+   a ``pw.apply`` scores it against a unit query, a join with the
+   64-row sources table and ``groupby(source).reduce(count, sum)``; rows/s,
+   host ms per epoch and outside the UDF node, the forwards' device ms and
+   the idle share, the batch sizes; the final rows held to a direct
+   ``encode`` of the live texts (cosine > 0.999, retracted docs absent,
+   replaced texts embedded), counts to a recount and sums within 1e-3,
+   no ``ERROR``, the native core loaded, launches counted like phase 4;
 8. generate: decoder generation at full mistral-7b-instruct width (seeded
    random bf16 weights): a burst of 32 requests (prompts of 64-896 token
    ids, 128 new tokens, 24 greedy and 8 at temperature 0.7 / top-p 0.9)
@@ -197,7 +211,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-15 (all run by default), to
+``--skip`` leaves out the named phases of 5-15 and 7b (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -736,7 +750,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "executor", "generate", "moe", "speculative", "vision", "lora", "train",
+SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "generate", "moe", "speculative", "vision", "lora", "train",
              "parallel", "sharded")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
@@ -1537,6 +1551,240 @@ def executor_phase(device, seed: int, checked: dict, texts) -> dict:
         max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
     return {"launches": launches, "attention_launches": dict(seen), "overlap": overlap, "batcher": batcher_line,
             "rail": rail, "oom": oom, "overhead": overhead, "accounting": accounting}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: a Table program that embeds through the encoder kernel.
+# ---------------------------------------------------------------------------
+
+DATAFLOW_DOCS = 65536
+DATAFLOW_EPOCHS = 8  # at even times 2-16
+DATAFLOW_SOURCES = 64
+DATAFLOW_CHANGES = 4096  # retracted, and as many replaced, in a ninth epoch
+DATAFLOW_BATCH = 256  # SentenceTransformerEmbedder's max_batch_size (xpacks/llm/embedders.py:49)
+DATAFLOW_SUM_REL = 1e-3
+
+
+def dataflow_stream(texts, n_docs: int, epochs: int, changes: int, n_sources: int, seed: int) -> dict:
+    """The ``[dataflow]`` program's input: ``n_docs`` of ``texts`` keyed by
+    ``doc_id``, each with one of ``n_sources`` source ids, in ``epochs``
+    epochs at even times from 2; a last epoch retracts ``changes`` docs and
+    replaces the text of ``changes`` others (``texts[n_docs:]``) under the
+    same keys.  Returns the rows ``(doc_id, text, source, time, diff)``,
+    the source rows, the live ``{doc_id: (text, source)}`` after the last
+    epoch, and the retracted and replaced ids."""
+    rng = np.random.default_rng(seed)
+    sources = rng.integers(0, n_sources, size=n_docs)
+    per = n_docs // epochs
+    rows = [(i, texts[i], int(sources[i]), 2 + 2 * (i // per), 1) for i in range(n_docs)]
+    picked = [int(i) for i in rng.permutation(n_docs)[: 2 * changes]]
+    retracted, replaced = picked[:changes], picked[changes:]
+    last = 2 + 2 * epochs
+    rows += [(i, texts[i], int(sources[i]), last, -1) for i in picked]
+    rows += [(i, texts[n_docs + j], int(sources[i]), last, 1) for j, i in enumerate(replaced)]
+    live = {i: (texts[i], int(sources[i])) for i in range(n_docs)}
+    for i in retracted:
+        del live[i]
+    for j, i in enumerate(replaced):
+        live[i] = (texts[n_docs + j], int(sources[i]))
+    names = [(s, f"source-{s:02d}") for s in range(n_sources)]
+    return {"rows": rows, "sources": names, "live": live, "retracted": retracted, "replaced": replaced}
+
+
+def embedding_udf(pw, submit):
+    """An async ``pw.udf`` over ``submit`` (a micro-batcher's), as
+    ``SentenceTransformerEmbedder`` builds it (xpacks/llm/embedders.py:50-80)."""
+
+    @pw.udf(executor=pw.udfs.async_executor(), deterministic=True)
+    async def embed(text: str) -> np.ndarray:
+        return await submit(text)
+
+    return embed
+
+
+def dataflow_program(pw, stream: dict, embed, query) -> dict:
+    """The ``[dataflow]`` Table program, for either package as ``pw``: the
+    docs embedded by ``embed``, scored against the unit vector ``query``,
+    joined with their source, and each source's count and score sum.
+    Returns ``{"docs": ..., "per_source": ...}``."""
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+        source: int
+
+    class Source(pw.Schema):
+        source: int = pw.column_definition(primary_key=True)
+        name: str
+
+    docs = pw.debug.table_from_rows(Doc, stream["rows"], is_stream=True)
+    sources = pw.debug.table_from_rows(Source, stream["sources"])
+    query = np.asarray(query, np.float32)
+    vecs = docs.select(doc_id=pw.this.doc_id, source=pw.this.source, vec=embed(pw.this.text))
+    scored = vecs.select(pw.this.doc_id, pw.this.source, pw.this.vec,
+                         score=pw.apply_with_type(lambda v: float(np.dot(v, query)), float, pw.this.vec))
+    joined = scored.join(sources, pw.left.source == pw.right.source).select(
+        doc_id=pw.left.doc_id, name=pw.right.name, vec=pw.left.vec, score=pw.left.score)
+    per_source = joined.groupby(pw.this.name).reduce(
+        name=pw.this.name, count=pw.reducers.count(), total=pw.reducers.sum(pw.this.score))
+    return {"docs": joined, "per_source": per_source}
+
+
+def final_rows(deltas) -> dict:
+    """``{key: row}`` of a change stream ``[(key, row, time, diff)]`` after
+    its last epoch (an epoch retracts a key's old row before it inserts the
+    new one)."""
+    live: dict = {}
+    for key, row, _time, diff in sorted(deltas, key=lambda d: (d[2], d[3])):
+        if diff > 0:
+            live[key] = row
+        else:
+            live.pop(key, None)
+    return live
+
+
+def dataflow_phase(device, seed: int, checked: dict) -> dict:
+    """Phase 7b: the dataflow core and the Table API at full all-MiniLM-L6-v2
+    width, through ``pw.run``.  ``checked`` gains the attention shapes the
+    run gave the kernel."""
+    import asyncio
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    if native.get() is None:
+        fail("dataflow: the native core did not load")
+    ex = get_default_executor(device)
+    enc = pw.SentenceEncoder("all-MiniLM-L6-v2", seed=seed)
+    texts, _, _, _ = synthetic_corpus(DATAFLOW_DOCS + DATAFLOW_CHANGES, seed + 101)
+    stream = dataflow_stream(texts, DATAFLOW_DOCS, DATAFLOW_EPOCHS, DATAFLOW_CHANGES, DATAFLOW_SOURCES, seed + 103)
+    query = np.random.default_rng(seed + 107).normal(size=enc.dimensions).astype(np.float32)
+    query /= np.linalg.norm(query)
+    sizes: list[int] = []
+    embedded: set = set()
+
+    def process(items):
+        sizes.append(len(items))
+        embedded.update(items)
+        return enc.encode(items)
+
+    batcher = AsyncMicroBatcher(process, max_batch_size=DATAFLOW_BATCH, executor=ex, name="dataflow:embedder")
+
+    async def warm_up():
+        return await asyncio.gather(*(batcher.submit(t) for t in texts[:1024]))
+
+    asyncio.run(warm_up())
+    sizes.clear()
+    embedded.clear()
+    tables = dataflow_program(pw, stream, embedding_udf(pw, batcher.submit), query)
+    captured = {name: [] for name in tables}
+    for name, table in tables.items():
+        table._subscribe_raw(lambda k, r, t, d, out=captured[name]: out.append((k, r, t, d)), name=f"dataflow:{name}")
+
+    # host time per epoch, and the async-UDF node's share of it (the awaits)
+    epochs_ms: list[float] = []
+    udf_s = [0.0]
+    run_epoch, udf_step = df.Scope.run_epoch, df.AsyncValuesNode.step
+
+    def timed_epoch(scope, time_):
+        t0 = time.perf_counter()
+        try:
+            return run_epoch(scope, time_)
+        finally:
+            if scope.parent is None:
+                epochs_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_udf(node, time_):
+        t0 = time.perf_counter()
+        try:
+            return udf_step(node, time_)
+        finally:
+            udf_s[0] += time.perf_counter() - t0
+
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen)]
+    events, remove_events = forward_events(enc)
+    df.Scope.run_epoch, df.AsyncValuesNode.step = timed_epoch, timed_udf
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen.clear()
+    before = rail_state(device)
+    try:
+        t0 = time.perf_counter()
+        result = pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+        wall_s = time.perf_counter() - t0
+    finally:
+        df.Scope.run_epoch, df.AsyncValuesNode.step = run_epoch, udf_step
+        pw.G.clear()
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    device_ms = events_ms(events)
+    for h in hooks:
+        h.remove()
+    remove_events()
+    rail = rail_gate("dataflow", device, before)
+
+    live = stream["live"]
+    docs = final_rows(captured["docs"])
+    got = {row[0]: row for row in docs.values()}
+    errors = sum(1 for rows in captured.values() for _k, row, _t, _d in rows if any(v is pw.ERROR for v in row))
+    ids = sorted(live)
+    direct = np.concatenate([enc.encode([live[i][0] for i in ids[j : j + 512]]) for j in range(0, len(ids), 512)])
+    missing = [i for i in ids if i not in got]
+    vecs = np.stack([np.asarray(got[i][2], np.float32) for i in ids]) if not missing else None
+    cos = (vecs * direct).sum(1) / (np.linalg.norm(vecs, axis=1) * np.linalg.norm(direct, axis=1)) if vecs is not None \
+        else np.zeros(1)
+    names = dict(stream["sources"])
+    want_count = {names[s]: 0 for s in names}
+    want_total = {names[s]: 0.0 for s in names}
+    for i, v in zip(ids, direct):
+        name = names[live[i][1]]
+        want_count[name] += 1
+        want_total[name] += float(np.dot(v, query))
+    groups = {row[0]: row for row in final_rows(captured["per_source"]).values()}
+    count_ok = {n: c for n, c in want_count.items() if c} == {n: row[1] for n, row in groups.items()}
+    sum_err = max(abs(groups[n][2] - want_total[n]) / max(abs(want_total[n]), 1.0) for n in groups) if groups else 1.0
+    replaced_new = [texts[DATAFLOW_DOCS + j] for j in range(len(stream["replaced"]))]
+    res = {
+        "docs": DATAFLOW_DOCS, "epochs": result.epochs, "sources": DATAFLOW_SOURCES, "changes": DATAFLOW_CHANGES,
+        "rows_in": len(stream["rows"]), "rows_per_s": len(stream["rows"]) / wall_s, "wall_ms": wall_s * 1e3,
+        "host_ms_per_epoch": epochs_ms, "udf_ms": udf_s[0] * 1e3,
+        "dataflow_host_ms_outside_udf": sum(epochs_ms) - udf_s[0] * 1e3,
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / (wall_s * 1e3),
+        "batches": len(sizes), "batch_sizes": {int(s): sizes.count(s) for s in sorted(set(sizes))},
+        "texts_embedded": sum(sizes), "live_docs": len(ids), "missing_docs": len(missing),
+        "retracted_present": sum(1 for i in stream["retracted"] if i in got),
+        "replaced_not_embedded": sum(1 for t in replaced_new if t not in embedded),
+        "min_cos_vs_encode": float(cos.min()), "count_equal": count_ok, "max_sum_rel_err": sum_err,
+        "error_rows": errors, "native": native.get() is not None, "launches": launches,
+    }
+    log("dataflow", **{k: v for k, v in res.items() if k != "launches"}, kernel_launches=launches)
+    # the docs' epochs, the changes' and the sources' (static, at time 0)
+    if res["epochs"] != DATAFLOW_EPOCHS + 2 or missing or res["retracted_present"]:
+        fail(f"dataflow: {res['epochs']} epochs, {len(missing)} live docs missing, "
+             f"{res['retracted_present']} retracted docs present")
+    if res["min_cos_vs_encode"] <= COS_MIN:
+        fail(f"dataflow: final rows against a direct encode, min cosine {res['min_cos_vs_encode']}")
+    if res["replaced_not_embedded"]:
+        fail(f"dataflow: {res['replaced_not_embedded']} replaced texts were not re-embedded")
+    if not count_ok or not sum_err <= DATAFLOW_SUM_REL:
+        fail(f"dataflow: per-source counts equal {count_ok}, score sums off by {sum_err} relative")
+    if errors:
+        fail(f"dataflow: {errors} rows hold ERROR")
+    expected = sum(seen.values())
+    if launches["encoder_attention"] != expected or not expected:
+        fail(f"dataflow: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen})")
+    gen = torch.Generator(device=device).manual_seed(seed + 109)
+    for shape in sorted(set(seen) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("dataflow", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
 
 
 # ---------------------------------------------------------------------------
@@ -3834,6 +4082,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["executor"] = executor_phase(device, args.seed, checked, texts)
         seconds["executor"] = time.perf_counter() - t_phase
+    if "dataflow" not in skip:
+        t_phase = time.perf_counter()
+        phases["dataflow"] = dataflow_phase(device, args.seed, checked)
+        seconds["dataflow"] = time.perf_counter() - t_phase
     parallel_texts = texts[:LONG_TEXTS]
     del texts, lengths
     # the decoder phases and the multimodal encoder, one model on the card at a time

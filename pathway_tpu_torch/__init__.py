@@ -19,7 +19,107 @@ typed failure rail, cost accounting), with ``utils.batching``'s
 the first CUDA device unless the caller passes ``device=`` (``"cpu"``
 runs the kernels' plain PyTorch versions).  The port imports nothing of
 JAX or of ``pathway_tpu``.
+
+The Table API around them mirrors ``import pathway as pw`` as the JAX
+package does: ``Table``, ``Schema``, ``this``/``left``/``right``,
+expressions, ``reducers``, ``groupby``, the joins, ``iterate``, ``udf``
+with its executors and caches, ``run`` and ``debug``, over the incremental
+dataflow of ``engine/dataflow.py`` and its native C++ core (``native/``).
+A UDF that calls an encoder (through ``AsyncMicroBatcher``) runs the
+encoder's kernels inside the dataflow.
 """
+
+from __future__ import annotations
+
+import datetime as _datetime
+
+from pathway_tpu_torch.engine.types import (
+    ERROR,
+    Json,
+    Pointer,
+    PyObjectWrapper,
+    wrap_py_object,
+)
+from pathway_tpu_torch.internals import dtype as _dt
+from pathway_tpu_torch.internals import reducers
+from pathway_tpu_torch.internals.config import local_pathway_config
+from pathway_tpu_torch.internals.expression import (
+    ColumnExpression,
+    ColumnReference,
+    apply,
+    apply_async,
+    apply_with_type,
+    assert_table_has_schema,
+    cast,
+    coalesce,
+    declare_type,
+    fill_error,
+    if_else,
+    make_tuple,
+    require,
+    unwrap,
+)
+from pathway_tpu_torch.internals.reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.schema import (
+    ColumnDefinition,
+    Schema,
+    SchemaProperties,
+    column_definition,
+    schema_builder,
+    schema_from_csv,
+    schema_from_dict,
+    schema_from_types,
+)
+from pathway_tpu_torch.internals.table import (
+    GroupedJoinResult,
+    GroupedTable,
+    Joinable,
+    JoinMode,
+    JoinResult,
+    OuterJoinResult,
+    Table,
+    TableLike,
+    TableSlice,
+    groupby,
+    join,
+    join_inner,
+    join_left,
+    join_outer,
+    join_right,
+)
+from pathway_tpu_torch.internals.thisclass import left, right, this
+from pathway_tpu_torch.internals.runner import run, run_all
+from pathway_tpu_torch.internals.parse_graph import G
+from pathway_tpu_torch.internals.udfs import UDF, udf
+from pathway_tpu_torch.internals.monitoring import MonitoringLevel
+from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
+from pathway_tpu_torch.internals import universes
+from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
+from pathway_tpu_torch import debug, udfs
+
+# datetime convenience types (pw.DateTimeNaive etc.)
+DateTimeNaive = _datetime.datetime
+DateTimeUtc = _datetime.datetime
+Duration = _datetime.timedelta
+
+
+class Type:
+    """Engine type enum facade (pw.Type.INT etc., api.py PathwayType)."""
+
+    ANY = _dt.ANY
+    STRING = _dt.STR
+    INT = _dt.INT
+    BOOL = _dt.BOOL
+    FLOAT = _dt.FLOAT
+    POINTER = _dt.POINTER
+    DATE_TIME_NAIVE = _dt.DATE_TIME_NAIVE
+    DATE_TIME_UTC = _dt.DATE_TIME_UTC
+    DURATION = _dt.DURATION
+    ARRAY = _dt.ANY_ARRAY
+    JSON = _dt.JSON
+    BYTES = _dt.BYTES
+    PY_OBJECT_WRAPPER = _dt.PY_OBJECT_WRAPPER
+
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderLM
@@ -32,6 +132,71 @@ from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
 )
 
 __all__ = [
+    "ERROR",
+    "BaseCustomAccumulator",
+    "ColumnDefinition",
+    "ColumnExpression",
+    "ColumnReference",
+    "DateTimeNaive",
+    "DateTimeUtc",
+    "Duration",
+    "G",
+    "GroupedJoinResult",
+    "GroupedTable",
+    "JoinMode",
+    "JoinResult",
+    "Joinable",
+    "Json",
+    "MonitoringLevel",
+    "OuterJoinResult",
+    "Pointer",
+    "PyObjectWrapper",
+    "Schema",
+    "SchemaProperties",
+    "Table",
+    "TableLike",
+    "TableSlice",
+    "Type",
+    "UDF",
+    "apply",
+    "apply_async",
+    "apply_with_type",
+    "assert_table_has_schema",
+    "cast",
+    "coalesce",
+    "column_definition",
+    "debug",
+    "declare_type",
+    "fill_error",
+    "global_error_log",
+    "groupby",
+    "if_else",
+    "iterate",
+    "iterate_universe",
+    "join",
+    "join_inner",
+    "join_left",
+    "join_outer",
+    "join_right",
+    "left",
+    "local_error_log",
+    "local_pathway_config",
+    "make_tuple",
+    "reducers",
+    "require",
+    "right",
+    "run",
+    "run_all",
+    "schema_builder",
+    "schema_from_csv",
+    "schema_from_dict",
+    "schema_from_types",
+    "this",
+    "udf",
+    "udfs",
+    "universes",
+    "unwrap",
+    "wrap_py_object",
     "BruteForceKnnIndex",
     "CrossEncoder",
     "DecoderLM",

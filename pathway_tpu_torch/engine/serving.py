@@ -6,15 +6,19 @@ future fails with, :class:`Deadline`, the ambient deadline of the calling
 context, and the shed-before-work check (:func:`shed_if_expired`) with its
 ``serve.deadline.exceeded``/``serve.shed`` counters, which
 ``DeviceExecutor.submit`` and ``AsyncMicroBatcher`` call before any device
-work.  The admission controller, load shedding and drain wait for the
-host-engine slice of the port.
+work; and the request-row registry behind :func:`note_row_error`, the
+dataflow's poisoned-row hook (a no-op while nothing is serving).  The
+admission controller, its quarantine, load shedding and drain wait for the
+serving slice of the port (H5).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 import time
+from typing import Callable
 
 from pathway_tpu_torch.engine import metrics as metrics_mod
 
@@ -116,3 +120,51 @@ def note_deadline_shed(where: str) -> None:
         "serve.deadline.exceeded", "requests answered 504, by where the lapse was caught", where=where
     ).inc()
     reg.counter("serve.shed", "requests shed before pipeline work", reason=where).inc()
+
+
+# ---------------------------------------------------------------------------
+# request registry: pipeline-side typed completion
+# ---------------------------------------------------------------------------
+
+# key -> fail callback (status, message) — registered for every in-flight
+# request row by the REST ingress, called (threadsafe) by the dataflow
+# row-error hook.  Module-level so the epoch thread can reach it without
+# holding a reference to the webserver.
+_requests: dict[int, Callable[[int, str], None]] = {}
+_requests_lock = threading.Lock()
+
+
+def register_request(key: int, fail_cb: Callable[[int, str], None]) -> None:
+    with _requests_lock:
+        _requests[key] = fail_cb
+
+
+def unregister_request(key: int) -> None:
+    with _requests_lock:
+        _requests.pop(key, None)
+
+
+def fail_request(key: int, status: int, message: str) -> bool:
+    """Complete the waiting future of request ``key`` with a typed error.
+
+    Called from the epoch thread — must stay cheap when serving is
+    inactive: one falsy dict check."""
+    if not _requests:
+        return False
+    with _requests_lock:
+        cb = _requests.get(key)
+    if cb is None:
+        return False
+    try:
+        cb(status, message)
+    except Exception:  # noqa: BLE001 - a dead event loop must not hurt the epoch
+        return False
+    return True
+
+
+def note_row_error(key: int, message: str) -> None:
+    """Pipeline errored on row ``key``: if it is a serving request,
+    complete it as a typed 500."""
+    if not _requests:
+        return
+    fail_request(key, 500, message)

@@ -1,5 +1,7 @@
-"""The ``PATHWAY_DEVICE_*`` environment knobs of the device executor, and
-the worker topology that ``parallel/mesh.py::initialize_distributed`` reads.
+"""The ``PATHWAY_DEVICE_*`` environment knobs of the device executor, the
+worker topology that ``parallel/mesh.py::initialize_distributed`` reads,
+the dataflow engine's switches (``PATHWAY_NATIVE``, ``PATHWAY_COLUMNAR``)
+and the part of ``PathwayConfig`` that the expression evaluator reads.
 
 A copy of the executor's part of ``pathway_tpu/internals/config.py``
 (``ENV_KNOBS`` and the typed accessors) and of its worker-topology fields
@@ -15,8 +17,10 @@ notion; an eager PyTorch call never donates its inputs).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+from contextvars import ContextVar
 from typing import Any
 
 
@@ -66,6 +70,15 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
     EnvKnob("PATHWAY_FIRST_PORT", "int", 10000, "first port of the workers' TCP mesh"),
     EnvKnob("PATHWAY_PEER_HOSTS", "str", None,
             "comma-separated hostname per worker id; unset = localhost"),
+    EnvKnob("PATHWAY_TERMINATE_ON_ERROR", "bool", True,
+            "terminate the run on the first operator error (else poison rows "
+            "and continue)"),
+    EnvKnob("PATHWAY_NATIVE", "bool", True,
+            "`0` disables the native C++ core (pure-Python fallback)"),
+    EnvKnob("PATHWAY_NATIVE_BUILD_DIR", "str", None,
+            "directory of the native core's build (default: native/build)"),
+    EnvKnob("PATHWAY_COLUMNAR", "bool", True,
+            "`0` forces every operator onto the row-wise reference evaluator"),
 )
 
 ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}
@@ -146,3 +159,37 @@ def worker_topology() -> WorkerTopology:
         first_port=env_int("PATHWAY_FIRST_PORT"),
         peer_hosts=[h.strip() for h in hosts.split(",")] if hosts else None,
     )
+
+
+@dataclasses.dataclass
+class PathwayConfig:
+    """The fields of the JAX package's ``PathwayConfig`` that the port's
+    dataflow reads; the rest arrive with the slices that read them."""
+
+    terminate_on_error: bool = dataclasses.field(
+        default_factory=lambda: env_bool("PATHWAY_TERMINATE_ON_ERROR")
+    )
+
+
+_config_var: ContextVar[PathwayConfig | None] = ContextVar("pathway_config", default=None)
+_global_config: PathwayConfig | None = None
+
+
+def get_config() -> PathwayConfig:
+    cfg = _config_var.get()
+    if cfg is not None:
+        return cfg
+    global _global_config
+    if _global_config is None:
+        _global_config = PathwayConfig()
+    return _global_config
+
+
+@contextlib.contextmanager
+def local_pathway_config(**overrides: Any):
+    cfg = dataclasses.replace(get_config(), **overrides)
+    token = _config_var.set(cfg)
+    try:
+        yield cfg
+    finally:
+        _config_var.reset(token)

@@ -153,8 +153,12 @@ def gather_rows(x, group):
 
 
 def own_rows(x, group, dim: int = 0):
-    """The rank's block of ``x`` along ``dim`` (the inverse of a gather)."""
+    """The rank's block of ``x`` along ``dim`` (the inverse of a gather).
+    ``dim`` must split evenly over ``group``: a remainder would be no
+    rank's rows, so it raises as ``put_global`` does."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over {n} ranks")
     size = x.shape[dim] // n
     return x.narrow(dim, r * size, size)
 

@@ -150,7 +150,9 @@ def contrastive_mesh_case(rank: int, world: int, enc_cfg: dict, params_np: dict,
         losses.append(float(loss))
     grads = dict(zip(sorted(state.params), state.opt_state.first_grads))
     placements = {k: tuple(str(p) for p in v.placements) for k, v in state.params.items()}
-    return dict(shape=tuple(mesh.shape), losses=losses, grads=grads, placements=placements,
+    # 3 rows do not split over ``data`` at (2, 2): JAX's device_put raises
+    uneven = _error(lambda: step(state, *(b[:3] for b in batch)))
+    return dict(shape=tuple(mesh.shape), losses=losses, grads=grads, placements=placements, uneven=uneven,
                 both=_error(lambda: make_contrastive_train_step(module, device="cpu", mesh=mesh)))
 
 
@@ -173,7 +175,8 @@ def lm_mesh_case(rank: int, world: int, trees: dict, ids, lens) -> dict:
         for _ in range(DP_STEPS):
             state, loss = run(state, ids, lens)
             losses.append(float(loss))
-        out[name] = dict(losses=losses, grads=named_grads(state), step=state.step)
+        out[name] = dict(losses=losses, grads=named_grads(state), step=state.step,
+                         uneven=_error(lambda: run(state, ids[:3], lens[:3])))
     out["both"] = _error(lambda: make_causal_lm_train_step(cfg, capture(), device="cpu", mesh=mesh))
     return out
 
@@ -216,7 +219,8 @@ def moe_ep_cases(rank: int, world: int, ffn: tuple, train: tuple | None) -> dict
             p, o, loss = step_fn(p, o, xs, target)
             losses.append(float(loss))
         out["train"] = dict(losses=losses, grads=dict(zip(sorted(p), o.first_grads)),
-                            local=tuple(p["wg"].to_local().shape))
+                            local=tuple(p["wg"].to_local().shape),
+                            uneven=_error(lambda: step_fn(p, o, xs[:3], target[:3])))
     return out
 
 

@@ -110,3 +110,10 @@ def test_contrastive_params_follow_shard_params(ranks):
         split = [k for k, p in placements.items() if p[1].startswith("S(")]
         assert split and len(split) < len(placements)
         assert res["both"].startswith("ValueError") and "not both" in res["both"]
+
+
+def test_contrastive_mesh_refuses_rows_that_do_not_split(ranks):
+    """3 rows over ``data`` of 2 raise, as JAX's ``device_put`` onto
+    ``P("data")`` does, instead of dropping the third row."""
+    for res in ranks:
+        assert res["uneven"] == "ValueError: dim 0 of size 3 does not split over 2 ranks"

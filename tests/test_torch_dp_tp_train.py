@@ -150,3 +150,12 @@ def test_lm_mesh_grads_match_jax(all_ranks, want, world):
 @pytest.mark.parametrize("world", WORLDS)
 def test_lm_mesh_losses_match_jax(all_ranks, want, world):
     check_lm_losses(all_ranks[world], want, DECODER)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_lm_mesh_refuses_rows_that_do_not_split(all_ranks, world):
+    """3 rows raise at (2, 2), as JAX's ``device_put`` onto ``P("data")``
+    does, instead of dropping the third row; ``data`` of 1 takes them."""
+    for res in all_ranks[world]:
+        want = "ValueError: dim 0 of size 3 does not split over 2 ranks" if world == 4 else "no error"
+        assert res[DECODER]["uneven"] == want

@@ -118,3 +118,9 @@ def test_ep_train_step_matches_jax(all_ranks, want):
         for name, grad in r["grads"].items():
             assert rel_l2(grad, want["grads"][name]) < TOL, name
             assert np.abs(grad).max() > 0, name
+
+
+def test_ep_train_step_refuses_rows_that_do_not_split(all_ranks):
+    """3 tokens over ``data`` of 2 raise, as JAX's ``device_put`` does."""
+    for res in all_ranks[4]:
+        assert res["train"]["uneven"] == "ValueError: dim 0 of size 3 does not split over 2 ranks"

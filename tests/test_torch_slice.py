@@ -166,7 +166,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     ``models/long_context.py``) on a one-rank gloo mesh made on demand, on
     the CPU, then ``dryrun_multichip(1)`` (tensor, pipeline, expert and
     data×tensor parallelism) and a mesh LoRA state saved through
-    ``torch.distributed.checkpoint``."""
+    ``torch.distributed.checkpoint``; then the Table API (the dataflow,
+    the table, the runner, ``debug`` and the native core) runs a
+    three-row ``groupby`` through ``pw.run``."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -299,6 +301,17 @@ def test_port_imports_nothing_of_jax(model_dir):
             ck.save(ml_state)  # through torch.distributed.checkpoint
             assert ck.restore(init_ml()).step == 1
         torch.distributed.destroy_process_group()
+        import pathway_tpu_torch.debug, pathway_tpu_torch.engine.dataflow  # noqa: E401
+        import pathway_tpu_torch.internals.runner, pathway_tpu_torch.internals.table  # noqa: E401
+        from pathway_tpu_torch import native
+
+        assert native.get() is not None
+        t = pt.debug.table_from_markdown("g | v\\na | 1\\nb | 2\\na | 3")
+        got = []
+        t.groupby(pt.this.g).reduce(g=pt.this.g, s=pt.reducers.sum(pt.this.v))._subscribe_raw(
+            lambda key, row, time, diff: got.append((row, diff)))
+        assert pt.run(monitoring_level=pt.MonitoringLevel.NONE).epochs == 1
+        assert sorted(got) == [(("a", 4), 1), (("b", 2), 1)], got
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")
