@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -209,9 +209,35 @@ Phases, each on a line of its own; any failure exits non-zero:
    after step 3 and resumed, the resumed losses bit-equal.  ``dryrun``:
    ``dryrun_multichip(1)`` on the card.
 
+16. vector_store: the connectors and the retrieval half of the LLM xpack,
+   last (its streaming fs reader polls on after the run, as the JAX
+   package's does): ``VectorStoreServer`` over
+   ``SentenceTransformerEmbedder("all-MiniLM-L6-v2")`` (seeded weights,
+   the shared default executor, batches of up to 256),
+   ``TokenCountSplitter()``, ``ParseUtf8`` and a cosine ``BruteForceKnn``,
+   fed by ``pw.io.fs.read(mode="streaming", format="binary",
+   with_metadata=True)`` over 16,384 files of 100-1,000 words and queried
+   through ``pw.io.python.read``, its answers, its chunk table and its
+   statistics read by ``pw.io.subscribe``: once the corpus is indexed, 64
+   batches of 64 queries at k=10 (8-32 word spans of live chunks with a
+   quarter of the words swapped), each committed and answered before the
+   next; 2,048 live changes (1,024 files added, 512 deleted, 512
+   rewritten) in 32 bursts 0.25 s apart; once the statistics show 16,896
+   files and every change has shown in the chunk table, 64 more batches;
+   the answers' subscriber ends the run with an exception of the phase's
+   own at the last query's first answer.  Ingest chunks/s and docs/s, host
+   ms per epoch, the forwards' device ms and idle share, batch sizes, the
+   padding share of the ids embedded, query latency, staleness of the
+   changes, launches by shape; gated on the file count, no answer naming
+   a change already seen, the answers against a direct ``encode`` of
+   every chunk and query with f32 cosine scores and ``torch.topk`` (stage
+   1's first answers on the initial corpus, every last answer on the
+   final one; ids equal but at ties within 1e-2, scores within 1e-2), no
+   ``ERROR``, the native core loaded and the rail still.
+
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-15 and 7b (all run by default), to
+``--skip`` leaves out the named phases of 5-16 and 7b (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -751,7 +777,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "generate", "moe", "speculative", "vision", "lora", "train",
-             "parallel", "sharded")
+             "parallel", "sharded", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -4018,6 +4044,498 @@ def sharded_phase(device, seed: int, card: str) -> dict:
     return {"launches": launches, "attention_launches": {}, **parts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the connectors and the retrieval half of the LLM xpack.
+# ---------------------------------------------------------------------------
+
+VS_MODEL = "all-MiniLM-L6-v2"
+VS_FILES = 16384
+VS_WORDS = (100, 1000)
+VS_BATCHES = 64  # per traffic stage, one commit each
+VS_QUERIES = 64
+VS_K = 10
+VS_QUERY_WORDS = (8, 32)
+VS_NEW, VS_DELETED, VS_REWRITTEN = 1024, 512, 512
+VS_BURSTS = 32  # the live changes, in bursts VS_BURST_GAP_S apart
+VS_BURST_GAP_S = 0.25
+VS_CHUNK_WORDS = 500  # TokenCountSplitter's max_tokens; the corpus has no sentence ends to break at
+VS_WAIT_S = 300.0  # the longest any stage may wait on the run
+# a returned chunk may score below the plain k-th by this much (a tie): by
+# up to twice the error of one chunk's score (its own and the k-th's), and
+# the bf16 index's scores parted from the plain re-encode's by up to 0.0027
+# (NVIDIA H100 80GB HBM3, 700 W)
+VS_TIE_TOL = 6e-3
+
+
+class VectorStoreDone(Exception):
+    """Ends the ``[vector_store]`` run from its answers' subscriber: a
+    streaming fs source never finishes by itself."""
+
+
+def plain_chunks(words) -> list:
+    """``TokenCountSplitter()``'s chunks of a text without sentence ends:
+    consecutive spans of 500 words (of ``words``, any sequence)."""
+    return [words[a : a + VS_CHUNK_WORDS] for a in range(0, len(words), VS_CHUNK_WORDS)]
+
+
+def vs_corpus(seed: int) -> dict:
+    """The phase's documents: 16,384 initial ones, 1,024 to add, 512 to
+    delete and 512 to rewrite (with new text); their chunks, and the
+    queries: 2 stages of 64 batches of 64, each a span of 8-32 words of a
+    live chunk with a quarter of its words swapped."""
+    n_texts = VS_FILES + VS_NEW + VS_REWRITTEN
+    texts, _lengths, ids, vocab = synthetic_corpus(n_texts, seed + 201, words_per_text=VS_WORDS)
+    rng = np.random.default_rng(seed + 203)
+    picked = [int(i) for i in rng.permutation(VS_FILES)[: VS_DELETED + VS_REWRITTEN]]
+    deleted, rewritten = picked[:VS_DELETED], picked[VS_DELETED:]
+    names = [f"doc{i:05d}.txt" for i in range(VS_FILES + VS_NEW)]
+    # a file's text: texts[i] at first; a rewrite gives it texts[VS_FILES + VS_NEW + j]
+    new_text = {i: VS_FILES + VS_NEW + j for j, i in enumerate(rewritten)}
+    chunk_ids: dict[str, int] = {}
+    chunk_words: list = []
+    doc_chunks: dict[int, list[int]] = {}  # text index -> its chunk ids
+    for t in range(n_texts):
+        cids = []
+        for words in plain_chunks(ids[t]):
+            text = " ".join(vocab[w] for w in words)
+            cid = chunk_ids.setdefault(text, len(chunk_ids))
+            if cid == len(chunk_words):
+                chunk_words.append(words)
+            cids.append(cid)
+        doc_chunks[t] = cids
+    initial = [c for i in range(VS_FILES) for c in doc_chunks[i]]
+    gone = set(deleted)
+    final_docs = [new_text.get(i, i) for i in range(VS_FILES + VS_NEW) if i not in gone]
+    final = [c for t in final_docs for c in doc_chunks[t]]
+
+    def stage(live):
+        out = []
+        for _ in range(VS_BATCHES):
+            batch = []
+            for _ in range(VS_QUERIES):
+                words = chunk_words[live[int(rng.integers(len(live)))]]
+                n = min(int(rng.integers(VS_QUERY_WORDS[0], VS_QUERY_WORDS[1] + 1)), len(words))
+                start = int(rng.integers(0, len(words) - n + 1))
+                span = np.array(words[start : start + n])
+                swap = rng.random(n) < QUERY_SWAP
+                span[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+                batch.append(" ".join(vocab[w] for w in span))
+            out.append(batch)
+        return out
+
+    return {"texts": texts, "names": names, "deleted": deleted, "rewritten": rewritten, "new_text": new_text,
+            "chunk_ids": chunk_ids, "doc_chunks": doc_chunks, "initial": initial, "final": final,
+            "queries": [stage(initial), stage(final)]}
+
+
+def vs_changes(corpus: dict, seed: int) -> list:
+    """The live changes ``(kind, file index)`` in a seeded order, in
+    ``VS_BURSTS`` bursts."""
+    ops = ([("new", VS_FILES + j) for j in range(VS_NEW)] + [("delete", i) for i in corpus["deleted"]]
+           + [("rewrite", i) for i in corpus["rewritten"]])
+    order = np.random.default_rng(seed + 205).permutation(len(ops))
+    ops = [ops[i] for i in order]
+    per = len(ops) // VS_BURSTS
+    return [ops[b * per : (b + 1) * per] for b in range(VS_BURSTS)]
+
+
+class VectorStoreTraffic:
+    """The ``[vector_store]`` run's traffic and what its subscribers see.
+
+    A thread waits until the initial corpus is indexed, opens stage 1 of the
+    queries (64 batches of 64, each committed and answered before the next),
+    then makes the live changes in bursts and, once the statistics show the
+    final file count and every change has shown in the chunk table, opens
+    stage 2.  The answers' subscriber ends the run (``VectorStoreDone``)
+    at the last query's first answer.  A watchdog interrupts the run when a
+    wait passes ``VS_WAIT_S``."""
+
+    def __init__(self, corpus: dict, docs_dir: str, staging: str, bursts: list, key_of):
+        import threading
+
+        self.corpus, self.docs_dir, self.staging, self.bursts = corpus, docs_dir, staging, bursts
+        self.n_queries = 2 * VS_BATCHES * VS_QUERIES
+        self.query_of = {key_of(n): n for n in range(self.n_queries)}
+        self.indexed = threading.Event()
+        self.go = [threading.Event(), threading.Event()]
+        self.batch_done = [threading.Event() for _ in range(2 * VS_BATCHES)]
+        self.settled = threading.Event()
+        self.failure: str | None = None
+        self.t_run = self.t_indexed = self.t_stage1 = self.t_settled = None
+        self.sent: list[float] = []  # per batch, just before its first row
+        self.first: dict[int, tuple[float, tuple]] = {}  # query -> (time, ((chunk id, score), ...)) of its first answer
+        self.live: dict[int, list] = {}  # query -> its live answers' hits
+        self.batch_count = [0] * (2 * VS_BATCHES)
+        self.stale: list = []  # answers naming a change already seen
+        self.errors = 0
+        self.file_count = None
+        self.stats_seen: list[int] = []
+        self.chunks_live = 0
+        self.written: dict[str, tuple[str, float]] = {}  # file name -> (change kind, write time)
+        self.seen: dict[str, float] = {}  # file name -> first chunk-table delta after its write
+        rewritten = {corpus["names"][i] for i in corpus["rewritten"]}
+        self.old_chunks = {corpus["names"][i]: set(corpus["doc_chunks"][i]) for i in corpus["rewritten"]}
+        self.gone = {corpus["names"][i] for i in corpus["deleted"]}
+        assert not rewritten & self.gone
+        self.final_count = VS_FILES + VS_NEW - VS_DELETED
+
+    # -- subscribers ---------------------------------------------------
+    def on_chunk(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        now = _now()
+        if any(v is pw.ERROR for v in row.values()):
+            self.errors += 1
+            return
+        self.chunks_live += 1 if is_addition else -1
+        name = os.path.basename(row["metadata"].value["path"])
+        if name in self.written and name not in self.seen:
+            self.seen[name] = now
+
+    def on_stats(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["result"] is pw.ERROR:
+            self.errors += 1
+        elif is_addition:
+            self.file_count = row["result"].value["file_count"]
+            self.stats_seen.append(self.file_count)
+
+    def on_stats_epoch(self, time):
+        if self.file_count == VS_FILES and not self.indexed.is_set():
+            self.t_indexed = _now()
+            self.indexed.set()
+        if self.file_count == self.final_count and len(self.seen) == len(self.written) == VS_NEW + VS_DELETED + \
+                VS_REWRITTEN and not self.settled.is_set():
+            self.t_settled = _now()
+            self.settled.set()
+
+    def on_answer(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        now = _now()
+        if row["result"] is pw.ERROR:
+            self.errors += 1
+            return
+        q = self.query_of[int(key.value)]
+        chunk_ids = self.corpus["chunk_ids"]
+        hits = tuple((chunk_ids.get(h["text"], -1), -float(h["dist"]), os.path.basename(h["metadata"]["path"]))
+                     for h in row["result"].value)
+        if not is_addition:
+            self.live[q].remove(hits)
+            return
+        for cid, _score, name in hits:
+            seen = self.seen.get(name)
+            if seen is not None and seen < now and (name in self.gone or cid in self.old_chunks.get(name, ())):
+                self.stale.append((q, name, cid))
+        self.live.setdefault(q, []).append(hits)
+        if q not in self.first:
+            self.first[q] = (now, hits)
+            b = q // VS_QUERIES
+            self.batch_count[b] += 1
+            if self.batch_count[b] == VS_QUERIES:
+                self.batch_done[b].set()
+                if b == len(self.batch_done) - 1:
+                    raise VectorStoreDone
+
+    # -- the traffic ---------------------------------------------------
+    def wait(self, event, what: str) -> None:
+        import _thread
+
+        if not event.wait(VS_WAIT_S):
+            self.failure = f"{what} took over {VS_WAIT_S} s"
+            _thread.interrupt_main()
+            raise SystemExit
+
+    def subject(self, pw):
+        traffic = self
+
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):
+                for stage, batches in enumerate(traffic.corpus["queries"]):
+                    traffic.wait(traffic.go[stage], f"stage {stage + 1} of the queries")
+                    for b, batch in enumerate(batches):
+                        traffic.sent.append(_now())
+                        for text in batch:
+                            self.next(query=text, k=VS_K, metadata_filter=None, filepath_globpattern=None)
+                        self.commit()
+                        traffic.wait(traffic.batch_done[stage * VS_BATCHES + b], f"batch {b} of stage {stage + 1}")
+
+        return Queries()
+
+    def write(self, i: int, text: str) -> None:
+        """Write a file whole: into the staging directory, then moved in."""
+        name = self.corpus["names"][i]
+        tmp = os.path.join(self.staging, name)
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, os.path.join(self.docs_dir, name))
+
+    def drive(self) -> None:
+        import time as _time
+
+        self.wait(self.indexed, "indexing the initial corpus")
+        self.go[0].set()
+        self.wait(self.batch_done[VS_BATCHES - 1], "stage 1 of the queries")
+        self.t_stage1 = _now()
+        texts, names = self.corpus["texts"], self.corpus["names"]
+        for burst in self.bursts:
+            for kind, i in burst:
+                if kind == "delete":
+                    os.remove(os.path.join(self.docs_dir, names[i]))
+                else:
+                    self.write(i, texts[self.corpus["new_text"].get(i, i)])
+                self.written[names[i]] = (kind, _now())
+            _time.sleep(VS_BURST_GAP_S)
+        self.wait(self.settled, "showing the live changes")
+        self.go[1].set()
+
+
+def _now() -> float:
+    return time.perf_counter()
+
+
+def vs_plain_check(enc, corpus: dict, traffic: VectorStoreTraffic, device) -> dict:
+    """The plain answer: every chunk the run held and every query encoded
+    directly by ``SentenceEncoder.encode`` on the card, f32 cosine scores
+    and ``torch.topk`` over the live chunks of each stage.  Stage 1's
+    first answers are held to the initial corpus, and every query's last
+    answer (stage 1's revised through the changes) to the final one.  Each
+    returned chunk is scored anew from the plain embeddings: that score
+    must lie within ``SCORE_TOL`` of the one the answer reports, and
+    within ``VS_TIE_TOL`` of the plain k-th or above it (ids equal but at
+    ties); a chunk not live in the stage, or returned more often than it
+    is live, is counted as misplaced."""
+    from collections import Counter
+
+    chunk_texts = sorted(corpus["chunk_ids"], key=corpus["chunk_ids"].get)
+    queries = [q for stage in corpus["queries"] for batch in stage for q in batch]
+    embs = {}
+    for name, texts in (("chunks", chunk_texts), ("queries", queries)):
+        lens = np.array([len(t) for t in texts])
+        embs[name] = encode_sorted(enc, texts, np.argsort(lens))[0]
+    chunks = torch.from_numpy(embs["chunks"]).to(device)
+    chunks = chunks / chunks.norm(dim=1, keepdim=True)
+    q_all = torch.from_numpy(embs["queries"]).to(device)
+    q_all = q_all / q_all.norm(dim=1, keepdim=True)
+    res = {}
+    per_stage = VS_BATCHES * VS_QUERIES
+    for label, live, rows, answers in (
+        ("stage1_first", corpus["initial"], range(per_stage), {q: traffic.first[q][1] for q in range(per_stage)}),
+        ("final", corpus["final"], range(2 * per_stage), {q: hits[0] for q, hits in traffic.live.items()}),
+    ):
+        held = Counter(live)
+        live_t = torch.tensor(sorted(held), device=device)
+        q = q_all[list(rows)]
+        vals, idx = torch.topk(q @ chunks[live_t].T, VS_K, dim=1)
+        ref_ids = live_t[idx].cpu().numpy()
+        ref_vals = vals.float().cpu().numpy()
+        got_ids = np.array([[h[0] for h in answers[r]] for r in rows])
+        got_vals = np.array([[h[1] for h in answers[r]] for r in rows])
+        misplaced = sum(1 for ids in got_ids for cid, n in Counter(ids.tolist()).items() if n > held.get(cid, 0))
+        got_t = torch.from_numpy(np.maximum(got_ids, 0)).to(device)
+        own = torch.einsum("rd,rkd->rk", q, chunks[got_t]).float().cpu().numpy()  # plain score of each returned chunk
+        known = got_ids >= 0
+        below = np.where(known, ref_vals[:, -1:] - own, 0.0)
+        parted, gap = topk_parted(got_ids, got_vals, ref_ids, ref_vals)
+        overlap = np.mean([len(set(g) & set(r)) / VS_K for g, r in zip(got_ids, ref_ids)])
+        res[label] = {"queries": len(rows), "rows_parted": parted, "parted_max_gap": gap,
+                      "positions_parted": int((got_ids != ref_ids).sum()), "ids_in_plain_topk": float(overlap),
+                      "plain_top1_minus_topk_p50": float(np.median(ref_vals[:, 0] - ref_vals[:, -1])),
+                      "max_score_err": float(np.abs(got_vals - ref_vals).max()),
+                      "max_own_score_err": float(np.abs(np.where(known, got_vals - own, 0.0)).max()),
+                      "max_below_plain_kth": float(below.max()),
+                      "unknown_texts": int((~known).sum()), "misplaced": misplaced,
+                      "multiple_live": sum(1 for r in rows if len(traffic.live.get(r, ())) != 1)}
+    return res
+
+
+def vector_store_phase(device, seed: int, checked: dict, card: str) -> dict:
+    """Phase 16: ``VectorStoreServer`` over ``SentenceTransformerEmbedder``
+    and ``BruteForceKnn``, fed by ``pw.io.fs.read`` in streaming mode and
+    queried through ``pw.io.python.read``, its answers read by
+    ``pw.io.subscribe``.  ``checked`` gains the attention shapes the run
+    gave the kernel.  The fs reader polls on after the run, as in the JAX
+    package (a streaming fs source has no stop): this phase runs last."""
+    import shutil
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.engine.types import sequential_key
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.xpacks.llm import DocumentStore, VectorStoreServer
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    if native.get() is None:
+        fail("vector_store: the native core did not load")
+    t_setup = time.perf_counter()
+    embedder = SentenceTransformerEmbedder(VS_MODEL)
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, seed))  # seeded weights at full width
+    corpus = vs_corpus(seed)
+    bursts = vs_changes(corpus, seed)
+    root = tempfile.mkdtemp(prefix="vector_store_")
+    docs_dir, staging = os.path.join(root, "docs"), os.path.join(root, "staging")
+    os.makedirs(docs_dir)
+    os.makedirs(staging)
+    for i in range(VS_FILES):
+        with open(os.path.join(docs_dir, corpus["names"][i]), "w") as f:
+            f.write(corpus["texts"][i])
+    setup_s = time.perf_counter() - t_setup
+
+    traffic = VectorStoreTraffic(corpus, docs_dir, staging, bursts, sequential_key)
+    docs = pw.io.fs.read(docs_dir, format="binary", mode="streaming", with_metadata=True)
+    server = VectorStoreServer(docs, embedder=embedder, splitter=TokenCountSplitter())
+    queries = pw.io.python.read(traffic.subject(pw), schema=DocumentStore.RetrieveQuerySchema)
+    stats = pw.debug.table_from_rows(pw.schema_from_types(one=int), [(1,)]).select()
+    pw.io.subscribe(server.document_store.chunked_docs, on_change=traffic.on_chunk)
+    pw.io.subscribe(server.statistics_query(stats), on_change=traffic.on_stats, on_time_end=traffic.on_stats_epoch)
+    pw.io.subscribe(server.retrieve_query(queries), on_change=traffic.on_answer)
+
+    sizes: list[int] = []
+    process = embedder._batcher.process_batch
+
+    def counted(items):
+        sizes.append(len(items))
+        return process(items)
+
+    embedder._batcher.process_batch = counted
+    pad = {"ids": torch.zeros((), dtype=torch.int64, device=device), "slots": 0}
+
+    def padding(_module, args):
+        pad["ids"] += args[1].sum()
+        pad["slots"] += args[1].numel()
+
+    epochs: list[tuple[float, float]] = []  # (start, ms) of each root epoch
+    scopes: list = []
+    run_epoch, search_many = df.Scope.run_epoch, df.ExternalIndexNode._search_many
+    searched = [0, 0]  # query rows answered by the index, calls
+
+    def timed_epoch(scope, time_):
+        t0 = time.perf_counter()
+        try:
+            return run_epoch(scope, time_)
+        finally:
+            if scope.parent is None:
+                epochs.append((t0, (time.perf_counter() - t0) * 1e3))
+                if not scopes:
+                    scopes.append(scope)
+
+    def counted_search(node, qrows):
+        searched[0] += len(qrows)
+        searched[1] += 1
+        return search_many(node, qrows)
+
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen), enc.model.register_forward_pre_hook(padding)]
+    events, remove_events = forward_events(enc)
+    stamps: list[float] = []  # host time of each forward's start, beside ``events``
+    hooks.append(enc.model.register_forward_pre_hook(lambda _m, _a: stamps.append(_now())))
+    traffic_thread = threading.Thread(target=traffic.drive, name="vector_store:traffic", daemon=True)
+    df.Scope.run_epoch, df.ExternalIndexNode._search_many = timed_epoch, counted_search
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen.clear()
+    before = rail_state(device)
+    ended = None
+    try:
+        traffic.t_run = _now()
+        traffic_thread.start()
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    except VectorStoreDone:
+        ended = "done"
+    except KeyboardInterrupt:
+        ended = "by the watchdog"
+    except Exception as exc:  # noqa: BLE001 - any other ending fails the phase below
+        ended = f"by {exc!r}"
+    finally:
+        wall_s = _now() - traffic.t_run
+        df.Scope.run_epoch, df.ExternalIndexNode._search_many = run_epoch, search_many
+        pw.G.clear()
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    device_ms = events_ms(events)
+    ingest_device_ms = events_ms([ev for ev, t in zip(events, stamps) if t < traffic.t_indexed])
+    for h in hooks:
+        h.remove()
+    remove_events()
+    embedder._batcher.process_batch = process
+    if ended != "done":
+        fail(f"vector_store: the run ended {ended or 'by itself'}: {traffic.failure or ''}")
+    traffic_thread.join(timeout=10)
+    rail = rail_gate("vector_store", device, before)
+    readers = sum(1 for t in threading.enumerate() if t.name == "pathway:connector")
+
+    ingest_s = traffic.t_indexed - traffic.t_run
+    epochs_ms = [ms for _end, ms in epochs]
+    windows = {"ingest": traffic.t_indexed, "stage1": traffic.t_stage1, "changes": traffic.t_settled,
+               "stage2": float("inf")}
+    by_stage, start = {}, 0.0
+    for name, end in windows.items():
+        part = [ms for t, ms in epochs if start <= t < end]
+        by_stage[name] = {"epochs": len(part), "host_ms": sum(part), "max_ms": max(part, default=0.0)}
+        start = end
+    node_s: dict[str, float] = {}
+    for node in scopes[0].nodes if scopes else ():
+        node_s[type(node).__name__] = node_s.get(type(node).__name__, 0.0) + node.step_seconds
+    top_nodes = dict(sorted(node_s.items(), key=lambda kv: -kv[1])[:8])
+    n_initial = len(corpus["initial"])
+    query_ms = [(traffic.first[q][0] - traffic.sent[q // VS_QUERIES]) * 1e3 for q in range(traffic.n_queries)]
+    stale = {}
+    for kind in ("new", "rewrite", "delete"):
+        names = [n for n, (k, _t) in traffic.written.items() if k == kind]
+        stale[kind] = percentiles([(traffic.seen[n] - traffic.written[n][1]) * 1e3 for n in names])
+    stale["all"] = percentiles([(traffic.seen[n] - t) * 1e3 for n, (_k, t) in traffic.written.items()])
+    t_check = time.perf_counter()
+    plain = vs_plain_check(enc, corpus, traffic, device)
+    check_s = time.perf_counter() - t_check
+    res = {
+        "card": card, "model": VS_MODEL, "files": VS_FILES, "chunks_initial": n_initial,
+        "chunks_final": len(corpus["final"]), "live_changes": {"new": VS_NEW, "deleted": VS_DELETED,
+                                                               "rewritten": VS_REWRITTEN},
+        "queries": traffic.n_queries, "k": VS_K, "setup_s": setup_s, "wall_s": wall_s,
+        "ingest_s": ingest_s, "ingest_chunks_per_s": n_initial / ingest_s, "ingest_docs_per_s": VS_FILES / ingest_s,
+        "epochs": len(epochs_ms), "host_ms_per_epoch": percentiles(epochs_ms) if epochs_ms else {},
+        "host_ms_epochs_total": sum(epochs_ms), "epochs_by_stage": by_stage, "node_host_s": top_nodes,
+        "index_query_rows_answered": searched[0], "index_search_calls": searched[1], "device_ms": device_ms,
+        "idle_share": 1.0 - device_ms / (wall_s * 1e3), "ingest_device_ms": ingest_device_ms,
+        "ingest_idle_share": 1.0 - ingest_device_ms / (ingest_s * 1e3), "forwards": len(events),
+        "batches": len(sizes), "batch_sizes": {int(s): sizes.count(s) for s in sorted(set(sizes))},
+        "padding_share_of_ids": 1.0 - float(pad["ids"]) / max(pad["slots"], 1),
+        "query_latency_ms": percentiles(query_ms), "staleness_ms": stale,
+        "file_count": traffic.file_count, "stale_answers": len(traffic.stale), "error_rows": traffic.errors,
+        "native": native.get() is not None, "reader_threads_after_run": readers, "plain": plain,
+        "check_s": check_s, "launches": launches,
+    }
+    log("vector_store", **{k: v for k, v in res.items() if k != "launches"}, kernel_launches=launches)
+    shutil.rmtree(root, ignore_errors=True)
+    if traffic.file_count != traffic.final_count:
+        fail(f"vector_store: statistics report {traffic.file_count} files, not {traffic.final_count}")
+    if traffic.stale:
+        fail(f"vector_store: {len(traffic.stale)} answers named a change already seen, e.g. {traffic.stale[:3]}")
+    for label, p in plain.items():
+        if p["unknown_texts"] or p["misplaced"] or p["multiple_live"] or p["max_own_score_err"] > SCORE_TOL \
+                or p["max_below_plain_kth"] > VS_TIE_TOL or p["max_score_err"] > SCORE_TOL:
+            fail(f"vector_store: {label} answers against the plain answer: {p}")
+    if traffic.errors:
+        fail(f"vector_store: {traffic.errors} rows hold ERROR")
+    expected = sum(seen.values())
+    if launches["encoder_attention"] != expected or not expected:
+        fail(f"vector_store: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen})")
+    gen = torch.Generator(device=device).manual_seed(seed + 207)
+    for shape in sorted(set(seen) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("vector_store", step="shapes", card=card, launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -4109,6 +4627,13 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["sharded"] = sharded_phase(device, args.seed, card)
         seconds["sharded"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: its streaming fs reader polls on after the run, as the JAX package's does
+    if "vector_store" not in skip:
+        t_phase = time.perf_counter()
+        phases["vector_store"] = vector_store_phase(device, args.seed, checked, card)
+        seconds["vector_store"] = time.perf_counter() - t_phase
     attention["max_abs_err"] = max(checked.values())
     # one row per attention shape of each path, timed here if phase 3 had not
     gen = torch.Generator(device=device).manual_seed(args.seed + 2)

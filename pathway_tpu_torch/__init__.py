@@ -26,7 +26,11 @@ expressions, ``reducers``, ``groupby``, the joins, ``iterate``, ``udf``
 with its executors and caches, ``run`` and ``debug``, over the incremental
 dataflow of ``engine/dataflow.py`` and its native C++ core (``native/``).
 A UDF that calls an encoder (through ``AsyncMicroBatcher``) runs the
-encoder's kernels inside the dataflow.
+encoder's kernels inside the dataflow.  ``pw.io`` holds the streaming
+connectors (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``,
+``subscribe``), ``pw.indexing`` the Table-API indexes (``DataIndex`` over
+``BruteForceKnn``), and ``xpacks.llm`` the retrieval half of the LLM
+xpack (``VectorStoreServer`` over ``SentenceTransformerEmbedder``).
 """
 
 from __future__ import annotations
@@ -95,7 +99,8 @@ from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals import universes
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
-from pathway_tpu_torch import debug, udfs
+from pathway_tpu_torch import debug, io, udfs
+from pathway_tpu_torch.stdlib import indexing
 
 # datetime convenience types (pw.DateTimeNaive etc.)
 DateTimeNaive = _datetime.datetime
@@ -171,6 +176,8 @@ __all__ = [
     "global_error_log",
     "groupby",
     "if_else",
+    "indexing",
+    "io",
     "iterate",
     "iterate_universe",
     "join",

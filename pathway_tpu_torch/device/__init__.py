@@ -26,6 +26,7 @@ from pathway_tpu_torch.device.bucketing import (
     BucketPolicy,
     next_pow2,
     pad_batch_dim,
+    stack_rows,
 )
 from pathway_tpu_torch.device.executor import DeviceExecutor, DeviceFuture
 from pathway_tpu_torch.device.resilience import (
@@ -98,6 +99,7 @@ def default_executor_snapshot() -> dict[str, Any] | None:
 
 
 __all__ = [
+    "stack_rows",
     "BatchChunk",
     "BucketPolicy",
     "CircuitBreaker",

@@ -15,6 +15,7 @@ bucket, and later batches plan under the ratcheted cap.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -137,3 +138,30 @@ def pad_batch_dim(
     padded = np.zeros((bucket,) + array.shape[1:], dtype=array.dtype)
     padded[:n] = array
     return padded, mask
+
+
+def stack_rows(rows: Sequence[np.ndarray]) -> tuple[np.ndarray, int]:
+    """Stack per-row arrays into one ``[n, ...]`` batch, refusing mixes.
+
+    Returns ``(batch, n_rows)``.  Raises :class:`ValueError` when rows
+    disagree on dtype or trailing shape — the dtype-mix refusal the
+    bucketing contract promises (a mixed batch would silently upcast or
+    corrupt; the caller must split by dtype before submitting)."""
+    if not rows:
+        raise ValueError("cannot stack an empty row list")
+    first = np.asarray(rows[0])
+    arrays = [first]
+    for i, row in enumerate(rows[1:], start=1):
+        arr = np.asarray(row)
+        if arr.dtype != first.dtype:
+            raise ValueError(
+                f"dtype mix in one device batch: row 0 is {first.dtype}, "
+                f"row {i} is {arr.dtype} — split the batch by dtype"
+            )
+        if arr.shape != first.shape:
+            raise ValueError(
+                f"shape mix in one device batch: row 0 is {first.shape}, "
+                f"row {i} is {arr.shape} — pad rows to one shape first"
+            )
+        arrays.append(arr)
+    return np.stack(arrays), len(arrays)

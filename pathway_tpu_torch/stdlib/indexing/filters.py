@@ -12,17 +12,7 @@ import fnmatch
 import re
 from typing import Any
 
-
-class Json:
-    """A value marked as JSON-typed: the part of the engine's ``Json``
-    wrapper that filters read (the port has no engine yet)."""
-
-    __slots__ = ("value",)
-
-    def __init__(self, value: Any):
-        if isinstance(value, Json):
-            value = value.value
-        self.value = value
+from pathway_tpu_torch.engine.types import Json
 
 
 def _resolve_path(metadata: Any, path: str) -> Any:
@@ -186,4 +176,4 @@ def metadata_matches(filter_expression: str | None, metadata: Any) -> bool:
         return False
 
 
-__all__ = ["Json", "metadata_matches"]
+__all__ = ["metadata_matches"]

@@ -1,0 +1,149 @@
+"""Retriever factory enums/abstracts (parity: stdlib/indexing/retrievers.py).
+
+A copy of ``pathway_tpu/stdlib/indexing/retrievers.py``.
+``BruteForceKnnFactory`` and ``LshKnnFactory`` work; the factories of the
+indexes that the port brings in the index slice (``hnsw.py``,
+``bm25.py``, ``hybrid_index.py``) raise ``NotImplementedError`` when made.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class USearchMetricKind(enum.Enum):
+    # mirrors usearch MetricKind (usearch_integration.rs)
+    COS = "cos"
+    L2SQ = "l2sq"
+    IP = "ip"
+
+
+class BruteForceKnnMetricKind(enum.Enum):
+    # mirrors brute_force_knn_integration.rs metric kinds
+    COS = "cos"
+    L2SQ = "l2sq"
+
+
+class AbstractRetrieverFactory:
+    def build_index(self, data_column, data_table, metadata_column=None):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class BruteForceKnnFactory(AbstractRetrieverFactory):
+    """Factory for the dense device-backed index (parity: retrievers.py)."""
+
+    dimensions: int | None = None
+    reserved_space: int = 0
+    embedder: object | None = None
+    metric: "BruteForceKnnMetricKind" = None  # type: ignore[assignment]
+    mesh: object | None = None  # DeviceMesh → corpus-sharded device index
+    device: object | None = None  # the index's device: cuda:0 unless named
+
+    def build_index(self, data_column, data_table, metadata_column=None):
+        from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex
+        from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
+            BruteForceKnn,
+            DistanceMetric,
+        )
+
+        metric = self.metric or BruteForceKnnMetricKind.COS
+        inner = BruteForceKnn(
+            data_column,
+            metadata_column,
+            dimensions=self.dimensions,
+            reserved_space=self.reserved_space,
+            metric=DistanceMetric(metric.value),
+            embedder=self.embedder,
+            mesh=self.mesh,
+            device=self.device,
+        )
+        return DataIndex(data_table, inner)
+
+
+def index_slice_error(name: str, module: str) -> NotImplementedError:
+    """What an index of the index slice raises until the port brings it."""
+    return NotImplementedError(
+        f"{name} needs stdlib/indexing/{module}, which the port brings in "
+        "the index slice (bm25, hybrid_index, hnsw)"
+    )
+
+
+@dataclasses.dataclass
+class UsearchKnnFactory(AbstractRetrieverFactory):
+    """Factory keeping USearch HNSW API parity (shares the dense backend)."""
+
+    dimensions: int | None = None
+    reserved_space: int = 0
+    embedder: object | None = None
+    metric: "USearchMetricKind" = None  # type: ignore[assignment]
+    connectivity: int = 0
+    expansion_add: int = 0
+    expansion_search: int = 0
+    mesh: object | None = None  # DeviceMesh → corpus-sharded device index
+
+    def __post_init__(self):
+        raise index_slice_error("UsearchKnnFactory", "hnsw.py")
+
+
+@dataclasses.dataclass
+class TantivyBM25Factory(AbstractRetrieverFactory):
+    """Factory for the BM25 full-text index."""
+
+    ram_budget: int = 50_000_000
+    in_memory_index: bool = True
+
+    def __post_init__(self):
+        raise index_slice_error("TantivyBM25Factory", "bm25.py")
+
+
+@dataclasses.dataclass
+class HybridIndexFactory(AbstractRetrieverFactory):
+    """Reciprocal-rank fusion over several retriever factories."""
+
+    retriever_factories: list = None  # type: ignore[assignment]
+    k: float = 60.0
+
+    def __post_init__(self):
+        raise index_slice_error("HybridIndexFactory", "hybrid_index.py")
+
+
+@dataclasses.dataclass
+class LshKnnFactory(AbstractRetrieverFactory):
+    """Factory for LSH-bucketed approximate KNN (parity:
+    nearest_neighbors.py:528)."""
+
+    dimensions: int | None = None
+    n_or: int = 20
+    n_and: int = 10
+    bucket_length: float = 10.0
+    distance_type: str = "euclidean"
+    embedder: object | None = None
+
+    def build_index(self, data_column, data_table, metadata_column=None):
+        from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex
+        from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import LshKnn
+
+        if not isinstance(self.dimensions, int):
+            # fail at configuration time, not mid-run inside rng.normal
+            raise ValueError("LshKnnFactory requires dimensions= (int)")
+
+        from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import DistanceMetric
+
+        metric = (
+            DistanceMetric.COS
+            if self.distance_type == "cosine"
+            else DistanceMetric.L2SQ
+        )
+        inner = LshKnn(
+            data_column,
+            metadata_column,
+            dimensions=self.dimensions,
+            n_or=self.n_or,
+            n_and=self.n_and,
+            bucket_length=self.bucket_length,
+            metric=metric,
+            embedder=self.embedder,
+        )
+        return DataIndex(data_table, inner)

@@ -168,7 +168,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     data×tensor parallelism) and a mesh LoRA state saved through
     ``torch.distributed.checkpoint``; then the Table API (the dataflow,
     the table, the runner, ``debug`` and the native core) runs a
-    three-row ``groupby`` through ``pw.run``."""
+    three-row ``groupby`` through ``pw.run``; then the connectors, the
+    indexes and the LLM xpack's retrieval half answer a query of a
+    ``VectorStoreServer`` over ``SentenceTransformerEmbedder`` fed by
+    ``pw.io.fs.read``."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -258,6 +261,23 @@ def test_port_imports_nothing_of_jax(model_dir):
 
         rows = np.stack(asyncio.run(embed()))
         assert (rows * enc.encode(texts[:20])).sum(axis=1).min() > 0.999
+        import os, tempfile
+        from pathway_tpu_torch.xpacks.llm import VectorStoreServer, embedders, mocks, parsers, splitters  # noqa: F401
+        from pathway_tpu_torch.stdlib.indexing import BruteForceKnn, DataIndex, LshKnn  # noqa: F401
+
+        docs_dir = tempfile.mkdtemp()
+        for i in range(6):
+            with open(os.path.join(docs_dir, f"d{{i}}.txt"), "w") as f:
+                f.write(texts[i])
+        docs = pt.io.fs.read(docs_dir, format="binary", mode="static", with_metadata=True)
+        emb = embedders.SentenceTransformerEmbedder({model_dir!r}, device="cpu")
+        server = VectorStoreServer(docs, embedder=emb, device="cpu")
+        queries = pt.debug.table_from_rows(server.RetrieveQuerySchema, [(texts[3], 2, None, None)])
+        answers = []
+        pt.io.subscribe(server.retrieve_query(queries), on_change=lambda key, row, time, is_addition: answers.append(row))
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        assert answers[-1]["result"].value[0]["text"] == texts[3], answers
+        pt.G.clear()
         fut = ex.submit(lambda: enc.encode(texts[:3]), name="direct")
         assert fut.result(timeout=60).shape == (3, enc.dimensions)
         ex.close()

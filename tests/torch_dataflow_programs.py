@@ -361,6 +361,155 @@ def port_encoder(model_dir: str, params):
     return enc
 
 
+# ---------------------------------------------------------------------------
+# connectors, indexes and the LLM xpack: programs of either package
+# ---------------------------------------------------------------------------
+
+
+def port_kw(pw) -> dict:
+    """The port's own ``device`` keyword: its indexes and embedders run on
+    the card unless the caller names the CPU."""
+    return {"device": "cpu"} if pw.__name__.endswith("_torch") else {}
+
+
+def sub(pw, name: str):
+    """The package's submodule ``name`` (``"io._utils"``, ...)."""
+    import importlib
+
+    return importlib.import_module(f"{pw.__name__}.{name}")
+
+
+class PinnedClock:
+    """Stands in for ``_file_readers``' ``time`` module: a fixed wall clock,
+    so the ``seen_at`` of file metadata is the same in both packages."""
+
+    @staticmethod
+    def time() -> float:
+        return 1.7e9
+
+    sleep = staticmethod(__import__("time").sleep)
+
+
+def write_corpus(root, seed: int, n: int = 3) -> None:
+    """A directory per fs format under ``root``: ``txt`` (lines of words),
+    ``csv`` (name, qty) and ``json`` (name, qty, tags lines)."""
+    import json
+    import os
+
+    rng = np.random.default_rng(seed)
+    for d in ("txt", "csv", "json"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        lines = [" ".join(rng.choice(WORDS, size=int(rng.integers(2, 7)))) for _ in range(int(rng.integers(1, 4)))]
+        with open(os.path.join(root, "txt", f"doc{i}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        rows = [(str(rng.choice(WORDS)), int(rng.integers(0, 99))) for _ in range(int(rng.integers(1, 4)))]
+        with open(os.path.join(root, "csv", f"part{i}.csv"), "w") as f:
+            f.write("name,qty\n" + "".join(f"{a},{b}\n" for a, b in rows))
+        with open(os.path.join(root, "json", f"part{i}.jsonl"), "w") as f:
+            for a, b in rows:
+                f.write(json.dumps({"name": a, "qty": b, "tags": [a, b]}) + "\n")
+
+
+FS_FORMATS = {"binary": "txt", "plaintext": "txt", "plaintext_by_file": "txt", "csv": "csv", "json": "json"}
+
+
+def fs_program(pw, root, fmt: str, with_metadata: bool) -> dict:
+    """``pw.io.fs.read`` of ``root``'s directory for ``fmt`` in static mode."""
+    import os
+
+    schema = None
+    if fmt in ("csv", "json"):
+        cols = {"name": str, "qty": int}
+        if fmt == "json":
+            cols["tags"] = pw.Json
+        schema = pw.schema_from_types(**cols)
+    t = pw.io.fs.read(os.path.join(root, FS_FORMATS[fmt]), format=fmt, schema=schema, mode="static",
+                      with_metadata=with_metadata)
+    return {"read": t}
+
+
+class Subject:
+    """A ``ConnectorSubject`` program: rows over three commits, a removal
+    by primary key, ``next_json`` and ``next_str``."""
+
+    @staticmethod
+    def make(pw):
+        class Rows(pw.io.python.ConnectorSubject):
+            def run(self):
+                for i in range(4):
+                    self.next(k=i, v=float(i) / 3, data=f"row {i}")
+                self.commit()
+                self._remove(None, {"k": 1, "v": 1 / 3, "data": "row 1"})
+                self.next_json({"k": 7, "v": 2.5, "data": "json"})
+                self.commit()
+                self.next(k=8, v=0.1, data="late")
+                self.commit()
+                self.close()
+
+        class Schema(pw.Schema):
+            k: int = pw.column_definition(primary_key=True)
+            v: float
+            data: str
+
+        return pw.io.python.read(Rows(), schema=Schema)
+
+
+def subscribe_run(pw, table) -> list:
+    """Run ``table`` through ``pw.io.subscribe`` and ``pw.run``: the calls
+    of ``on_change``, ``on_time_end`` and ``on_end`` in order, canonical."""
+    calls: list = []
+    pw.io.subscribe(
+        table,
+        on_change=lambda key, row, time, is_addition: calls.append(
+            ("change", int(key.value), canon(tuple(row.items())), time, is_addition)),
+        on_time_end=lambda time: calls.append(("time_end", time)),
+        on_end=lambda: calls.append(("end",)),
+    )
+    pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    return calls
+
+
+def index_program(pw, metric: str, inner: str, n_data: int = 40, dim: int = 8, seed: int = SEED + 20) -> dict:
+    """``DataIndex`` over ``BruteForceKnn`` (``metric``) or ``LshKnn``: a
+    data table that gains and loses rows over three epochs, and queries
+    with a per-query ``k`` and a metadata filter at two times.  Returns
+    the ``query_as_of_now`` and ``query`` tables, collapsed and not."""
+    idx = sub(pw, "stdlib.indexing")
+    rng = np.random.default_rng(seed)
+
+    class Data(pw.Schema):
+        name: str
+        vec: np.ndarray
+        meta: pw.Json
+
+    class Query(pw.Schema):
+        qvec: np.ndarray
+        k: int
+        filt: str | None
+
+    vecs = rng.normal(size=(n_data + 8, dim)).astype(np.float32)
+    rows = [(f"d{i}", vecs[i], pw.Json({"group": i % 3, "path": f"/docs/d{i}.txt"}), 2 if i < 30 else 4, 1)
+            for i in range(n_data)]
+    rows += [(f"d{i}", vecs[i], pw.Json({"group": i % 3, "path": f"/docs/d{i}.txt"}), 6, -1) for i in range(0, 10, 2)]
+    data = pw.debug.table_from_rows(Data, rows, is_stream=True)
+    filters = [None, "group == 1", "globmatch('/docs/d1*', path)", None, "group > 0 && group < 2", None]
+    qrows = [(vecs[n_data + j], int(rng.integers(1, 6)), filters[j], 2 if j < 4 else 4, 1) for j in range(6)]
+    queries = pw.debug.table_from_rows(Query, qrows, is_stream=True)
+    if inner == "lsh":
+        index = idx.DataIndex(data, idx.LshKnn(data.vec, data.meta, dimensions=dim, n_or=6, n_and=2))
+    else:
+        index = idx.DataIndex(data, idx.BruteForceKnn(data.vec, data.meta, metric=idx.DistanceMetric[metric],
+                                                      **port_kw(pw)))
+    out = {}
+    for method in ("query_as_of_now", "query"):
+        for collapse in (True, False):
+            res = getattr(index, method)(queries.qvec, number_of_matches=queries.k, metadata_filter=queries.filt,
+                                         collapse_rows=collapse)
+            out[f"{method}:{collapse}"] = res.without(*[c for c in res.column_names() if c in ("vec", "qvec")])
+    return out
+
+
 def _capture_port_paths(out: str, model_dir: str | None = None, params_path: str | None = None) -> None:
     """Every program of the port (or the embedding program alone) with the
     columnar path on and off."""
