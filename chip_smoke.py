@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -208,6 +208,35 @@ Phases, each on a line of its own; any failure exits non-zero:
    mesh-placed LoRA state saved through ``torch.distributed.checkpoint``
    after step 3 and resumed, the resumed losses bit-equal.  ``dryrun``:
    ``dryrun_multichip(1)`` on the card.
+15b. rag: BASELINE.md's Adaptive RAG template served over ``pw.io.http``
+   (the REST surface and the answering half of the LLM xpack):
+   ``AdaptiveRAGQuestionAnswerer(JaxChat("mistral-7b-instruct",
+   max_new_tokens=64, max_cache=4096))`` (seeded bf16 weights, through the
+   continuous-batching scheduler; 2 starting documents, factor 2, 4
+   iterations) over a ``DocumentStore`` of 4,096 files of 100-1,000 words
+   read by ``pw.io.fs.read(mode="static")`` (``ParseUtf8``,
+   ``TokenCountSplitter()``, MiniLM through ``SentenceTransformerEmbedder``
+   at 256, a cosine ``BruteForceKnn``), behind ``build_server`` and
+   ``run_server(threaded=True, with_cache=False)``, with admission set to
+   16 in flight and 8 queued.  A standard-library client, 16 threads:
+   64 /v1/retrieve questions at k=10 with one /v1/statistics and one
+   /v2/list_documents; the 64 questions (8-32 words) to /v1/pw_ai_answer
+   with 8 /v1/pw_ai_summary text lists; malformed JSON (400), an unknown
+   route (404), a 1 ms ``X-Pathway-Deadline-Ms`` (504); a burst of 40
+   summaries (429 with ``Retry-After`` past the budget); then a Table
+   program on the same store retrieves the 16 documents of each question
+   and scores the 1,024 pairs with ``CrossEncoderReranker``
+   (ms-marco-MiniLM-L-6-v2) and ``rerank_topk_filter(k=5)``; the client
+   closes the server, which ends the run.  Latency by route, TTFT and
+   tokens/s, admission queue wait, the median of each request-trace span,
+   host ms per epoch, the forwards' and decoder calls' device ms and idle
+   share, launches by shape; gated on every status, /v1/retrieve against a
+   direct ``encode`` + f32 ``torch.topk`` (as phase 16), every answer the
+   decoded scheduler tokens of a first-round prompt that is the
+   template's literal text over its two best documents, those tokens the
+   dense greedy row but at near-ties, no prompt cut to the cache, the
+   rerank scores within 0.05·(max|ref|+1) of a direct ``score`` and the
+   kept sets theirs but at ties, the socket closed, and the rail still.
 
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
@@ -237,7 +266,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16 and 7b (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b and 15b (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -777,7 +806,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "generate", "moe", "speculative", "vision", "lora", "train",
-             "parallel", "sharded", "vector_store")
+             "parallel", "sharded", "rag", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -2015,13 +2044,13 @@ def below_max(logits, tok, live) -> dict:
             "tokens_over_tol": over, "share_over_tol": over / tokens, "worst_gap_over_tol": float(ratio.max())}
 
 
-def emitted_gaps(lm, prompts, rows, steps: int) -> dict:
+def emitted_gaps(lm, prompts, rows, steps: int, batch: int = GEN_REF_BATCH) -> dict:
     """:func:`below_max` of every token of ``rows`` (each continuing its
     prompt) teacher-forced through the dense path of ``lm``, in batches of
-    ``GEN_REF_BATCH``."""
-    parts = [below_max(dense_step_logits(lm, prompts[b : b + GEN_REF_BATCH], rows[b : b + GEN_REF_BATCH], steps),
-                       *fed_tokens(rows[b : b + GEN_REF_BATCH], steps, lm.device))
-             for b in range(0, len(rows), GEN_REF_BATCH)]
+    ``batch``."""
+    parts = [below_max(dense_step_logits(lm, prompts[b : b + batch], rows[b : b + batch], steps),
+                       *fed_tokens(rows[b : b + batch], steps, lm.device))
+             for b in range(0, len(rows), batch)]
     tokens = sum(q["tokens"] for q in parts)
     over = sum(q["tokens_over_tol"] for q in parts)
     return {"tokens": tokens, "max_share": sum(q["max_share"] * q["tokens"] for q in parts) / tokens,
@@ -4536,6 +4565,645 @@ def vector_store_phase(device, seed: int, checked: dict, card: str) -> dict:
     return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15b: the Adaptive RAG template served over pw.io.http.
+# ---------------------------------------------------------------------------
+
+RAG_INFLIGHT, RAG_QUEUE = 16, 8  # PATHWAY_SERVE_INFLIGHT and PATHWAY_SERVE_QUEUE for the phase
+RAG_CLIENTS = 16  # the client's threads: the answering traffic never passes the admission budget
+RAG_K = 10
+RAG_SUMMARY_TEXTS, RAG_SUMMARY_WORDS = 3, 40
+RAG_STARTING, RAG_FACTOR, RAG_ITERATIONS = 2, 2, 4  # BASELINE.md's answerer
+RAG_RERANK_K = RAG_STARTING * RAG_FACTOR ** (RAG_ITERATIONS - 1)  # its over-fetch: 16 documents a question
+RAG_WAIT_S = 600.0  # the longest any request or stage may wait
+RAG_REF_BATCH = 24  # the dense references' batch: prompts of at most ~1,100 ids leave room on the card
+RAG_NOT_FOUND = "No information found."  # AdaptiveRAGQuestionAnswerer's not-found answer
+RAG_TEMPLATE = ('Use the below articles to answer the subsequent question. If the answer cannot be found, write '
+                '"{not_found}"\nArticles:\n{context}\nQuestion: {question}\nAnswer:')  # question_answering.py:141-145
+
+
+@dataclasses.dataclass(frozen=True)
+class RagSizes:
+    """The ``[rag]`` phase's scale (the defaults: BASELINE.md's Adaptive RAG
+    configuration at full width)."""
+
+    files: int = 4096
+    words: tuple = (100, 1000)  # words per file
+    questions: int = 64  # each sent to /v1/pw_ai_answer and to /v1/retrieve
+    question_words: tuple = (8, 32)
+    summaries: int = 8
+    burst: int = 40  # past RAG_INFLIGHT + RAG_QUEUE
+    model: str = "mistral-7b-instruct"
+    new_tokens: int = 64
+    cache: int = 4096  # two 500-word chunks and the template pass JaxChat's default 1024
+
+
+class RagDone(Exception):
+    """Ends a stage of the ``[rag]`` traffic that passed ``RAG_WAIT_S``."""
+
+
+def rag_corpus(seed: int, sizes: RagSizes) -> dict:
+    """The files, their chunks (``TokenCountSplitter()``'s 500-word spans)
+    and the traffic: distinct questions (spans of random chunks with a
+    quarter of the words swapped), summaries' text lists and the burst's."""
+    texts, _lengths, ids, vocab = synthetic_corpus(sizes.files, seed + 301, words_per_text=sizes.words)
+    chunk_ids: dict[str, int] = {}
+    chunk_words: list = []
+    for t in range(sizes.files):
+        for words in plain_chunks(ids[t]):
+            text = " ".join(vocab[w] for w in words)
+            if chunk_ids.setdefault(text, len(chunk_ids)) == len(chunk_words):
+                chunk_words.append(words)
+    rng = np.random.default_rng(seed + 303)
+
+    def span(lo: int, hi: int, swap: float) -> str:
+        words = chunk_words[int(rng.integers(len(chunk_words)))]
+        n = min(int(rng.integers(lo, hi + 1)), len(words))
+        start = int(rng.integers(0, len(words) - n + 1))
+        picked = np.array(words[start : start + n])
+        swapped = rng.random(n) < swap
+        picked[swapped] = rng.integers(0, len(vocab), size=int(swapped.sum()))
+        return " ".join(vocab[w] for w in picked)
+
+    questions: list[str] = []
+    while len(questions) < sizes.questions:
+        q = span(*sizes.question_words, QUERY_SWAP)
+        if q not in questions:
+            questions.append(q)
+    summaries = [[span(RAG_SUMMARY_WORDS, RAG_SUMMARY_WORDS, 0.0) for _ in range(RAG_SUMMARY_TEXTS)]
+                 for _ in range(sizes.summaries)]
+    burst = [[span(4, 8, 0.0)] for _ in range(sizes.burst)]
+    return {"texts": texts, "chunk_ids": chunk_ids, "questions": questions, "summaries": summaries,
+            "burst": burst}
+
+
+def http_call(url: str, body=None, headers=None, method: str = "POST") -> dict:
+    """One request with the standard library: status, JSON body, headers and
+    the client's ms; ``status`` None when no answer came."""
+    import urllib.error
+    import urllib.request
+
+    data = body if isinstance(body, bytes) or body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = _now()
+    try:
+        with urllib.request.urlopen(req, timeout=RAG_WAIT_S) as resp:
+            status, raw, hdrs = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        status, raw, hdrs = exc.code, exc.read(), dict(exc.headers)
+    except Exception as exc:  # noqa: BLE001 - an unanswered socket: the status gate fails on it
+        return {"status": None, "error": repr(exc), "ms": (_now() - t0) * 1e3}
+    try:
+        value = json.loads(raw) if raw else None
+    except ValueError:
+        value = raw.decode(errors="replace")
+    return {"status": status, "body": value, "headers": hdrs, "ms": (_now() - t0) * 1e3}
+
+
+class RagTraffic:
+    """The ``[rag]`` client and what the run's subscribers see.
+
+    A thread waits until every route is mounted and the corpus is indexed,
+    then sends, 16 at a time, the 64 /v1/retrieve questions with one
+    /v1/statistics and one /v2/list_documents, then the 64 questions to
+    /v1/pw_ai_answer with the 8 /v1/pw_ai_summary text lists, then the
+    typed paths (malformed JSON, an unknown route, a 1 ms deadline) and a
+    burst past the admission budget; then it opens the rerank program's
+    queries and, once their top-5 sets have come, closes the server, which
+    ends the run (the REST sources end with their server)."""
+
+    def __init__(self, corpus: dict, sizes: RagSizes, n_chunks: int):
+        import threading
+
+        self.corpus, self.sizes, self.n_chunks = corpus, sizes, n_chunks
+        self.url = ""
+        self.server = None
+        self.indexed, self.rerank_go, self.reranked = threading.Event(), threading.Event(), threading.Event()
+        self.chunks_live = 0
+        self.t_indexed = None
+        self.calls: dict[str, list] = {}  # stage -> [(route, payload, result)]
+        self.scored: list[tuple] = []  # (query, doc text, score) of every rerank pair
+        self.kept: dict[str, tuple] = {}  # query -> (doc texts, scores) kept by rerank_topk_filter
+        self.errors = 0
+        self.failure: str | None = None
+        self.burst_from = None  # index of the first scheduler request of the burst
+        self.t_traffic = self.t_rerank = None
+
+    # -- subscribers ---------------------------------------------------
+    def on_chunk(self, key, row, time, is_addition):
+        self.chunks_live += 1 if is_addition else -1
+
+    def on_chunk_epoch(self, time):
+        if self.chunks_live == self.n_chunks and not self.indexed.is_set():
+            self.t_indexed = _now()
+            self.indexed.set()
+
+    def on_scored(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["score"] is pw.ERROR:
+            self.errors += 1
+        elif is_addition:
+            self.scored.append((row["query"], row["doc"].value["text"], float(row["score"])))
+
+    def on_kept(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["top"] is pw.ERROR:
+            self.errors += 1
+            return
+        if is_addition:
+            docs, scores = row["top"]
+            self.kept[row["query"]] = (tuple(d.value["text"] for d in docs), tuple(scores))
+            if len(self.kept) == len(self.corpus["questions"]):
+                self.reranked.set()
+
+    def rerank_subject(self, pw):
+        traffic = self
+
+        class RerankQueries(pw.io.python.ConnectorSubject):
+            def run(self):
+                if not traffic.rerank_go.wait(RAG_WAIT_S * 2):
+                    return
+                for q in traffic.corpus["questions"]:
+                    self.next(query=q, k=RAG_RERANK_K, metadata_filter=None, filepath_globpattern=None)
+                self.commit()
+
+        return RerankQueries()
+
+    # -- the client ----------------------------------------------------
+    def send(self, stage: str, requests: list, threads: int = RAG_CLIENTS) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(threads) as pool:
+            results = list(pool.map(lambda r: http_call(self.url + r[0], r[1], r[2] if len(r) > 2 else None),
+                                    requests))
+        self.calls[stage] = [(r[0], r[1], res) for r, res in zip(requests, results)]
+
+    def burst(self, requests: list) -> None:
+        """All of ``requests`` at once, released together by a barrier."""
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        gate = threading.Barrier(len(requests))
+
+        def one(r):
+            gate.wait()
+            return http_call(self.url + r[0], r[1])
+
+        with ThreadPoolExecutor(len(requests)) as pool:
+            results = list(pool.map(one, requests))
+        self.calls["burst"] = [(r[0], r[1], res) for r, res in zip(requests, results)]
+
+    def wait(self, event, what: str) -> None:
+        if not event.wait(RAG_WAIT_S):
+            raise RagDone(f"{what} took over {RAG_WAIT_S} s")
+
+    def drive(self, webserver, routes, sched_records: list) -> None:
+        try:
+            deadline = _now() + RAG_WAIT_S
+            while set(webserver._route_docs) != set(routes) or not webserver._ready.is_set():
+                if _now() > deadline:
+                    raise RagDone("mounting the routes took too long")
+                time.sleep(0.05)
+            self.wait(self.indexed, "indexing the corpus")
+            c = self.corpus
+            self.t_traffic = _now()
+            self.send("retrieve", [("/v1/retrieve", {"query": q, "k": RAG_K}) for q in c["questions"]]
+                      + [("/v1/statistics", {}), ("/v2/list_documents", {})])
+            answers = [("/v1/pw_ai_answer", {"prompt": q}) for q in c["questions"]]
+            step = max(1, len(answers) // max(1, len(c["summaries"])))
+            mixed = []
+            for i, a in enumerate(answers):
+                mixed.append(a)
+                if i % step == step - 1 and i // step < len(c["summaries"]):
+                    mixed.append(("/v1/pw_ai_summary", {"text_list": c["summaries"][i // step]}))
+            self.send("answer", mixed)
+            self.send("typed", [("/v1/pw_ai_answer", b"{not json"), ("/v1/no_such_route", {}),
+                                ("/v1/retrieve", {"query": c["questions"][0], "k": RAG_K},
+                                 {"X-Pathway-Deadline-Ms": "1"})], threads=1)
+            self.burst_from = len(sched_records)
+            self.burst([("/v1/pw_ai_summary", {"text_list": t}) for t in c["burst"]])
+            self.t_rerank = _now()
+            self.rerank_go.set()
+            self.wait(self.reranked, "the rerank program")
+        except BaseException as exc:  # noqa: BLE001 - recorded; the phase fails on it
+            self.failure = repr(exc)
+        finally:
+            self.server.close()  # the REST sources end: the run ends
+
+
+def rag_answers_check(lm, traffic: RagTraffic, records: list, sizes: RagSizes) -> dict:
+    """Every answer against the greedy ``DecoderLM.generate_ids`` of the
+    prompt its first round sent (the main traffic's summaries too): the
+    response is the scheduler's tokens decoded, those tokens equal the
+    dense path's greedy row or part from it only where the emitted token
+    lies within the near-tie tol of the dense max (``emitted_gaps``); each
+    first-round prompt is the template's literal text over the question
+    and the two best documents of its /v1/retrieve answer (or two that tie
+    with them within ``VS_TIE_TOL``)."""
+    main = records[: traffic.burst_from]
+    by_question: dict[str, list] = {}
+    summaries = []
+    for prompt, req in main:
+        if prompt.startswith("user: Summarize"):
+            summaries.append((prompt, req))
+        else:
+            q = prompt.rsplit("\nQuestion: ", 1)[1].rsplit("\nAnswer:", 1)[0]
+            by_question.setdefault(q, []).append((prompt, req))
+    retrieved = {p["query"]: res["body"] for route, p, res in traffic.calls["retrieve"] if route == "/v1/retrieve"}
+    responses = {p["prompt"]: res["body"]["response"] for route, p, res in traffic.calls["answer"]
+                 if route == "/v1/pw_ai_answer"}
+    summary_responses = sorted(res["body"]["response"] for route, p, res in traffic.calls["answer"]
+                               if route == "/v1/pw_ai_summary")
+    decode = lm.tokenizer.decode
+    problems, at_ties, rounds = [], 0, {}
+    for q in traffic.corpus["questions"]:
+        sent = by_question.get(q, [])
+        rounds[len(sent)] = rounds.get(len(sent), 0) + 1
+        if not sent:
+            problems.append(f"no prompt reached the decoder for {q!r}")
+            continue
+        hits = retrieved[q]
+        scores = [-h["dist"] for h in hits]
+        ok = [(i, j) for i in range(len(hits)) for j in range(len(hits)) if i != j
+              and abs(scores[i] - scores[0]) <= VS_TIE_TOL and abs(scores[j] - scores[1]) <= VS_TIE_TOL
+              and sent[0][0] == "user: " + RAG_TEMPLATE.format(not_found=RAG_NOT_FOUND, question=q,
+                                                               context=hits[i]["text"] + "\n\n" + hits[j]["text"])]
+        if not ok:
+            problems.append(f"the first-round prompt of {q!r} is not the template over its two best documents")
+        elif ok[0] != (0, 1):
+            at_ties += 1
+        last = decode(sent[-1][1].out)
+        got = responses.get(q)
+        if got != last and not (got == RAG_NOT_FOUND and RAG_NOT_FOUND.lower().rstrip(".") in last.lower()):
+            problems.append(f"the response to {q!r} is not the decoder's last round")
+    if summary_responses != sorted(decode(req.out) for _p, req in summaries):
+        problems.append("the summaries' responses are not the decoder's")
+    rows = [r for sent in by_question.values() for r in sent] + summaries
+    ids = [lm._encode_prompt(p) for p, _req in rows]
+    outs = [list(req.out) for _p, req in rows]
+    dense = []
+    for b in range(0, len(rows), RAG_REF_BATCH):
+        dense += lm.generate_ids(ids[b : b + RAG_REF_BATCH], max_new_tokens=sizes.new_tokens)
+    parted = [i for i in range(len(rows)) if first_parting(outs[i], dense[i]) is not None]
+    gaps = emitted_gaps(lm, [ids[i] for i in parted], [outs[i] for i in parted], sizes.new_tokens,
+                        batch=RAG_REF_BATCH) if parted else {}
+    if gaps.get("tokens_over_tol"):
+        problems.append(f"{gaps['tokens_over_tol']} emitted token(s) lie tol or more below the dense max")
+    return {"rows": len(rows), "identical": len(rows) - len(parted),
+            "parted_at_step": {i: first_parting(outs[i], dense[i]) for i in parted}, "parted_gaps": gaps,
+            "rounds": {str(k): v for k, v in sorted(rounds.items())},
+            "second_rounds": sum(v for k, v in rounds.items() if k > 1),
+            "prompt_tokens": percentiles([len(i) for i in ids]), "prompts_at_ties": at_ties,
+            "not_found_answers": sum(1 for r in responses.values() if r == RAG_NOT_FOUND),
+            "problems": problems}
+
+
+def rag_retrieve_check(enc, traffic: RagTraffic, device) -> dict:
+    """/v1/retrieve's answers against a direct ``encode`` of every chunk and
+    question with f32 cosine scores and ``torch.topk`` (as ``[vector_store]``
+    holds its answers)."""
+    chunk_ids = traffic.corpus["chunk_ids"]
+    chunk_texts = sorted(chunk_ids, key=chunk_ids.get)
+    qs = traffic.corpus["questions"]
+    embs = {}
+    for name, texts in (("chunks", chunk_texts), ("queries", qs)):
+        embs[name] = encode_sorted(enc, texts, np.argsort([len(t) for t in texts]))[0]
+    chunks = torch.from_numpy(embs["chunks"]).to(device)
+    chunks = chunks / chunks.norm(dim=1, keepdim=True)
+    q = torch.from_numpy(embs["queries"]).to(device)
+    q = q / q.norm(dim=1, keepdim=True)
+    vals, idx = torch.topk(q @ chunks.T, RAG_K, dim=1)
+    ref_vals = vals.float().cpu().numpy()
+    answers = {p["query"]: res["body"] for route, p, res in traffic.calls["retrieve"] if route == "/v1/retrieve"}
+    got_ids = np.array([[chunk_ids.get(h["text"], -1) for h in answers[t]] for t in qs])
+    got_vals = np.array([[-float(h["dist"]) for h in answers[t]] for t in qs])
+    known = got_ids >= 0
+    own = torch.einsum("rd,rkd->rk", q, chunks[torch.from_numpy(np.maximum(got_ids, 0)).to(device)])
+    own = own.float().cpu().numpy()
+    parted, gap = topk_parted(got_ids, got_vals, idx.cpu().numpy(), ref_vals)
+    return {"queries": len(qs), "rows_parted": parted, "parted_max_gap": gap,
+            "max_score_err": float(np.abs(got_vals - ref_vals).max()),
+            "max_own_score_err": float(np.abs(np.where(known, got_vals - own, 0.0)).max()),
+            "max_below_plain_kth": float(np.where(known, ref_vals[:, -1:] - own, 0.0).max()),
+            "unknown_texts": int((~known).sum())}
+
+
+def rag_rerank_check(ce, traffic: RagTraffic) -> dict:
+    """The rerank program's scores against a direct ``CrossEncoder.score``
+    of the same pairs (in ``CrossEncoderReranker``'s micro-batches of 256),
+    within 0.05·(max|ref|+1); each kept top 5 against the direct scores'
+    top 5, parting only at ties within that tol."""
+    pairs = [(q, d) for q, d, _s in traffic.scored]
+    got = np.array([s for _q, _d, s in traffic.scored])
+    ref = np.concatenate([ce.score(pairs[mb.start : mb.stop]) for mb in micro_batches(len(pairs))])
+    tol = score_tol(ref)
+    ref_of = {(q, d): r for (q, d), r in zip(pairs, ref)}
+    parted = 0
+    below = 0.0
+    for q in traffic.corpus["questions"]:
+        mine = sorted((r for (qq, _d), r in ref_of.items() if qq == q), reverse=True)
+        kth = mine[RERANK_KEEP - 1]
+        kept_docs, _scores = traffic.kept[q]
+        want = {d for (qq, d), r in ref_of.items() if qq == q and r >= kth}
+        if set(kept_docs) != want:
+            parted += 1
+            below = max(below, max(kth - ref_of[(q, d)] for d in kept_docs))
+    return {"pairs": len(pairs), "max_abs_err": float(np.abs(got - ref).max()), "tol": tol,
+            "sets_parted": parted, "parted_max_below_kth": below,
+            "pairs_per_query": len(pairs) / max(1, len(traffic.kept))}
+
+
+def rag_phase(device, seed: int, checked: dict, card: str, sizes: RagSizes = RagSizes()) -> dict:
+    """Phase 15b: BASELINE.md's Adaptive RAG template served over
+    ``pw.io.http``: ``AdaptiveRAGQuestionAnswerer`` over ``JaxChat`` on
+    mistral-7b-instruct (seeded bf16 weights) and a ``DocumentStore`` of
+    MiniLM embeddings of ``pw.io.fs.read(mode="static")`` files,
+    ``build_server`` then ``run_server(threaded=True, with_cache=False)``,
+    driven by a standard-library HTTP client, with a retrieve-then-rerank
+    Table program (``CrossEncoderReranker``, ``rerank_topk_filter``) on the
+    same store.  ``checked`` gains the attention shapes the run gave the
+    kernel.  The run ends when the client closes the server."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.engine import metrics, serving, tracing
+    from pathway_tpu_torch.models import decoder as dec
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.serving import generation
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks.llm import AdaptiveRAGQuestionAnswerer, DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import JaxChat
+    from pathway_tpu_torch.xpacks.llm.parsers import ParseUtf8
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker, rerank_topk_filter
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    on_card = torch.device(device).type == "cuda"
+    kw = {} if on_card else {"device": str(device)}
+    t_setup = time.perf_counter()
+    corpus = rag_corpus(seed, sizes)
+    root = tempfile.mkdtemp(prefix="rag_")
+    docs_dir = os.path.join(root, "docs")
+    os.makedirs(docs_dir)
+    for i, text in enumerate(corpus["texts"]):
+        with open(os.path.join(docs_dir, f"doc{i:05d}.txt"), "w") as f:
+            f.write(text)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # the scheduler JaxChat reaches (same key), built here so that its
+    # submissions are recorded; seeded bf16 weights at full width
+    sched = generation.shared_scheduler(sizes.model, max_cache=sizes.cache, device=kw.get("device"))
+    lm = sched.lm
+    if seed:
+        lm.params = dec.init_decoder_params(lm.config, seed, lm.device)
+    records: list = []  # (prompt, GenRequest) of every submission
+
+    def recording_submit(prompt, **kwargs):
+        from concurrent.futures import Future
+
+        req = sched.submit_request(lm._encode_prompt(prompt), **kwargs)
+        records.append((prompt, req))
+        outer: Future = Future()
+
+        def done(f):
+            exc = f.exception()
+            if exc is not None:
+                outer.set_exception(exc)
+            else:
+                outer.set_result(lm.tokenizer.decode(f.result()))
+
+        req.future.add_done_callback(done)
+        return outer
+
+    sched.submit = recording_submit
+    with env_knobs(PATHWAY_SERVE_INFLIGHT=RAG_INFLIGHT, PATHWAY_SERVE_QUEUE=RAG_QUEUE):
+        serving.reset_for_tests()  # a controller of this phase's budget, built from the knobs
+        controller = serving.get_controller()
+    tracing.reset_for_tests()
+
+    embedder = SentenceTransformerEmbedder(VS_MODEL, **kw)  # max batch 256
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, seed))
+    store = DocumentStore(pw.io.fs.read(docs_dir, format="binary", mode="static", with_metadata=True),
+                          BruteForceKnnFactory(embedder=embedder, **kw), parser=ParseUtf8(),
+                          splitter=TokenCountSplitter())
+    chat = JaxChat(sizes.model, max_new_tokens=sizes.new_tokens, max_cache=sizes.cache, **kw)
+    rag = AdaptiveRAGQuestionAnswerer(chat, store, n_starting_documents=RAG_STARTING, factor=RAG_FACTOR,
+                                      max_iterations=RAG_ITERATIONS)
+    rag.build_server("127.0.0.1", port)
+    reranker = CrossEncoderReranker(RERANK_MODEL, **kw)
+    ce = reranker._ce
+    ce.set_params(init_params(ce.config, seed, head=True))
+    traffic = RagTraffic(corpus, sizes, len(corpus["chunk_ids"]))
+    traffic.url, traffic.server = f"http://127.0.0.1:{port}", rag.server
+    rq = pw.io.python.read(traffic.rerank_subject(pw), schema=DocumentStore.RetrieveQuerySchema)
+    hits = rq.with_columns(docs=store.retrieve_query(rq).result)
+    pairs = hits.select(pw.this.query, doc=pw.apply(lambda d: tuple(pw.Json(x) for x in d.value),
+                                                   pw.this.docs)).flatten(pw.this.doc)
+    scored = pairs.select(pw.this.query, pw.this.doc, score=reranker(pw.this.doc, pw.this.query))
+    grouped = scored.groupby(pw.this.query).reduce(pw.this.query, docs=pw.reducers.tuple(pw.this.doc),
+                                                   scores=pw.reducers.tuple(pw.this.score))
+    kept = grouped.select(pw.this.query, top=rerank_topk_filter(pw.this.docs, pw.this.scores, k=RERANK_KEEP))
+    pw.io.subscribe(store.chunked_docs, on_change=traffic.on_chunk, on_time_end=traffic.on_chunk_epoch)
+    pw.io.subscribe(scored, on_change=traffic.on_scored)
+    pw.io.subscribe(kept, on_change=traffic.on_kept)
+    setup_s = time.perf_counter() - t_setup
+
+    seen: dict[tuple, int] = {}
+    removers = [h.remove for h in (record_launches(m, seen) for m in (enc, ce))]
+    events: list = []
+    paged = {"prefill": dec.paged_prefill_chunk, "decode": dec.paged_decode_step}
+    dec_events: dict[str, list] = {name: [] for name in paged}
+    if on_card:
+        for m in (enc, ce):
+            ev, remove = forward_events(m)
+            events.append(ev)
+            removers.append(remove)
+
+        def timed(fn, ev):
+            def call(*a, **k):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                ev.append([start, end])
+                return out
+            return call
+
+        dec.paged_prefill_chunk = timed(paged["prefill"], dec_events["prefill"])
+        dec.paged_decode_step = timed(paged["decode"], dec_events["decode"])
+    epochs: list[tuple[float, float]] = []
+    run_epoch = df.Scope.run_epoch
+
+    def timed_epoch(scope, time_):
+        t0 = time.perf_counter()
+        try:
+            return run_epoch(scope, time_)
+        finally:
+            if scope.parent is None:
+                epochs.append((t0, (time.perf_counter() - t0) * 1e3))
+
+    run_errors: list = []
+    excepthook = threading.excepthook
+
+    def on_thread_error(args):
+        if args.thread is not None and args.thread.name == "pathway:server":
+            run_errors.append(repr(args.exc_value))
+        else:
+            excepthook(args)
+
+    client = threading.Thread(target=traffic.drive, args=(rag.server.webserver, rag.server._routes, records),
+                              name="rag:client", daemon=True)
+    df.Scope.run_epoch = timed_epoch
+    threading.excepthook = on_thread_error
+    before = rail_state(device) if on_card else None
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen.clear()
+    try:
+        t_run = _now()
+        server_thread = rag.run_server(threaded=True, with_cache=False)
+        client.start()
+        client.join(timeout=RAG_WAIT_S * 4)
+        server_thread.join(timeout=RAG_WAIT_S)
+        wall_s = _now() - t_run
+    finally:
+        df.Scope.run_epoch = run_epoch
+        threading.excepthook = excepthook
+        dec.paged_prefill_chunk, dec.paged_decode_step = paged["prefill"], paged["decode"]
+        pw.G.clear()
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    for remove in removers:
+        remove()
+    if client.is_alive() or server_thread.is_alive() or traffic.failure or run_errors:
+        fail(f"rag: the served run did not end cleanly: client alive {client.is_alive()}, run alive "
+             f"{server_thread.is_alive()}, {traffic.failure or ''} {run_errors}")
+    rail = rail_gate("rag", device, before) if on_card else {}
+    enc_ms = sum(events_ms(ev) for ev in events) if on_card else None
+    dec_ms = {name: events_ms(ev) for name, ev in dec_events.items()} if on_card else {}
+    device_ms = (enc_ms + sum(dec_ms.values())) if on_card else None
+    try:  # the listening socket is closed: a connection is refused
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        socket_closed = False
+    except OSError:
+        socket_closed = True
+
+    # -- what the client saw ---------------------------------------------
+    statuses: dict[str, dict] = {}
+    latency: dict[str, list] = {}
+    for stage, calls in traffic.calls.items():
+        for route, _payload, res in calls:
+            key = f"{stage}:{route}"
+            statuses.setdefault(key, {})
+            statuses[key][str(res["status"])] = statuses[key].get(str(res["status"]), 0) + 1
+            if stage in ("retrieve", "answer"):
+                latency.setdefault(route, []).append(res["ms"])
+    expected = {"retrieve:/v1/retrieve": {"200": sizes.questions}, "retrieve:/v1/statistics": {"200": 1},
+                "retrieve:/v2/list_documents": {"200": 1}, "answer:/v1/pw_ai_answer": {"200": sizes.questions},
+                "answer:/v1/pw_ai_summary": {"200": sizes.summaries}, "typed:/v1/pw_ai_answer": {"400": 1},
+                "typed:/v1/no_such_route": {"404": 1}, "typed:/v1/retrieve": {"504": 1}}
+    burst = statuses.pop("burst:/v1/pw_ai_summary", {})
+    rejected = [res for _r, _p, res in traffic.calls.get("burst", ()) if res["status"] == 429]
+    retry_after = sorted({res["headers"].get("Retry-After") for res in rejected}, key=str)
+    reg = metrics.get_registry()
+    qwait = reg.histogram("serve.queue.wait.ms", buckets=metrics.MS_BUCKETS)
+    spans: dict[str, list] = {}
+    for trace in tracing.recent_requests(10**6):
+        for sp in trace["spans"]:
+            spans.setdefault(sp["name"], []).append(sp["duration_s"] * 1e3)
+    main = [req for _p, req in records[: traffic.burst_from]]
+    ttft = [req.ttft_s * 1e3 for req in main if req.ttft_s is not None]
+    gen_s = max(r.finished_at for r in main) - min(r.submitted_at for r in main)
+    snap = sched.snapshot()
+    epochs_ms = [ms for _t, ms in epochs]
+    stats = next(res["body"] for r, _p, res in traffic.calls["retrieve"] if r == "/v1/statistics")
+    listed = next(res["body"] for r, _p, res in traffic.calls["retrieve"] if r == "/v2/list_documents")
+    res = {
+        "card": card, "files": sizes.files, "chunks": len(corpus["chunk_ids"]), "model": sizes.model,
+        "max_cache": sizes.cache, "new_tokens": sizes.new_tokens, "setup_s": setup_s, "wall_s": wall_s,
+        "ingest_s": traffic.t_indexed - t_run if traffic.t_indexed else None,
+        "statuses": statuses, "burst": burst, "burst_retry_after": retry_after,
+        "latency_ms": {route: percentiles(v) for route, v in sorted(latency.items())},
+        "ttft_ms": percentiles(ttft), "tokens_per_s": sum(len(r.out) for r in main) / gen_s,
+        "sched": {k: snap[k] for k in ("requests", "tokens_total", "prefill_chunks", "decode_steps",
+                                        "prompts_truncated", "deadline_shed", "kv_bytes_peak")},
+        "admission": {"queue_wait_ms_p50": qwait.quantile(0.5), "queue_wait_ms_p99": qwait.quantile(0.99),
+                      "queued": qwait.snapshot()[3], "limits": controller.snapshot()["limits"]},
+        "span_ms_p50": {name: float(np.median(v)) for name, v in sorted(spans.items())},
+        "traces": tracing.snapshot()["buffered"],
+        "epochs": len(epochs_ms), "host_ms_per_epoch": percentiles(epochs_ms) if epochs_ms else {},
+        "host_ms_epochs_total": sum(epochs_ms), "encoder_device_ms": enc_ms, "decoder_device_ms": dec_ms,
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / (wall_s * 1e3) if on_card else None,
+        "statistics": stats, "listed_documents": len(listed), "socket_closed": socket_closed,
+        "rerank_pairs": len(traffic.scored), "error_rows": traffic.errors,
+    }
+    t_check = time.perf_counter()
+    with torch.inference_mode():
+        res["retrieve_check"] = rag_retrieve_check(enc, traffic, device)
+        res["rerank_check"] = rag_rerank_check(ce, traffic)
+        res["answer_check"] = rag_answers_check(lm, traffic, records, sizes)
+    res["check_s"] = time.perf_counter() - t_check
+    log("rag", **res, kernel_launches=launches)
+    shutil.rmtree(root, ignore_errors=True)
+    # free the decoder before the next phase: the scheduler's pool, the
+    # shared decoder and every reference the phase held
+    generation.reset_shared_schedulers()
+    dec.shared_decoder.cache_clear()
+    del lm, sched, chat, rag, records
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    problems = [f"{k} answered {statuses.get(k)}, not {v}" for k, v in expected.items() if statuses.get(k) != v]
+    if set(burst) - {"200", "429"} or not burst.get("429") or sum(burst.values()) != sizes.burst:
+        problems.append(f"the burst of {sizes.burst} past the budget answered {burst}")
+    if None in retry_after or not retry_after:
+        problems.append(f"a 429 came without Retry-After: {retry_after}")
+    if stats.get("file_count") != sizes.files or len(listed) != sizes.files:
+        problems.append(f"statistics {stats} and {len(listed)} listed documents, not {sizes.files}")
+    r = res["retrieve_check"]
+    if r["unknown_texts"] or r["max_own_score_err"] > SCORE_TOL or r["max_score_err"] > SCORE_TOL \
+            or r["max_below_plain_kth"] > VS_TIE_TOL:
+        problems.append(f"/v1/retrieve against the plain answer: {r}")
+    rr = res["rerank_check"]
+    if rr["pairs"] != sizes.questions * RAG_RERANK_K or rr["max_abs_err"] > rr["tol"] \
+            or rr["parted_max_below_kth"] > rr["tol"]:
+        problems.append(f"the rerank program against CrossEncoder.score: {rr}")
+    problems += res["answer_check"]["problems"]
+    if res["answer_check"]["second_rounds"]:
+        log("rag", step="second_rounds", questions=res["answer_check"]["second_rounds"])
+    if snap["prompts_truncated"]:
+        problems.append(f"{snap['prompts_truncated']} prompt(s) passed the cache budget and were cut")
+    if traffic.errors:
+        problems.append(f"{traffic.errors} rows hold ERROR")
+    if not socket_closed:
+        problems.append(f"port {port} still accepts connections after close()")
+    if on_card:
+        expected_launches = sum(seen.values())
+        if launches["encoder_attention"] != expected_launches or not expected_launches:
+            problems.append(f"attention launches {launches['encoder_attention']} != {expected_launches} "
+                            f"(layers x forwards per shape {seen})")
+    if problems:
+        fail("rag: " + "; ".join(problems))
+    if on_card:
+        gen = torch.Generator(device=device).manual_seed(seed + 305)
+        for shape in sorted(set(seen) - set(checked)):
+            checked[shape] = check_attention_shape(gen, shape, device)
+        log("rag", step="shapes", card=card, launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+            max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--docs", type=int, default=262144)
@@ -4627,6 +5295,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["sharded"] = sharded_phase(device, args.seed, card)
         seconds["sharded"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "rag" not in skip:
+        t_phase = time.perf_counter()
+        phases["rag"] = rag_phase(device, args.seed, checked, card)
+        seconds["rag"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

@@ -27,8 +27,18 @@ substring filters; ``nth`` fires once on the Nth matching event;
 RNG.  A spec with none of these fires on the first match.  The plan is
 installed by :func:`install_plan` or read once from ``PATHWAY_FAULT_PLAN``.
 
-The worker, persistence, connector and serving kinds need the host engine
-and wait for its slice of the port; a plan naming one raises ``ValueError``.
+The serving kinds fire where the JAX package fires them:
+``request_flood`` (``serving.maybe_flood``: saturates the admission budget
+with synthetic in-flight requests for ``delay_ms``, default 1000) and
+``slow_handler`` (``serving.slow_handler_delay_s``: the REST handler stalls
+``delay_ms`` holding its admission slot), both on the REST ingress with
+``source`` the route; ``request_churn`` (the generation scheduler's
+admission: a burst of ``count``, default 4, short synthetic requests;
+``source`` the model name); ``trace_storm`` (``tracing.maybe_trace_storm``:
+``count``, default 64, synthetic deep traces; ``source`` the route).
+
+The worker, persistence and connector kinds need the host engine and wait
+for its slice of the port; a plan naming one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,7 +54,10 @@ from pathway_tpu_torch.engine import flight_recorder as _blackbox
 ENV_PLAN = "PATHWAY_FAULT_PLAN"
 ENV_ATTEMPT = "PATHWAY_RESTART_ATTEMPT"
 
-KINDS = ("device_stall", "device_error", "device_oom", "device_compile_fail", "device_hang")
+KINDS = (
+    "device_stall", "device_error", "device_oom", "device_compile_fail", "device_hang",
+    "request_flood", "slow_handler", "request_churn", "trace_storm",
+)
 
 
 def restart_attempt() -> int:
@@ -61,7 +74,7 @@ class FaultSpec:
 
     __slots__ = (
         "kind", "worker", "peer", "nth", "from_nth", "prob", "delay_ms",
-        "key", "source", "attempt", "max_times", "seen", "fired", "_rng",
+        "key", "source", "attempt", "max_times", "count", "seen", "fired", "_rng",
     )
 
     def __init__(self, spec: dict[str, Any], *, seed: int, index: int):
@@ -79,6 +92,7 @@ class FaultSpec:
         self.source = spec.get("source")
         self.attempt = spec.get("attempt")
         self.max_times = spec.get("max_times")
+        self.count = spec.get("count")
         if self.nth is None and self.from_nth is None and self.prob is None:
             self.nth = 1  # a bare spec fires once, on the first match
         self.seen = 0

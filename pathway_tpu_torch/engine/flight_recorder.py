@@ -6,8 +6,10 @@ one ``{"seq", "ts", "mono", "kind", ...}`` event to a process-wide ring
 The device layer records ``device.failure``, ``device.oom.ratchet``,
 ``device.breaker.open``/``close``, ``device.quarantine``,
 ``device.dispatch.restart``, ``fault.injected`` and ``fault.device_hang``
-under the JAX package's names.  Dumping the ring into a persistence root,
-and the suppliers that ride a dump, wait for the host-engine slice.
+under the JAX package's names, and the generation scheduler sets its
+snapshot as the recorder's generation supplier.  Dumping the ring into a
+persistence root, and the other suppliers that ride a dump, wait for the
+host-engine slice.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class FlightRecorder:
         self._ring: deque[dict[str, Any]] = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._seq = 0
+        self._generation_supplier: Any = None
 
     def record(self, kind: str, **fields: Any) -> None:
         event = {"ts": time.time(), "mono": time.monotonic(), "kind": kind}
@@ -39,6 +42,15 @@ class FlightRecorder:
     def events(self) -> list[dict[str, Any]]:
         with self._lock:
             return list(self._ring)
+
+    def set_generation_supplier(self, fn: Any) -> None:
+        """Wire (or clear, with ``None``) the generation scheduler's
+        snapshot, read by :meth:`generation_snapshot`."""
+        self._generation_supplier = fn
+
+    def generation_snapshot(self) -> dict[str, Any] | None:
+        fn = self._generation_supplier
+        return fn() if fn is not None else None
 
 
 _recorder: FlightRecorder | None = None

@@ -4,8 +4,9 @@ A slim copy of ``pathway_tpu/engine/metrics.py``: counters, gauges and
 fixed-bucket histograms in labelled families, pull-time collectors, and
 the flat ``{name[{labels}]: value}`` read the device layer's tests and
 snapshots use, under the same metric names and labels as the JAX
-package.  The Prometheus and OTLP exposition, exemplars and the declared
-name table wait for the host-engine slice of the port.
+package, with a histogram's newest trace-id exemplar per bucket.  The
+Prometheus and OTLP exposition and the declared name table wait for the
+host-engine slice of the port.
 
 ``PATHWAY_METRICS_DISABLED`` (a registry-wide kill switch) is read from the
 environment as the JAX package reads it.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time as _time
 import weakref
 from bisect import bisect_left
 from typing import Any, Callable, Iterable
@@ -92,7 +94,7 @@ class Histogram:
     """Fixed-bucket histogram child (one label set); ``observe`` touches
     one per-interval slot, reads are cumulative (``le`` semantics)."""
 
-    __slots__ = ("_enabled", "_bounds", "_counts", "_sum", "_count", "_lock")
+    __slots__ = ("_enabled", "_bounds", "_counts", "_sum", "_count", "_lock", "_exemplars")
 
     def __init__(self, enabled: _Enabled, bounds: tuple[float, ...]):
         self._enabled = enabled
@@ -101,8 +103,9 @@ class Histogram:
         self._sum = 0.0
         self._count = 0
         self._lock = threading.Lock()
+        self._exemplars: dict[int, tuple[str, float, float]] | None = None
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, trace_id: str | None = None) -> None:
         if not self._enabled.on:
             return
         i = bisect_left(self._bounds, value)
@@ -110,6 +113,16 @@ class Histogram:
             self._counts[i] += 1
             self._sum += value
             self._count += 1
+            if trace_id:
+                if self._exemplars is None:
+                    self._exemplars = {}
+                self._exemplars[i] = (trace_id, value, _time.time())
+
+    def exemplars(self) -> dict[int, tuple[str, float, float]]:
+        """``{bucket index: (trace_id, value, ts)}`` — the +Inf bucket is
+        index ``len(bounds)``."""
+        with self._lock:
+            return dict(self._exemplars) if self._exemplars else {}
 
     def snapshot(self) -> tuple[tuple[float, ...], list[int], float, int]:
         """(bounds, per-interval counts, sum, count) — a consistent read."""
@@ -240,6 +253,10 @@ class MetricsRegistry:
             ref = lambda f=fn: f  # noqa: E731 - plain function: held strongly
         with self._lock:
             self._collectors[name] = ref
+
+    def unregister_collector(self, name: str) -> None:
+        with self._lock:
+            self._collectors.pop(name, None)
 
     def collect(self) -> dict[str, float]:
         """Evaluate every live collector into one flat gauge dict."""

@@ -1,6 +1,7 @@
 """The ``PATHWAY_DEVICE_*`` environment knobs of the device executor, the
 worker topology that ``parallel/mesh.py::initialize_distributed`` reads,
-the dataflow engine's switches (``PATHWAY_NATIVE``, ``PATHWAY_COLUMNAR``)
+the dataflow engine's switches (``PATHWAY_NATIVE``, ``PATHWAY_COLUMNAR``),
+the serving edge's (``PATHWAY_SERVE_*``, ``PATHWAY_TRACE_*``)
 and the part of ``PathwayConfig`` that the expression evaluator reads.
 
 A copy of the executor's part of ``pathway_tpu/internals/config.py``
@@ -79,6 +80,28 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
             "directory of the native core's build (default: native/build)"),
     EnvKnob("PATHWAY_COLUMNAR", "bool", True,
             "`0` forces every operator onto the row-wise reference evaluator"),
+    EnvKnob("PATHWAY_TRACE_REQUESTS", "bool", True,
+            "request-scoped tracing of the serving path; `0` removes the span layer"),
+    EnvKnob("PATHWAY_TRACE_BUFFER", "int", 256,
+            "finished request traces kept in the in-process ring"),
+    EnvKnob("PATHWAY_SERVE_ADMISSION", "bool", True,
+            "`0` disables the serving admission controller (every request admitted)"),
+    EnvKnob("PATHWAY_SERVE_DEADLINE_MS", "float", 30000.0,
+            "default per-request deadline of REST queries (`X-Pathway-Deadline-Ms` overrides)"),
+    EnvKnob("PATHWAY_SERVE_INFLIGHT", "int", 64,
+            "admission: max REST requests inside the pipeline at once"),
+    EnvKnob("PATHWAY_SERVE_INFLIGHT_MB", "float", 32.0,
+            "admission: max summed request-body MB in flight"),
+    EnvKnob("PATHWAY_SERVE_QUEUE", "int", 128,
+            "admission: max requests waiting for an in-flight slot; overflow is 429"),
+    EnvKnob("PATHWAY_SERVE_QUEUE_DELAY_MS", "float", 250.0,
+            "load shedding: target queue delay that arms the shedder"),
+    EnvKnob("PATHWAY_SERVE_SHED_DWELL_S", "float", 1.0,
+            "load shedding: seconds above target before degraded mode engages"),
+    EnvKnob("PATHWAY_SERVE_RECOVER_S", "float", 5.0,
+            "load shedding: seconds back under target before degraded mode ends"),
+    EnvKnob("PATHWAY_SERVE_DRAIN_S", "float", 10.0,
+            "graceful drain budget of in-flight requests on stop-accept"),
 )
 
 ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}

@@ -1,17 +1,17 @@
 """``pw.io`` — connectors (parity: python/pathway/io/__init__.py:3-31).
 
 The port's namespace: ``fs``, ``csv``, ``jsonlines``, ``plaintext``,
-``python``, ``null`` and ``subscribe`` work, copied from the JAX package.
-Every other connector of ``pathway_tpu/io`` is a stand-in here that
-raises ``NotImplementedError`` on use, naming the slice of the port that
-brings it: ``http`` the REST slice, the rest slice H6.
+``python``, ``http``, ``null`` and ``subscribe`` work, copied from the JAX
+package.  Every other connector of ``pathway_tpu/io`` is a stand-in here
+that raises ``NotImplementedError`` on use, naming slice H6, which brings
+it.
 """
 
 from __future__ import annotations
 
 import types
 
-from pathway_tpu_torch.io import csv, fs, jsonlines, null, plaintext, python
+from pathway_tpu_torch.io import csv, fs, http, jsonlines, null, plaintext, python
 from pathway_tpu_torch.io._subscribe import (
     OnChangeCallback,
     OnFinishCallback,
@@ -39,7 +39,6 @@ class _LaterSlice(types.ModuleType):
         )
 
 
-http = _LaterSlice("pw.io.http", "the REST slice (io/http/)")
 airbyte = _LaterSlice("pw.io.airbyte", "slice H6")
 bigquery = _LaterSlice("pw.io.bigquery", "slice H6")
 debezium = _LaterSlice("pw.io.debezium", "slice H6")

@@ -11,8 +11,10 @@ event loop calls ``poll`` each iteration and commits an epoch per
 Single-process form.  What the port brings in later slices raises
 ``NotImplementedError`` naming that slice instead of passing silently:
 the persistence hooks (source registration, snapshot replay, offsets and
-the writers' incarnation sweep: slice H4) and the serving hooks of REST
-rows, which carry ``DEADLINE_TS``/``TRACE_STAMP`` (the REST slice).  The
+the writers' incarnation sweep: slice H4).  REST rows carry
+``DEADLINE_TS``/``TRACE_STAMP``: a row whose deadline lapsed in the queue
+is never staged (``serving.shed_staged`` answers its client 504), and a
+staged one records a ``serve.stage`` span on its request's trace.  The
 connector fault kinds (``connector_read``, ``connector_stall``,
 ``load_spike``) come with H4 too: until then ``engine/faults.py`` rejects
 a plan that names them.
@@ -367,13 +369,17 @@ class _QueuePoller:
                 self._bulk_insert(item.rows, item.tags)
                 continue
             row = item
-            if DEADLINE_TS in row or TRACE_STAMP in row:
-                raise NotImplementedError(
-                    "rows stamped with a request deadline or trace come from "
-                    "the REST connector (io/http/), which the port brings in "
-                    "the REST slice"
-                )
             diff = -1 if row.get(DELETE) else 1
+            ddl = row.get(DEADLINE_TS)
+            if ddl is not None and diff > 0 and "_pw_key" in row and _time.monotonic() >= ddl:
+                # serving shed-before-work: the request's deadline lapsed
+                # while the row sat in the connector queue — never stage
+                # it; 504 the waiting client now (engine/serving.py)
+                from pathway_tpu_torch.engine import serving as _serving
+
+                k = row["_pw_key"]
+                _serving.shed_staged((k & KEY_MASK) if isinstance(k, int) else hash_values([k]))
+                continue
             tag = row.get(FILE_ROW)
             if tag is not None and diff < 0:
                 held = self._file_rows.pop(tag, None)
@@ -387,6 +393,13 @@ class _QueuePoller:
             key = self._key_of(values, row)
             vrow = tuple(values)
             self.input_node.insert(key, vrow, self._time, diff)
+            tp = row.get(TRACE_STAMP)
+            if tp is not None:
+                from pathway_tpu_torch.engine import tracing as _tracing
+
+                tr = _tracing.active_trace(tp)
+                if tr is not None:
+                    tr.add_span("serve.stage", _time.time(), 0.0, epoch=self._time)
             if tag is not None:
                 self._file_rows[tag] = (key, vrow)
             self._staged = True

@@ -17,9 +17,17 @@ Counterpart of ``pathway_tpu/serving/generation.py``:
 
 A worker thread runs the tick (evict → admit → chunked prefill → one
 decode step → deliver) under ``torch.inference_mode()`` on the model's
-device, with one host sync per tick.  The JAX package's metrics registry,
-flight recorder, request tracing and fault hooks wait for the host-engine
-slice; their counts are plain ints in :meth:`GenerationScheduler.snapshot`.
+device, with one host sync per tick.
+
+The JAX package's host hooks: the ``generate.*`` families of the metrics
+registry (requests, tokens, prefill chunks, decode steps, TTFT histogram,
+slot/queue/page/KV gauges), the snapshot as the flight recorder's
+generation supplier, the request trace captured at submit (spans
+``generate.queue``, ``generate.prefill.chunk``, ``generate.ttft`` and
+``generate.decode``) and the ``request_churn`` fault.  The counts are also
+plain ints in :meth:`GenerationScheduler.snapshot`.  One addition: a
+prompt longer than the cache budget keeps its tail, as in the JAX package,
+and is counted (``generate.prompt.truncated``, ``prompts_truncated``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from pathway_tpu_torch.engine import flight_recorder as _blackbox
+from pathway_tpu_torch.engine import metrics as em
 from pathway_tpu_torch.engine import serving as edge
+from pathway_tpu_torch.engine import tracing
 from pathway_tpu_torch.models import decoder as dec
 
 __all__ = [
@@ -84,7 +95,8 @@ class GenRequest:
     __slots__ = (
         "prompt_ids", "max_new_tokens", "temperature", "top_p", "min_p",
         "deadline", "future", "submitted_at", "first_token_at",
-        "finished_at", "out", "pages_reserved",
+        "finished_at", "out", "pages_reserved", "trace", "submitted_wall",
+        "first_token_wall",
     )
 
     def __init__(
@@ -96,6 +108,7 @@ class GenRequest:
         top_p: float | None = None,
         min_p: float | None = None,
         deadline=None,
+        trace=None,
     ):
         self.prompt_ids = prompt_ids
         self.max_new_tokens = max_new_tokens
@@ -105,6 +118,12 @@ class GenRequest:
         self.deadline = deadline
         self.future: Future = Future()
         self.submitted_at = time.monotonic()
+        # request trace (engine/tracing.py): captured at submit in the
+        # caller's context, spans recorded from the scheduler thread with
+        # wall-clock starts
+        self.trace = trace
+        self.submitted_wall = time.time()
+        self.first_token_wall: float | None = None
         self.first_token_at: float | None = None
         self.finished_at: float | None = None
         self.out: list[int] = []
@@ -185,12 +204,30 @@ class GenerationScheduler:
         self._slots: list[_Slot | None] = [None] * self.slots
         self._running = False
         self._thread: threading.Thread | None = None
-        # counts the JAX package keeps in its metrics registry
+        # the registry's counts, also kept as plain ints for snapshot()
         self._requests = 0
         self._tokens_total = 0
         self._prefill_chunks = 0
         self._decode_steps = 0
+        self._truncated = 0
         self._shed = {"decode": 0, "generate-queue": 0}
+        self._tok_window: list[tuple[float, int]] = []  # (t, tokens) per tick
+
+        reg = self._reg = em.get_registry()
+        self._m_requests = reg.counter("generate.requests", "generation requests accepted")
+        self._m_tokens = reg.counter("generate.tokens", "tokens generated across all requests")
+        self._m_prefill_chunks = reg.counter("generate.prefill.chunks", "chunked-prefill programs dispatched")
+        self._m_decode_steps = reg.counter("generate.decode.steps", "continuous decode ticks dispatched")
+        self._m_ttft = reg.histogram(
+            "generate.ttft.ms", "request submit -> first token (ms)", buckets=em.MS_BUCKETS
+        )
+        self._m_churn = reg.counter(
+            "generate.churn.synthetic", "synthetic burst requests injected by the request_churn fault"
+        )
+        self._m_truncated = reg.counter(
+            "generate.prompt.truncated", "prompts cut to their tail to fit the cache budget"
+        )
+        _blackbox.get_recorder().set_generation_supplier(self.snapshot)
 
     # -- submission --------------------------------------------------------
 
@@ -216,24 +253,31 @@ class GenerationScheduler:
         if deadline is None:
             deadline = edge.current_deadline()
         if deadline is not None and deadline.expired():
+            edge.note_deadline_shed("generate-queue")
             with self._lock:
                 self._shed["generate-queue"] += 1
             raise edge.DeadlineExceededError("request deadline lapsed before generation was queued")
         limit = self.max_cache - max_new_tokens
-        prompt_ids = list(prompt_ids[-limit:]) if len(prompt_ids) > limit else list(prompt_ids)
+        truncated = len(prompt_ids) > limit
+        prompt_ids = list(prompt_ids[-limit:]) if truncated else list(prompt_ids)
         if not prompt_ids:
             prompt_ids = [0]
         req = GenRequest(
             prompt_ids, max_new_tokens, temperature=temperature,
             top_p=top_p, min_p=min_p, deadline=deadline,
+            trace=tracing.current_trace(),
         )
         with self._lock:
             if len(self._queue) >= self.queue_limit:
                 raise edge.OverloadedError("generation queue full", retry_after_s=1.0)
             self._queue.append(req)
             self._requests += 1
+            self._truncated += truncated
             self._ensure_thread()
             self._lock.notify_all()
+        self._m_requests.inc()
+        if truncated:
+            self._m_truncated.inc()
         return req
 
     def submit_ids(self, prompt_ids: list[int], **kwargs) -> Future:
@@ -274,6 +318,7 @@ class GenerationScheduler:
         while True:
             with self._lock:
                 while self._running and not self._queue and all(s is None for s in self._slots):
+                    self._update_gauges()
                     self._lock.wait(timeout=0.5)
                 if not self._running:
                     return
@@ -291,6 +336,7 @@ class GenerationScheduler:
         if t is not None:
             t.join(timeout=5.0)
         self._fail_all(edge.RequestFailedError("generation scheduler shut down"))
+        _blackbox.get_recorder().set_generation_supplier(None)
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._lock:
@@ -319,6 +365,11 @@ class GenerationScheduler:
                 decode_rows.extend(self._run_prefill(prefill_rows))
             if decode_rows:
                 self._run_decode(decode_rows)
+        with self._lock:
+            self._update_gauges()
+        self._tok_window.append((t0, len(decode_rows)))
+        if len(self._tok_window) > 256:
+            del self._tok_window[:128]
 
     def _evict_lapsed(self, now: float) -> None:
         """Shed active rows whose deadline lapsed mid-generation, and
@@ -328,6 +379,7 @@ class GenerationScheduler:
                 continue
             d = slot.req.deadline
             if d is not None and d.expired(now):
+                edge.note_deadline_shed("decode")
                 self._shed["decode"] += 1
                 req = slot.req
                 self._release_slot(i)
@@ -339,6 +391,7 @@ class GenerationScheduler:
         for req in self._queue:
             d = req.deadline
             if d is not None and d.expired(now):
+                edge.note_deadline_shed("generate-queue")
                 self._shed["generate-queue"] += 1
                 if not req.future.done():
                     req.future.set_exception(
@@ -352,6 +405,7 @@ class GenerationScheduler:
         """Fill free slots from the queue.  The whole queue is scanned: a
         request that cannot reserve pages yet must not block smaller ones
         behind it.  Runs under the lock."""
+        self._maybe_inject_churn()
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free:
             return
@@ -367,6 +421,12 @@ class GenerationScheduler:
             self.allocator.reserve(need)
             req.pages_reserved = need
             i = free.pop(0)
+            if req.trace is not None:
+                # queue-wait span: submit → slot grant
+                req.trace.add_span(
+                    "generate.queue", req.submitted_wall, max(0.0, time.time() - req.submitted_wall),
+                    slot=i, pages=need,
+                )
             self._slots[i] = _Slot(req)
             self._block_tables[i, :] = 0
             self._seq_lens[i] = 0
@@ -374,6 +434,20 @@ class GenerationScheduler:
             self._top_ps[i] = 1.0 if req.top_p is None else req.top_p
             self._min_ps[i] = 0.0 if req.min_p is None else req.min_p
         self._queue[:] = remaining
+
+    def _maybe_inject_churn(self) -> None:
+        """The ``request_churn`` fault: a burst of short synthetic requests
+        lands mid-generation (runs under the lock)."""
+        from pathway_tpu_torch.engine import faults
+
+        spec = faults.check("request_churn", source=self.lm.model_name)
+        if spec is None:
+            return
+        for n in range(int(spec.count or 4)):
+            req = GenRequest([1 + (n % 7)], 4, temperature=0.0)
+            if len(self._queue) < self.queue_limit:
+                self._queue.append(req)
+                self._m_churn.inc()
 
     def _ensure_pages(self, i: int, tokens_needed: int) -> None:
         """Grow slot ``i``'s block table to cover ``tokens_needed`` tokens
@@ -421,6 +495,7 @@ class GenerationScheduler:
         starts = np.zeros(self.slots, np.int64)
         take = np.zeros(self.slots, bool)
         finishing: list[int] = []
+        traced_chunks: list[tuple] = []
         with self._lock:
             for i in rows:
                 slot = self._slots[i]
@@ -434,15 +509,26 @@ class GenerationScheduler:
                 ids[i, :n] = slot.req.prompt_ids[done:done + n]
                 chunk_lens[i] = n
                 starts[i] = done
+                if slot.req.trace is not None:
+                    traced_chunks.append((slot.req.trace, n, done))
                 if done + n >= slot.prompt_len:
                     take[i] = True
                     finishing.append(i)
             bt = self._block_tables[:, : self._table_width()].copy()
+        chunk_started = time.time()
         logits, self._k_pool, self._v_pool = dec.paged_prefill_chunk(
             self.lm.params, self._k_pool, self._v_pool, self._to_device(bt),
             self._to_device(ids), self._to_device(chunk_lens), self._to_device(starts), self.cfg,
         )
         self._logits = torch.where(self._to_device(take)[:, None], logits, self._logits)
+        self._m_prefill_chunks.inc()
+        if traced_chunks:
+            # one shared prefill chunk, one span per traced request: the
+            # wall duration is the whole chunk's launch (work is fused)
+            chunk_s = max(0.0, time.time() - chunk_started)
+            for trace, n, done in traced_chunks:
+                trace.add_span("generate.prefill.chunk", chunk_started, chunk_s,
+                               chunk_len=int(n), prompt_start=int(done))
         with self._lock:
             self._prefill_chunks += 1
             for i in rows:
@@ -485,8 +571,10 @@ class GenerationScheduler:
             self._to_device(sl), tok, self.cfg,
         )
         htok = tok.cpu().numpy()  # the one host sync per tick
+        self._m_decode_steps.inc()
         t_now = time.monotonic()
         eos = self.lm.eos_id
+        produced = 0
         with self._lock:
             self._decode_steps += 1
             for i in rows:
@@ -499,17 +587,48 @@ class GenerationScheduler:
                 self._seq_lens[i] = slot.seq_len
                 if req.first_token_at is None:
                     req.first_token_at = t_now
+                    req.first_token_wall = time.time()
+                    ttft_s = t_now - req.submitted_at
+                    self._m_ttft.observe(ttft_s * 1e3, trace_id=req.trace.trace_id if req.trace is not None else None)
+                    if req.trace is not None:
+                        req.trace.add_span("generate.ttft", req.submitted_wall, ttft_s, prompt_len=slot.prompt_len)
                 stop = eos is not None and t == eos
                 if not stop:
                     req.out.append(t)
-                    self._tokens_total += 1
+                    produced += 1
                 if stop or len(req.out) >= req.max_new_tokens:
                     req.finished_at = t_now
+                    if req.trace is not None:
+                        start = req.first_token_wall or req.submitted_wall
+                        req.trace.add_span("generate.decode", start, max(0.0, time.time() - start),
+                                           tokens=len(req.out), eos=bool(stop))
                     self._release_slot(i)
                     if not req.future.done():
                         req.future.set_result(req.out)
+            self._tokens_total += produced
+        if produced:
+            self._m_tokens.inc(produced)
 
     # -- observability -----------------------------------------------------
+
+    def _update_gauges(self) -> None:
+        """The ``generate.*`` gauges (runs under the lock)."""
+        reg, a = self._reg, self.allocator
+        reg.gauge("generate.slots.active", "occupied generation slots").set(
+            sum(1 for s in self._slots if s is not None))
+        reg.gauge("generate.slots.total", "configured generation slots").set(self.slots)
+        reg.gauge("generate.queue.depth", "requests queued for a slot").set(len(self._queue))
+        reg.gauge("generate.pages.used", "KV pool pages holding live tokens").set(a.used_pages)
+        reg.gauge("generate.pages.total", "KV pool pages (page 0 reserved)").set(self.num_pages - 1)
+        reg.gauge("generate.kv.bytes.live", "KV bytes backing live tokens").set(a.live_bytes)
+        reg.gauge("generate.kv.bytes.peak", "high-water mark of live KV bytes").set(a.peak_bytes)
+        reg.gauge("generate.kv.bytes.dense",
+                  "what the dense slots x max_cache layout would hold resident").set(self.dense_kv_bytes)
+        now = time.monotonic()
+        window = [(t, n) for (t, n) in self._tok_window if now - t <= 5.0]
+        span = (now - window[0][0]) if len(window) > 1 else 0.0
+        rate = sum(n for _, n in window) / span if span > 0 else 0.0
+        reg.gauge("generate.tokens_per_s", "sustained decode throughput (5 s window)").set(rate)
 
     def snapshot(self) -> dict[str, Any]:
         """The JAX package's generation panel, plus the counts its metrics
@@ -530,6 +649,7 @@ class GenerationScheduler:
                 "kv_bytes_dense": self.dense_kv_bytes,
                 "tokens_total": self._tokens_total,
                 "requests": self._requests,
+                "prompts_truncated": self._truncated,
                 "prefill_chunks": self._prefill_chunks,
                 "decode_steps": self._decode_steps,
                 "deadline_shed": dict(self._shed),

@@ -2,14 +2,11 @@
 
 A copy of ``pathway_tpu/xpacks/llm/vector_store.py``.  The legacy
 (pre-DocumentStore) vector index server: documents in, embedder +
-splitter, query tables for retrieve, statistics and inputs.  Built on
+splitter, REST endpoints /v1/retrieve, /v1/statistics, /v1/inputs.  Built on
 DocumentStore + the brute-force device index; ``from_langchain_components``
 and ``from_llamaindex_components`` adapt third-party splitters/embedders
-when those packages are installed.  The REST edge (``run_server``, with
-``servers.py`` and ``io/http/``) and ``VectorStoreClient`` come with the
-REST slice of the port and raise ``NotImplementedError`` until then; a
-program feeds the query methods from any table (``pw.io.python.read``)
-and reads their answers with ``pw.io.subscribe``.
+when those packages are installed.  ``run_server(with_cache=True)``, the
+default, needs the persistence layer of slice H4 and raises until then.
 """
 
 from __future__ import annotations
@@ -23,13 +20,7 @@ from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.udfs import UDF, async_executor
 from pathway_tpu_torch.stdlib.indexing.retrievers import BruteForceKnnFactory
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
-
-
-def _rest_slice(what: str):
-    raise NotImplementedError(
-        f"{what} needs the REST edge (xpacks/llm/servers.py over io/http/), "
-        "which the port brings in the REST slice"
-    )
+from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
 
 
 def _as_embedder_udf(embedder: Any) -> UDF:
@@ -81,6 +72,7 @@ class VectorStoreServer:
             splitter=splitter,
             doc_post_processors=doc_post_processors,
         )
+        self._server: DocumentStoreServer | None = None
 
     _document_store_cls: type[DocumentStore] = DocumentStore
 
@@ -172,8 +164,16 @@ class VectorStoreServer:
         cache_backend: Any = None,
         terminate_on_error: bool = True,
     ):
-        """Start the REST server + pipeline (parity :~600): the REST slice."""
-        _rest_slice("VectorStoreServer.run_server")
+        """Start the REST server + pipeline (parity :~600)."""
+        # serve self (not the store) so subclass query overrides — e.g.
+        # SlidesVectorStoreServer.inputs_query — reach the HTTP endpoints
+        self._server = DocumentStoreServer(host, port, self)
+        return self._server.run_server(
+            threaded=threaded,
+            with_cache=with_cache,
+            cache_backend=cache_backend,
+            terminate_on_error=terminate_on_error,
+        )
 
 
 class SlidesVectorStoreServer(VectorStoreServer):
@@ -208,7 +208,49 @@ class SlidesVectorStoreServer(VectorStoreServer):
 
 
 class VectorStoreClient:
-    """HTTP client for a VectorStoreServer (parity :~700): the REST slice."""
+    """HTTP client for a VectorStoreServer (parity :~700)."""
 
-    def __init__(self, *args, **kwargs):
-        _rest_slice("VectorStoreClient")
+    def __init__(
+        self,
+        host: str | None = None,
+        port: int | None = None,
+        url: str | None = None,
+        timeout: int = 15,
+        additional_headers: dict | None = None,
+    ):
+        self.url = url or f"http://{host}:{port}"
+        self.timeout = timeout
+        self.headers = {"Content-Type": "application/json", **(additional_headers or {})}
+
+    def _post(self, route: str, payload: dict) -> Any:
+        from pathway_tpu_torch.xpacks.llm._utils import send_post_request
+
+        return send_post_request(
+            self.url + route, payload, self.headers, self.timeout
+        )
+
+    def query(
+        self, query: str, k: int = 3, metadata_filter: str | None = None, filepath_globpattern: str | None = None
+    ) -> list[dict]:
+        return self._post(
+            "/v1/retrieve",
+            {
+                "query": query,
+                "k": k,
+                "metadata_filter": metadata_filter,
+                "filepath_globpattern": filepath_globpattern,
+            },
+        )
+
+    __call__ = query
+
+    def get_vectorstore_statistics(self) -> dict:
+        return self._post("/v1/statistics", {})
+
+    def get_input_files(
+        self, metadata_filter: str | None = None, filepath_globpattern: str | None = None
+    ) -> list:
+        return self._post(
+            "/v1/inputs",
+            {"metadata_filter": metadata_filter, "filepath_globpattern": filepath_globpattern},
+        )

@@ -353,3 +353,24 @@ def test_text_submit_decodes(lm):
         assert asyncio.run(sched.agenerate("streaming answer", max_new_tokens=5)) == text
     finally:
         sched.shutdown()
+
+
+def test_request_churn_fault_injects_a_burst(lm):
+    """The ``request_churn`` fault fires at admission, as in the JAX
+    package: ``count`` short requests join the queue, counted by
+    ``generate.churn.synthetic``."""
+    from pathway_tpu_torch.engine import faults, metrics
+
+    churn = metrics.get_registry().counter("generate.churn.synthetic")
+    before = churn.value
+    sched = generation.GenerationScheduler(lm, slots=2)
+    faults.install_plan(faults.FaultPlan([{"kind": "request_churn", "source": MODEL, "nth": 1, "count": 3}]))
+    try:
+        _enqueue(sched, generation.GenRequest([5, 9, 17], 4))  # white-box: no worker thread
+        with sched._lock:
+            sched._admit()
+            queued = len(sched._queue) + sum(s is not None for s in sched._slots)
+    finally:
+        faults.clear_plan()
+        sched.shutdown()
+    assert queued == 4 and churn.value - before == 3

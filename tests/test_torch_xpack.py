@@ -12,7 +12,8 @@ one's Pallas attention in interpret mode) with its documents from
 (``tests/test_attention_kernel.py:119``), distances within 3e-3 (two
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
-raises ``NotImplementedError`` naming its slice.
+raises ``NotImplementedError`` naming its slice (``run_server`` with the
+default ``with_cache=True`` needs the persistence of slice H4).
 """
 
 from __future__ import annotations
@@ -197,9 +198,7 @@ def deferred(name: str):
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
-        "run_server": lambda: llm.VectorStoreServer.run_server(None, "127.0.0.1", 8000),
-        "VectorStoreClient": lambda: llm.VectorStoreClient("127.0.0.1", 8000),
-        "io.http": lambda: tpw.io.http.rest_connector,
+        "run_server_with_cache": lambda: llm.servers.BaseRestServer("127.0.0.1", 8000).run_server(),
         "io.kafka": lambda: tpw.io.kafka.read,
         "UsearchKnnFactory": lambda: indexing.UsearchKnnFactory(),
         "TantivyBM25Factory": lambda: indexing.TantivyBM25Factory(),
@@ -207,10 +206,6 @@ def deferred(name: str):
         "USearchKnn": lambda: indexing.USearchKnn(None),
         "default_vector_document_index": lambda: indexing.default_vector_document_index(None, None),
         "TantivyBM25": lambda: indexing.TantivyBM25(None),
-        "llms": lambda: llm.llms.OpenAIChat,
-        "rerankers": lambda: llm.rerankers.CrossEncoderReranker,
-        "question_answering": lambda: llm.question_answering.BaseRAGQuestionAnswerer,
-        "servers": lambda: llm.servers.DocumentStoreServer,
     }
     with pytest.raises(NotImplementedError) as err:
         calls[name]()
@@ -218,11 +213,9 @@ def deferred(name: str):
 
 
 @pytest.mark.parametrize("name,later", [
-    ("run_server", "REST slice"), ("VectorStoreClient", "REST slice"), ("io.http", "REST slice"),
-    ("servers", "REST slice"), ("io.kafka", "slice H6"), ("UsearchKnnFactory", "index slice"),
+    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"), ("UsearchKnnFactory", "index slice"),
     ("TantivyBM25Factory", "index slice"), ("HybridIndexFactory", "index slice"), ("USearchKnn", "index slice"),
     ("default_vector_document_index", "index slice"), ("TantivyBM25", "index slice"),
-    ("llms", "answering slice"), ("rerankers", "answering slice"), ("question_answering", "answering slice"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later):
     assert later in deferred(name)
