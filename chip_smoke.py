@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -15,7 +15,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    shape (CUDA graphs of many launches, inputs rotated past the L2 cache),
    and the wrapper's host time per call;
 4. main path at full all-MiniLM-L6-v2 width (seeded random weights):
-   encode a synthetic corpus (262,144 texts by default) in length-sorted
+   encode a synthetic corpus (131,072 texts by default) in length-sorted
    batches, time one arrival-order pass over a part of it, fill a cosine
    ``BruteForceKnnIndex`` with it, answer one untimed warm-up and 128 timed
    ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
@@ -83,8 +83,8 @@ Phases, each on a line of its own; any failure exits non-zero:
    replaced texts embedded), counts to a recount and sums within 1e-3,
    no ``ERROR``, the native core loaded, launches counted like phase 4;
 8. generate: decoder generation at full mistral-7b-instruct width (seeded
-   random bf16 weights): a burst of 32 requests (prompts of 64-896 token
-   ids, 128 new tokens, 24 greedy and 8 at temperature 0.7 / top-p 0.9)
+   random bf16 weights): a burst of 16 requests (prompts of 64-896 token
+   ids, 128 new tokens, 12 greedy and 4 at temperature 0.7 / top-p 0.9)
    through ``GenerationScheduler`` at the repo's defaults, with tokens/s,
    TTFT and latency; every greedy row held to the dense
    ``DecoderLM.generate_ids`` (parting only at a near-tie), the paged
@@ -95,7 +95,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    step;
 9. moe: mixtral-8x7b-instruct at full width (32 layers, 8 experts, top-2,
    expert FFN 14336) with seeded int8 weights (≈ 46.8 GB) on one card: a
-   burst of 16 requests (64-512 prompt ids, 64 new tokens, 12 greedy and 4
+   burst of 8 requests (64-512 prompt ids, 64 new tokens, 6 greedy and 2
    at temperature 0.7 / top-p 0.9) through ``GenerationScheduler`` with
    phase 7's checks against the dense path, the teacher-forced logits
    compared at the steps whose own token took the same experts in both
@@ -130,8 +130,8 @@ Phases, each on a line of its own; any failure exits non-zero:
    then siglip-so400m-patch14-384 (27 layers, H 1152, hd 72, 729
    patches) timed on 512 images beside its FLOP bound;
 12. lora: mistral-7b-instruct in bf16 with LoRA adapters of rank 8 on
-   ``wq`` and ``wv`` (``b`` seeded at std 0.02): a burst of 16 requests
-   (64-512 prompt ids, 64 new tokens, 12 greedy and 4 sampled) through
+   ``wq`` and ``wv`` (``b`` seeded at std 0.02): a burst of 8 requests
+   (64-512 prompt ids, 64 new tokens, 6 greedy and 2 sampled) through
    ``GenerationScheduler`` over the adapted tree and over the base tree,
    twice each in turns (adapted, base, base, adapted), tokens/s, TTFT and
    latency of each run; the adapted answers held to the
@@ -219,13 +219,13 @@ Phases, each on a line of its own; any failure exits non-zero:
    at 256, a cosine ``BruteForceKnn``), behind ``build_server`` and
    ``run_server(threaded=True, with_cache=False)``, with admission set to
    16 in flight and 8 queued.  A standard-library client, 16 threads:
-   64 /v1/retrieve questions at k=10 with one /v1/statistics and one
-   /v2/list_documents; the 64 questions (8-32 words) to /v1/pw_ai_answer
-   with 8 /v1/pw_ai_summary text lists; malformed JSON (400), an unknown
+   32 /v1/retrieve questions at k=10 with one /v1/statistics and one
+   /v2/list_documents; the 32 questions (8-32 words) to /v1/pw_ai_answer
+   with 4 /v1/pw_ai_summary text lists; malformed JSON (400), an unknown
    route (404), a 1 ms ``X-Pathway-Deadline-Ms`` (504); a burst of 40
    summaries (429 with ``Retry-After`` past the budget); then a Table
    program on the same store retrieves the 16 documents of each question
-   and scores the 1,024 pairs with ``CrossEncoderReranker``
+   and scores the 512 pairs with ``CrossEncoderReranker``
    (ms-marco-MiniLM-L-6-v2) and ``rerank_topk_filter(k=5)``; the client
    closes the server, which ends the run.  Latency by route, TTFT and
    tokens/s, admission queue wait, the median of each request-trace span,
@@ -237,6 +237,32 @@ Phases, each on a line of its own; any failure exits non-zero:
    dense greedy row but at near-ties, no prompt cut to the cache, the
    rerank scores within 0.05·(max|ref|+1) of a direct ``score`` and the
    kept sets theirs but at ties, the socket closed, and the rail still.
+15c. hybrid: BASELINE.md's fourth configuration, the index slice
+   (``stdlib/indexing``'s BM25, HNSW and hybrid index):
+   ``DocumentStore(docs, HybridIndexFactory([UsearchKnnFactory(
+   SentenceTransformerEmbedder("all-MiniLM-L6-v2")), TantivyBM25Factory()]))``
+   (reciprocal rank fusion at k 60; HNSW M 16, efC 128, ef 64, on the
+   host in the native core), ``ParseUtf8`` and ``TokenCountSplitter()``
+   over 2,048 files of 100-1,000 words drawn Zipf-distributed (exponent
+   1.0) over the 20,000-word vocabulary, fed by ``pw.io.python.read`` in
+   one commit; 256 questions of 8-32 words (spans of chunks, a quarter of
+   the words swapped) in 4 commits of 64 through ``retrieve_query`` at
+   k 16, the 4,096 (question, document) pairs reranked by
+   ``CrossEncoderReranker`` (ms-marco-MiniLM-L-6-v2) and
+   ``rerank_topk_filter(k=5)``; then one commit deletes 128 files and
+   rewrites 128 while the questions stand, and the engine re-answers them
+   one search at a time.  Ingest chunks/s, retrieve latency from commit
+   to answer, host ms per search in HNSW, BM25 and the fusion, searches
+   run and answers revised after the change with the time to the last,
+   rerank pairs/s, the forwards' device ms and idle share, launches by
+   shape; gated on the stored embeddings against the plain attention path
+   (cosine > 0.999), HNSW recall@48 ≥ 0.9 against the exact f32 top-48 of
+   its stored vectors with scores within 1e-4, BM25 equal to a plain
+   numpy BM25 but at exact ties (1e-9 relative), every fused list the RRF
+   of its inner lists, before and after the change; the final answers
+   their last search and free of removed chunks; the rerank within
+   0.05·(max|ref|+1) of the plain path, the kept 5 its top 5 but at
+   near-ties; ``NativeHnswIndex`` serving and the rail still.
 
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
@@ -245,14 +271,14 @@ Phases, each on a line of its own; any failure exits non-zero:
    the shared default executor, batches of up to 256),
    ``TokenCountSplitter()``, ``ParseUtf8`` and a cosine ``BruteForceKnn``,
    fed by ``pw.io.fs.read(mode="streaming", format="binary",
-   with_metadata=True)`` over 16,384 files of 100-1,000 words and queried
+   with_metadata=True)`` over 8,192 files of 100-1,000 words and queried
    through ``pw.io.python.read``, its answers, its chunk table and its
-   statistics read by ``pw.io.subscribe``: once the corpus is indexed, 64
+   statistics read by ``pw.io.subscribe``: once the corpus is indexed, 32
    batches of 64 queries at k=10 (8-32 word spans of live chunks with a
    quarter of the words swapped), each committed and answered before the
-   next; 2,048 live changes (1,024 files added, 512 deleted, 512
-   rewritten) in 32 bursts 0.25 s apart; once the statistics show 16,896
-   files and every change has shown in the chunk table, 64 more batches;
+   next; 1,024 live changes (512 files added, 256 deleted, 256
+   rewritten) in 16 bursts 0.25 s apart; once the statistics show 8,448
+   files and every change has shown in the chunk table, 32 more batches;
    the answers' subscriber ends the run with an exception of the phase's
    own at the last query's first answer.  Ingest chunks/s and docs/s, host
    ms per epoch, the forwards' device ms and idle share, batch sizes, the
@@ -266,7 +292,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b and 15b (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 15b and 15c (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -806,7 +832,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "generate", "moe", "speculative", "vision", "lora", "train",
-             "parallel", "sharded", "rag", "vector_store")
+             "parallel", "sharded", "rag", "hybrid", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -1849,8 +1875,8 @@ def dataflow_phase(device, seed: int, checked: dict) -> dict:
 GEN_MODEL = "mistral-7b-instruct"
 GEN_WIDTHS = dict(layers=32, hidden=4096, heads=32, kv_heads=8, intermediate=14336, vocab_size=32000)
 GEN_CACHE = 1024
-GEN_REQUESTS = 32
-GEN_SAMPLED = 8
+GEN_REQUESTS = 16  # 32 until the script passed its time limit (PERF.md section 5)
+GEN_SAMPLED = 4
 GEN_NEW_TOKENS = 128  # JaxChat's default
 GEN_PROMPT_LENS = (64, 896)
 GEN_TEMP, GEN_TOP_P = 0.7, 0.9
@@ -2348,8 +2374,8 @@ def generate_timing(lm, prompt_lens, device) -> dict:
 MOE_MODEL = "mixtral-8x7b-instruct"
 MOE_WIDTHS = dict(layers=32, hidden=4096, heads=32, kv_heads=8, intermediate=14336, vocab_size=32000,
                   experts=8, experts_top_k=2, rope_theta=1e6, max_len=8192)
-MOE_REQUESTS = 16
-MOE_SAMPLED = 4
+MOE_REQUESTS = 8  # 16 until the script passed its time limit (PERF.md section 5); [lora]'s too
+MOE_SAMPLED = 2
 MOE_NEW_TOKENS = 64
 MOE_PROMPT_LENS = (64, 512)
 MOE_CHECK_TOKENS = 64
@@ -4078,14 +4104,14 @@ def sharded_phase(device, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 VS_MODEL = "all-MiniLM-L6-v2"
-VS_FILES = 16384
+VS_FILES = 8192  # 16,384 passed the script's time limit with [hybrid] beside it (PERF.md section 5)
 VS_WORDS = (100, 1000)
-VS_BATCHES = 64  # per traffic stage, one commit each
+VS_BATCHES = 32  # per traffic stage, one commit each
 VS_QUERIES = 64
 VS_K = 10
 VS_QUERY_WORDS = (8, 32)
-VS_NEW, VS_DELETED, VS_REWRITTEN = 1024, 512, 512
-VS_BURSTS = 32  # the live changes, in bursts VS_BURST_GAP_S apart
+VS_NEW, VS_DELETED, VS_REWRITTEN = 512, 256, 256
+VS_BURSTS = 16  # the live changes, in bursts VS_BURST_GAP_S apart
 VS_BURST_GAP_S = 0.25
 VS_CHUNK_WORDS = 500  # TokenCountSplitter's max_tokens; the corpus has no sentence ends to break at
 VS_WAIT_S = 300.0  # the longest any stage may wait on the run
@@ -4108,9 +4134,9 @@ def plain_chunks(words) -> list:
 
 
 def vs_corpus(seed: int) -> dict:
-    """The phase's documents: 16,384 initial ones, 1,024 to add, 512 to
-    delete and 512 to rewrite (with new text); their chunks, and the
-    queries: 2 stages of 64 batches of 64, each a span of 8-32 words of a
+    """The phase's documents: 8,192 initial ones, 512 to add, 256 to
+    delete and 256 to rewrite (with new text); their chunks, and the
+    queries: 2 stages of 32 batches of 64, each a span of 8-32 words of a
     live chunk with a quarter of its words swapped."""
     n_texts = VS_FILES + VS_NEW + VS_REWRITTEN
     texts, _lengths, ids, vocab = synthetic_corpus(n_texts, seed + 201, words_per_text=VS_WORDS)
@@ -4172,7 +4198,7 @@ class VectorStoreTraffic:
     """The ``[vector_store]`` run's traffic and what its subscribers see.
 
     A thread waits until the initial corpus is indexed, opens stage 1 of the
-    queries (64 batches of 64, each committed and answered before the next),
+    queries (32 batches of 64, each committed and answered before the next),
     then makes the live changes in bursts and, once the statistics show the
     final file count and every change has shown in the chunk table, opens
     stage 2.  The answers' subscriber ends the run (``VectorStoreDone``)
@@ -4589,9 +4615,9 @@ class RagSizes:
 
     files: int = 4096
     words: tuple = (100, 1000)  # words per file
-    questions: int = 64  # each sent to /v1/pw_ai_answer and to /v1/retrieve
+    questions: int = 32  # each sent to /v1/pw_ai_answer and to /v1/retrieve
     question_words: tuple = (8, 32)
-    summaries: int = 8
+    summaries: int = 4
     burst: int = 40  # past RAG_INFLIGHT + RAG_QUEUE
     model: str = "mistral-7b-instruct"
     new_tokens: int = 64
@@ -4665,9 +4691,9 @@ class RagTraffic:
     """The ``[rag]`` client and what the run's subscribers see.
 
     A thread waits until every route is mounted and the corpus is indexed,
-    then sends, 16 at a time, the 64 /v1/retrieve questions with one
-    /v1/statistics and one /v2/list_documents, then the 64 questions to
-    /v1/pw_ai_answer with the 8 /v1/pw_ai_summary text lists, then the
+    then sends, 16 at a time, the /v1/retrieve questions with one
+    /v1/statistics and one /v2/list_documents, then the questions to
+    /v1/pw_ai_answer with the /v1/pw_ai_summary text lists, then the
     typed paths (malformed JSON, an unknown route, a 1 ms deadline) and a
     burst past the admission budget; then it opens the rerank program's
     queries and, once their top-5 sets have come, closes the server, which
@@ -5204,9 +5230,792 @@ def rag_phase(device, seed: int, checked: dict, card: str, sizes: RagSizes = Rag
     return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15c: BASELINE.md's fourth configuration: hybrid BM25 + HNSW retrieval
+# reranked by ms-marco (the index slice of stdlib/indexing).
+# ---------------------------------------------------------------------------
+
+HY_ZIPF = 1.0  # the words' Zipf exponent: BM25's idf and postings follow term skew
+HY_FETCH = 3  # each inner index of a hybrid search fetches k·3 (stdlib/indexing/hybrid_index.py:30)
+HY_RRF_K = 60.0  # HybridIndexFactory's k (stdlib/indexing/retrievers.py)
+HY_RECALL_MIN = 0.9  # the HNSW recall pin (tests/test_hnsw.py:43)
+# USearch's expansion_search: the recall pin is taken at 96 (tests/test_hnsw.py:30); at the default
+# 64 a fetch of 48 leaves the beam 16 wider than k (recall@48 0.887-0.895 here, PERF.md section 6)
+HY_EF = 96
+HY_EF_SWEEP = (48, 64, 96, 128)
+HY_HNSW_SCORE_TOL = 1e-4  # an HNSW score against the exact f32 cosine of its stored vectors
+HY_BM25_REL = 1e-9  # a BM25 score against the plain BM25's, relative
+BM25_K1, BM25_B = 1.2, 0.75  # BM25Index's defaults (stdlib/indexing/bm25.py:29)
+HY_WAIT_S = 300.0  # the longest any stage may wait on the run
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridSizes:
+    """The ``[hybrid]`` phase's scale (the defaults: BASELINE.md's fourth
+    configuration at full width, half ``[rag]``'s corpus and a cut
+    question count: at 4,096 files and 512 questions the phase took
+    184.1-349.6 s, and the script passed its limit, PERF.md section 5)."""
+
+    files: int = 2048
+    words: tuple = (100, 1000)  # words per file
+    questions: int = 256
+    commits: int = 4  # the questions arrive in this many commits
+    question_words: tuple = (8, 32)
+    k: int = 16  # retrieve_query's k: each inner index fetches 48
+    deleted: int = 128  # files whose chunks the change deletes
+    rewritten: int = 128  # files the change rewrites with new text
+
+
+def zipf_texts(n: int, seed: int, words_per_text: tuple[int, int]):
+    """``n`` texts whose words are drawn Zipf-distributed (exponent
+    ``HY_ZIPF``, rank = position) over ``synthetic_corpus``'s 20,000-word
+    vocabulary of ``seed``: the texts, each text's word ids, the vocabulary."""
+    _texts, _lengths, _ids, vocab = synthetic_corpus(0, seed)
+    rng = np.random.default_rng(seed + 1)
+    p = 1.0 / np.arange(1, len(vocab) + 1) ** HY_ZIPF
+    lengths = rng.integers(words_per_text[0], words_per_text[1] + 1, size=n)
+    words = rng.choice(len(vocab), size=int(lengths.sum()), p=p / p.sum())
+    texts, ids, at = [], [], 0
+    for length in lengths:
+        ids.append(words[at : at + length])
+        texts.append(" ".join(vocab[w] for w in ids[-1]))
+        at += length
+    return texts, ids, vocab
+
+
+def hybrid_corpus(seed: int, sizes: HybridSizes) -> dict:
+    """The files (their texts, then the rewritten files' new texts), the
+    change (files deleted, files rewritten), the chunks
+    (``TokenCountSplitter()``'s 500-word spans) live before and after it,
+    and the questions: spans of 8-32 words of live chunks with a quarter of
+    the words swapped, as ``rag_corpus`` makes them."""
+    n_texts = sizes.files + sizes.rewritten
+    texts, ids, vocab = zipf_texts(n_texts, seed + 401, sizes.words)
+    rng = np.random.default_rng(seed + 403)
+    picked = [int(i) for i in rng.permutation(sizes.files)[: sizes.deleted + sizes.rewritten]]
+    deleted, rewritten = picked[: sizes.deleted], picked[sizes.deleted :]
+    new_text = {i: sizes.files + j for j, i in enumerate(rewritten)}
+    chunk_ids: dict[str, int] = {}
+    chunk_words: list = []
+    doc_chunks: dict[int, list[int]] = {}
+    for t in range(n_texts):
+        cids = []
+        for words in plain_chunks(ids[t]):
+            cid = chunk_ids.setdefault(" ".join(vocab[w] for w in words), len(chunk_ids))
+            if cid == len(chunk_words):
+                chunk_words.append(words)
+            cids.append(cid)
+        doc_chunks[t] = cids
+    gone = set(deleted)
+    initial = sorted({c for i in range(sizes.files) for c in doc_chunks[i]})
+    final = sorted({c for i in range(sizes.files) if i not in gone for c in doc_chunks[new_text.get(i, i)]})
+    questions: list[str] = []
+    while len(questions) < sizes.questions:
+        words = chunk_words[initial[int(rng.integers(len(initial)))]]
+        n = min(int(rng.integers(sizes.question_words[0], sizes.question_words[1] + 1)), len(words))
+        start = int(rng.integers(0, len(words) - n + 1))
+        span = np.array(words[start : start + n])
+        swap = rng.random(n) < QUERY_SWAP
+        span[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+        q = " ".join(vocab[w] for w in span)
+        if q not in questions:
+            questions.append(q)
+    return {"texts": texts, "deleted": deleted, "rewritten": rewritten, "new_text": new_text,
+            "chunk_texts": sorted(chunk_ids, key=chunk_ids.get), "initial": initial, "final": final,
+            "questions": questions}
+
+
+def hybrid_store(pw, docs, embedder, dimensions=None):
+    """BASELINE.md's fourth configuration's store, in either package
+    (``pw``): ``DocumentStore(docs, HybridIndexFactory([UsearchKnnFactory
+    (embedder), TantivyBM25Factory()]))`` over ``ParseUtf8`` and
+    ``TokenCountSplitter()``, with the defaults' k 60 and HNSW M 16 and
+    efC 128, and ef ``HY_EF``."""
+    import importlib
+
+    idx = importlib.import_module(pw.__name__ + ".stdlib.indexing")
+    llm = importlib.import_module(pw.__name__ + ".xpacks.llm")
+    factory = idx.HybridIndexFactory(retriever_factories=[
+        idx.UsearchKnnFactory(embedder=embedder, dimensions=dimensions, expansion_search=HY_EF),
+        idx.TantivyBM25Factory()])
+    return llm.DocumentStore(docs, factory, parser=llm.parsers.ParseUtf8(),
+                             splitter=llm.splitters.TokenCountSplitter())
+
+
+def hybrid_hits(pw, store, queries):
+    """The questions' retrieval, in either package: (query, docs)."""
+    return queries.with_columns(docs=store.retrieve_query(queries).result).select(pw.this.query, pw.this.docs)
+
+
+def rerank_program(pw, hits, reranker) -> dict:
+    """``hits``' documents reranked: ``scored`` (one row a (query, doc)
+    pair) and ``kept`` (``rerank_topk_filter``'s best ``RERANK_KEEP``)."""
+    from pathway_tpu_torch.xpacks.llm.rerankers import rerank_topk_filter
+
+    pairs = hits.select(pw.this.query, doc=pw.apply(lambda d: tuple(pw.Json(x) for x in d.value),
+                                                   pw.this.docs)).flatten(pw.this.doc)
+    scored = pairs.select(pw.this.query, pw.this.doc, score=reranker(pw.this.doc, pw.this.query))
+    grouped = scored.groupby(pw.this.query).reduce(
+        pw.this.query, docs=pw.reducers.tuple(pw.this.doc), scores=pw.reducers.tuple(pw.this.score))
+    return {"scored": scored,
+            "kept": grouped.select(pw.this.query, top=rerank_topk_filter(pw.this.docs, pw.this.scores, k=RERANK_KEEP))}
+
+
+class HybridProbe:
+    """Wraps the engine-side indexes of ``pw``'s hybrid index (its
+    ``_HybridEngineIndex``, ``NativeHnswIndex``, ``PyHnswIndex`` and
+    ``BM25Index``) while installed: each search's query, inner lists as they
+    came back, fused list and host ms, and each indexed chunk's vector as
+    the native store holds it."""
+
+    def __init__(self, pw):
+        import importlib
+
+        pkg = pw.__name__ + ".stdlib.indexing."
+        self.hybrid = importlib.import_module(pkg + "hybrid_index")._HybridEngineIndex
+        hnsw = importlib.import_module(pkg + "hnsw")
+        self.inner = [hnsw.NativeHnswIndex, hnsw.PyHnswIndex, importlib.import_module(pkg + "bm25").BM25Index]
+        self.saved: list = []
+        self.key_text: dict = {}  # engine key -> the chunk text it holds
+        self.stored: dict[str, np.ndarray] = {}  # chunk text -> its vector in the native store
+        self.dense_types: set = set()
+        self.dense = None  # the hybrid index's dense inner index
+        self.searches: list[dict] = []
+        self.after = False  # set when the change is sent
+        self._inner: list | None = None
+
+    def _wrap(self, cls, name, make):
+        self.saved.append((cls, name, cls.__dict__[name]))
+        setattr(cls, name, make(cls.__dict__[name]))
+
+    def install(self) -> None:
+        probe = self
+
+        def add(orig):
+            def call(index, key, data, filter_data=None):
+                orig(index, key, data, filter_data)
+                probe.key_text[key] = data[1]
+                dense = probe.dense = index.inners[0]
+                probe.dense_types.add(type(dense).__name__)
+                if hasattr(dense, "_node_of_key"):
+                    vec = dense._nat.hnsw_get_vector(dense._h, dense._node_of_key[key])
+                    probe.stored[data[1]] = np.frombuffer(vec, np.float32).copy()
+            return call
+
+        def remove(orig):
+            def call(index, key):
+                orig(index, key)
+                probe.key_text.pop(key, None)
+            return call
+
+        def search(orig):
+            def call(index, query, k, filter_query=None):
+                probe._inner = []
+                t0 = time.perf_counter()
+                out = orig(index, query, k, filter_query)
+                ms = (time.perf_counter() - t0) * 1e3
+                inner, probe._inner = probe._inner, None
+                text = probe.key_text.get
+                probe.searches.append({
+                    "query": query[1], "qvec": np.asarray(query[0], np.float32).reshape(-1), "k": k,
+                    "after": probe.after, "ms": ms, "fused_keys": list(out),
+                    "fused": [(text(key), s) for key, s in out],
+                    "inner_keys": [list(res) for _n, res, _ms in inner],
+                    "inner": {name: [(text(key), s) for key, s in res] for name, res, _ms in inner},
+                    "inner_ms": {name: ms_ for name, _res, ms_ in inner}})
+                return out
+            return call
+
+        def inner_search(name):
+            def make(orig):
+                def call(index, query, k, filter_query=None, *args, **kwargs):
+                    t0 = time.perf_counter()
+                    out = orig(index, query, k, filter_query, *args, **kwargs)
+                    if probe._inner is not None:
+                        probe._inner.append((name, out, (time.perf_counter() - t0) * 1e3))
+                    return out
+                return call
+            return make
+
+        self._wrap(self.hybrid, "add", add)
+        self._wrap(self.hybrid, "remove", remove)
+        self._wrap(self.hybrid, "search", search)
+        for cls, name in zip(self.inner, ("hnsw", "hnsw", "bm25")):
+            self._wrap(cls, "search", inner_search(name))
+
+    def uninstall(self) -> None:
+        for cls, name, orig in reversed(self.saved):
+            setattr(cls, name, orig)
+        self.saved.clear()
+
+
+def rrf(lists, k: int, rrf_k: float = HY_RRF_K) -> list:
+    """Reciprocal rank fusion of inner result lists, as the hybrid index
+    fuses them: each key gains 1/(rrf_k + rank + 1) a list, best k kept."""
+    fused: dict = {}
+    for results in lists:
+        for rank, (key, _score) in enumerate(results):
+            fused[key] = fused.get(key, 0.0) + 1.0 / (rrf_k + rank + 1)
+    return sorted(fused.items(), key=lambda e: -e[1])[:k]
+
+
+class PlainBM25:
+    """Okapi BM25 in numpy over a fixed list of chunk texts (k1 1.2, b 0.75,
+    ``\\w+`` lower-cased tokens, each query token counted as often as it
+    occurs), for any live subset of them: the plain version of the hybrid
+    index's BM25."""
+
+    def __init__(self, texts: list[str]):
+        import re
+
+        word = re.compile(r"\w+")
+        vocab: dict[str, int] = {}
+        docs, terms = [], []
+        for d, text in enumerate(texts):
+            toks = [vocab.setdefault(w.lower(), len(vocab)) for w in word.findall(text)]
+            docs.append(np.full(len(toks), d, np.int64))
+            terms.append(np.array(toks, np.int64))
+        self.vocab, self.word = vocab, word
+        docs, terms = np.concatenate(docs), np.concatenate(terms)
+        self.dl = np.bincount(docs, minlength=len(texts)).astype(np.float64)
+        pair, tf = np.unique(terms * len(texts) + docs, return_counts=True)
+        self.post_doc, self.post_tf = pair % len(texts), tf.astype(np.float64)
+        self.ptr = np.searchsorted(pair // len(texts), np.arange(len(vocab) + 1))
+
+    def scores(self, query: str, live: np.ndarray) -> np.ndarray:
+        """Every chunk's score for ``query`` over the chunks of the bool mask
+        ``live`` (0 off it), in the index's order of float operations."""
+        n_docs = int(live.sum())
+        avgdl = float(self.dl[live].sum()) / n_docs
+        out = np.zeros(len(self.dl))
+        for w in self.word.findall(query):
+            t = self.vocab.get(w.lower())
+            if t is None:
+                continue
+            rows, tf = self.post_doc[self.ptr[t] : self.ptr[t + 1]], self.post_tf[self.ptr[t] : self.ptr[t + 1]]
+            on = live[rows]
+            rows, tf = rows[on], tf[on]
+            if not len(rows):
+                continue
+            idf = math.log(1 + (n_docs - len(rows) + 0.5) / (len(rows) + 0.5))
+            out[rows] += idf * tf * (BM25_K1 + 1) / (tf + BM25_K1 * (1 - BM25_B + BM25_B * self.dl[rows] / avgdl))
+        return out
+
+
+class HybridTraffic:
+    """The ``[hybrid]`` run's two sources and what its subscribers see.
+
+    The documents' subject sends every file in one commit; once the chunk
+    table holds the initial corpus, the questions' subject sends its
+    commits of questions, each answered and reranked before the next; then
+    the documents' subject sends the change (deletions and rewrites) in one
+    commit and ends once the chunk table holds the final corpus.  The run
+    ends when both sources have.  A wait past ``HY_WAIT_S`` interrupts it."""
+
+    def __init__(self, corpus: dict, sizes: HybridSizes):
+        import threading
+
+        self.corpus, self.sizes = corpus, sizes
+        texts = corpus["chunk_texts"]
+        self.initial = {texts[c] for c in corpus["initial"]}
+        self.final = {texts[c] for c in corpus["final"]}
+        per = sizes.questions // sizes.commits
+        self.batches = [corpus["questions"][c * per : (c + 1) * per] for c in range(sizes.commits)]
+        self.batch_of = {q: c for c, batch in enumerate(self.batches) for q in batch}
+        self.batch_left = [len(b) for b in self.batches]
+        self.batch_done = [threading.Event() for _ in self.batches]
+        self.indexed, self.settled = threading.Event(), threading.Event()
+        self.live_chunks: dict[str, int] = {}
+        self.t_docs = self.t_indexed = self.t_change = self.t_settled = self.t_last_revision = None
+        self.t_commit: list = [None] * sizes.commits
+        self.first: dict[str, float] = {}  # question -> time of its first answer
+        self.hits: dict[str, list] = {}  # question -> its live answers ((text, score), ...)
+        self.kept: dict[str, list] = {}  # question -> its live kept (texts, scores)
+        self.scored: list[tuple] = []  # (question, doc text, score) of every pair scored
+        self.revised: set = set()  # questions whose answer changed after their first
+        self.errors = 0
+        self.failure: str | None = None
+        self.probe: HybridProbe | None = None
+
+    # -- subscribers ---------------------------------------------------
+    def on_chunk(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["text"] is pw.ERROR:
+            self.errors += 1
+            return
+        n = self.live_chunks.get(row["text"], 0) + (1 if is_addition else -1)
+        if n:
+            self.live_chunks[row["text"]] = n
+        else:
+            del self.live_chunks[row["text"]]
+
+    def on_chunk_epoch(self, time):
+        live = set(self.live_chunks)
+        if not self.indexed.is_set() and live == self.initial:
+            self.t_indexed = _now()
+            self.indexed.set()
+        if self.t_change is not None and not self.settled.is_set() and live == self.final:
+            self.t_settled = _now()
+            self.settled.set()
+
+    def on_hits(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        now = _now()
+        if row["docs"] is pw.ERROR:
+            self.errors += 1
+            return
+        q = row["query"]
+        hits = tuple((h["text"], -float(h["dist"])) for h in row["docs"].value)
+        live = self.hits.setdefault(q, [])
+        if is_addition:
+            live.append(hits)
+        else:
+            live.remove(hits)
+        if not is_addition or q in self.first:
+            self.revised.add(q)
+            self.t_last_revision = now
+        elif q not in self.first:
+            self.first[q] = now
+
+    def on_scored(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["score"] is pw.ERROR:
+            self.errors += 1
+        elif is_addition:
+            self.scored.append((row["query"], row["doc"].value["text"], float(row["score"])))
+
+    def on_kept(self, key, row, time, is_addition):
+        import pathway_tpu_torch as pw
+
+        if row["top"] is pw.ERROR:
+            self.errors += 1
+            return
+        q = row["query"]
+        docs, scores = row["top"]
+        kept = (tuple(d.value["text"] for d in docs), tuple(scores))
+        live = self.kept.setdefault(q, [])
+        if not is_addition:
+            live.remove(kept)
+            return
+        live.append(kept)
+        b = self.batch_of[q]
+        if len(live) == 1 and self.t_change is None:
+            self.batch_left[b] -= 1
+            if not self.batch_left[b]:
+                self.batch_done[b].set()
+
+    # -- the sources -----------------------------------------------------
+    def wait(self, event, what: str) -> None:
+        import _thread
+
+        if not event.wait(HY_WAIT_S):
+            self.failure = (f"{what} took over {HY_WAIT_S} s ({len(self.live_chunks)} live chunks, "
+                            f"{len(self.first)} questions answered)")
+            _thread.interrupt_main()
+            raise SystemExit
+
+    def subjects(self, pw):
+        traffic, corpus, sizes = self, self.corpus, self.sizes
+
+        def meta(i):
+            return pw.Json({"path": f"doc{i:05d}.txt"})
+
+        def row(i, text):
+            return {"data": text.encode(), "_metadata": meta(i)}
+
+        class Docs(pw.io.python.ConnectorSubject):
+            def run(self):
+                traffic.t_docs = _now()
+                for i in range(sizes.files):
+                    self.next(_pw_key=i, **row(i, corpus["texts"][i]))
+                self.commit()
+                traffic.wait(traffic.batch_done[-1], "answering the questions")
+                if traffic.probe is not None:
+                    traffic.probe.after = True
+                traffic.t_change = _now()
+                for i in corpus["deleted"]:
+                    self._remove(i, row(i, corpus["texts"][i]))
+                for i in corpus["rewritten"]:
+                    self._remove(i, row(i, corpus["texts"][i]))
+                    self.next(_pw_key=i, **row(i, corpus["texts"][corpus["new_text"][i]]))
+                self.commit()
+                traffic.wait(traffic.settled, "showing the change")
+
+        class Questions(pw.io.python.ConnectorSubject):
+            def run(self):
+                traffic.wait(traffic.indexed, "indexing the corpus")
+                for c, batch in enumerate(traffic.batches):
+                    for q in batch:
+                        self.next(query=q, k=sizes.k, metadata_filter=None, filepath_globpattern=None)
+                    self.commit()
+                    traffic.t_commit[c] = _now()
+                    traffic.wait(traffic.batch_done[c], f"commit {c} of the questions")
+
+        return Docs(), Questions()
+
+
+def plain_embeddings(enc, texts: list[str], device) -> np.ndarray:
+    """``texts`` through ``enc``'s weights on the plain attention path, in
+    length-sorted batches small enough for its f32 scores."""
+    from pathway_tpu_torch.models.encoder import fused_sentence_apply
+    from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
+    from pathway_tpu_torch.ops.attention import encoder_attention_reference
+
+    cfg, tree = enc.config, enc.model.tree()
+    id_lists = [enc.tokenizer.encode(t) for t in texts]
+    order = np.argsort([len(x) for x in id_lists], kind="stable")
+    out = np.empty((len(texts), enc.dimensions), np.float32)
+    at = 0
+    while at < len(order):
+        seq = bucket_seq_len(len(id_lists[order[min(at + 255, len(order) - 1)]]))
+        rows = min(256, plain_rows((256, seq, cfg.hidden, cfg.heads)))
+        ids = order[at : at + rows]
+        tok, mask = pad_batch([id_lists[i] for i in ids], bucket_seq_len(max(len(id_lists[i]) for i in ids)))
+        out[ids] = fused_sentence_apply(tree, torch.from_numpy(tok).to(device), torch.from_numpy(mask).to(device),
+                                        cfg, attention=encoder_attention_reference).float().cpu().numpy()
+        at += rows
+    return out
+
+
+def plain_cross_scores(ce, pairs: list[tuple], device) -> np.ndarray:
+    """``pairs`` scored by ``ce``'s weights on the plain attention path, in
+    ``CrossEncoderReranker``'s micro-batches of 256, each padded to its
+    longest pair and cut to rows whose f32 scores fit."""
+    from pathway_tpu_torch.models.encoder import fused_cross_apply
+    from pathway_tpu_torch.models.tokenizer import bucket_seq_len, pad_batch
+    from pathway_tpu_torch.ops.attention import encoder_attention_reference
+
+    cfg, tree = ce.config, ce.model.tree()
+    out = np.empty(len(pairs), np.float32)
+    for mb in micro_batches(len(pairs)):
+        id_lists = [ce.tokenizer.encode_pair(*pairs[i]) for i in mb]
+        ids, mask = pad_batch(id_lists, bucket_seq_len(max(len(x) for x in id_lists)))
+        rows = plain_rows((len(mb), ids.shape[1], cfg.hidden, cfg.heads))
+        for a in range(0, len(mb), rows):
+            out[np.array(mb[a : a + rows])] = fused_cross_apply(
+                tree, torch.from_numpy(ids[a : a + rows]).to(device), torch.from_numpy(mask[a : a + rows]).to(device),
+                cfg, attention=encoder_attention_reference).float().cpu().numpy()
+    return out
+
+
+def hybrid_checks(probe: HybridProbe, traffic: HybridTraffic, enc, ce, device) -> dict:
+    """Every gate of ``[hybrid]`` against a plain version: the stored
+    embeddings against the plain attention path; each question's first
+    search and its last after the change: HNSW against the exact f32 cosine
+    top-48 of the stored vectors live then, BM25 against ``PlainBM25`` over
+    the chunks live then, the fusion against ``rrf`` of its inner lists (every
+    search); the final answers against their last fused list and free of the
+    change's removed chunks; the rerank scores against the plain path and
+    each final kept 5 against the plain top 5 but at near-ties."""
+    corpus = traffic.corpus
+    texts = corpus["chunk_texts"]
+    cid = {t: i for i, t in enumerate(texts)}
+    res: dict = {"problems": []}
+    problems = res["problems"]
+
+    stored_texts = sorted(probe.stored)
+    plain = plain_embeddings(enc, stored_texts, device)
+    got = np.stack([probe.stored[t] for t in stored_texts])
+    cos = (plain * got).sum(1) / (np.linalg.norm(plain, axis=1) * np.linalg.norm(got, axis=1))
+    res["embeddings"] = {"chunks": len(stored_texts), "min_cos": float(cos.min())}
+    if cos.min() <= COS_MIN:
+        problems.append(f"stored embeddings against the plain path: min cosine {cos.min()}")
+    if set(stored_texts) != {texts[c] for c in corpus["initial"]} | {texts[c] for c in corpus["final"]}:
+        problems.append("the stored chunks are not the chunks of the corpus and its change")
+
+    fetch = traffic.sizes.k * HY_FETCH
+    bm25 = PlainBM25(texts)
+    first, last = {}, {}
+    for s in probe.searches:
+        if not s["after"]:
+            first.setdefault(s["query"], s)
+        else:
+            last[s["query"]] = s
+    fusion_bad = sum(1 for s in probe.searches if rrf(s["inner_keys"], s["k"]) != s["fused_keys"])
+    res["fusion"] = {"searches": len(probe.searches), "not_rrf_of_inner": fusion_bad}
+    if fusion_bad:
+        problems.append(f"{fusion_bad} fused lists are not the RRF of their inner lists")
+    for stage, picked, live_ids in (("before", first, corpus["initial"]), ("after", last, corpus["final"])):
+        if set(picked) != set(corpus["questions"]):
+            problems.append(f"{stage} the change: {len(picked)} of {len(corpus['questions'])} questions searched")
+            continue
+        live_texts = [texts[c] for c in live_ids]
+        vecs = torch.from_numpy(np.stack([probe.stored[t] for t in live_texts])).to(device)
+        row_of = {t: r for r, t in enumerate(live_texts)}
+        qs = list(corpus["questions"])
+        q = torch.from_numpy(np.stack([picked[x]["qvec"] for x in qs])).to(device)
+        sims = (q / q.norm(dim=1, keepdim=True)) @ vecs.T
+        exact = torch.topk(sims, fetch, dim=1).indices.cpu().numpy()
+        sims = sims.cpu().numpy()
+        recall, score_err, unknown = [], 0.0, 0
+        mask = np.zeros(len(texts), bool)
+        mask[live_ids] = True
+        bm25_bad, bm25_err, bm25_ties = [], 0.0, 0
+        for j, x in enumerate(qs):
+            dense = picked[x]["inner"]["hnsw"]
+            rows = [row_of.get(t, -1) for t, _s in dense]
+            unknown += sum(r < 0 for r in rows)
+            recall.append(len({r for r in rows if r >= 0} & set(exact[j].tolist())) / fetch)
+            score_err = max([score_err] + [abs(s - float(sims[j, r])) for (_t, s), r in zip(dense, rows) if r >= 0])
+            ref = bm25.scores(x, mask)
+            order = np.argsort(-ref, kind="stable")[: min(fetch, int((ref > 0).sum()))]
+            got_bm = picked[x]["inner"]["bm25"]
+            if len(got_bm) != len(order):
+                bm25_bad.append(x)
+                continue
+            for (t, s), r in zip(got_bm, order):
+                own = ref[cid[t]] if t in cid else math.nan
+                err = max(abs(s - ref[r]), abs(s - own)) / abs(ref[r])
+                bm25_err = max(bm25_err, err)
+                if not err <= HY_BM25_REL:
+                    bm25_bad.append(x)
+                    break
+                bm25_ties += t != texts[r]
+        if stage == "after" and probe.dense is not None:  # the final graph at other beams
+            sweep = {}
+            for ef in HY_EF_SWEEP:
+                hits_ef = [{row_of.get(probe.key_text.get(key), -1)
+                            for key, _s in probe.dense.search(picked[x]["qvec"], fetch, ef=ef)} for x in qs]
+                sweep[ef] = float(np.mean([len(h & set(exact[j].tolist())) / fetch for j, h in enumerate(hits_ef)]))
+            res["hnsw_recall_by_ef"] = sweep
+        res[stage] = {"questions": len(qs), "hnsw_recall_mean": float(np.mean(recall)),
+                      "hnsw_recall_min": float(np.min(recall)), "hnsw_max_score_err": score_err,
+                      "hnsw_unknown": unknown, "bm25_max_rel_err": bm25_err, "bm25_parted_at_ties": bm25_ties,
+                      "bm25_wrong": len(bm25_bad)}
+        if np.mean(recall) < HY_RECALL_MIN or unknown or score_err > HY_HNSW_SCORE_TOL:
+            problems.append(f"HNSW {stage} the change: {res[stage]}")
+        if bm25_bad:
+            problems.append(f"BM25 {stage} the change against the plain BM25: {len(bm25_bad)} questions, "
+                            f"e.g. {bm25_bad[0]!r}")
+
+    # the final answers: one each, the last fused list, none of the change's removed chunks
+    removed = ({texts[c] for c in corpus["initial"]} - {texts[c] for c in corpus["final"]})
+    finals, stale, not_last = {}, 0, 0
+    for x in corpus["questions"]:
+        live = traffic.hits.get(x, [])
+        if len(live) != 1:
+            problems.append(f"question {x!r} holds {len(live)} live answers")
+            continue
+        finals[x] = live[0]
+        stale += sum(t in removed for t, _s in live[0])
+        if x in last and [t for t, _s in live[0]] != [t for t, _s in last[x]["fused"]]:
+            not_last += 1
+    res["final"] = {"answers": len(finals), "removed_texts_in_answers": stale, "not_the_last_search": not_last}
+    if stale or not_last:
+        problems.append(f"final answers: {res['final']}")
+
+    # the rerank: every scored pair against the plain path; the final kept 5
+    pairs = list(dict.fromkeys((x, t) for x, t, _s in traffic.scored))
+    got_of = {(x, t): s for x, t, s in traffic.scored}
+    ref = plain_cross_scores(ce, pairs, device)
+    ref_of = dict(zip(pairs, ref))
+    tol = score_tol(ref)
+    err = float(max(abs(got_of[p] - r) for p, r in ref_of.items()))
+    parted, below, kept_stale = 0, 0.0, 0
+    for x, (docs, _scores) in ((x, live[0]) for x, live in traffic.kept.items() if len(live) == 1):
+        if x not in finals:
+            continue
+        mine = sorted((ref_of[(x, t)] for t, _s in finals[x]), reverse=True)
+        kth = mine[RERANK_KEEP - 1]
+        kept_stale += sum(t in removed for t in docs)
+        if {t for t in docs} != {t for t, _s in finals[x] if ref_of[(x, t)] >= kth}:
+            parted += 1
+            below = max(below, max(kth - ref_of[(x, t)] for t in docs))
+    res["rerank"] = {"pairs": len(pairs), "max_abs_err": err, "tol": tol, "sets_parted": parted,
+                     "parted_max_below_kth": below, "removed_texts_kept": kept_stale,
+                     "kept": sum(len(v) == 1 for v in traffic.kept.values())}
+    if err > tol or below > tol or kept_stale or res["rerank"]["kept"] != len(corpus["questions"]):
+        problems.append(f"the rerank against the plain path: {res['rerank']}")
+    return res
+
+
+def hybrid_phase(device, seed: int, checked: dict, card: str, sizes: HybridSizes = HybridSizes()) -> dict:
+    """Phase 15c: BASELINE.md's fourth configuration: a ``DocumentStore``
+    over ``HybridIndexFactory([UsearchKnnFactory(MiniLM),
+    TantivyBM25Factory()])`` fed by ``pw.io.python.read``, questions through
+    ``retrieve_query`` reranked by ``CrossEncoderReranker`` (ms-marco) and
+    ``rerank_topk_filter``, then a change that deletes and rewrites files
+    while the questions stand.  ``checked`` gains the attention shapes the
+    run gave the kernel."""
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.xpacks.llm import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    on_card = torch.device(device).type == "cuda"
+    kw = {} if on_card else {"device": str(device)}
+    if native.get() is None:
+        fail("hybrid: the native core did not load")
+    t_setup = time.perf_counter()
+    corpus = hybrid_corpus(seed, sizes)
+    embedder = SentenceTransformerEmbedder(VS_MODEL, **kw)  # max batch 256
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, seed))
+    reranker = CrossEncoderReranker(RERANK_MODEL, **kw)  # micro-batches of 256
+    ce = reranker._ce
+    ce.set_params(init_params(ce.config, seed, head=True))
+    traffic = HybridTraffic(corpus, sizes)
+
+    class Doc(pw.Schema):
+        data: bytes
+        _metadata: pw.Json
+
+    doc_subject, question_subject = traffic.subjects(pw)
+    docs = pw.io.python.read(doc_subject, schema=Doc)
+    questions = pw.io.python.read(question_subject, schema=DocumentStore.RetrieveQuerySchema)
+    store = hybrid_store(pw, docs, embedder, dimensions=enc.dimensions)
+    hits = hybrid_hits(pw, store, questions)
+    tables = rerank_program(pw, hits, reranker)
+    pw.io.subscribe(store.chunked_docs, on_change=traffic.on_chunk, on_time_end=traffic.on_chunk_epoch)
+    pw.io.subscribe(hits, on_change=traffic.on_hits)
+    pw.io.subscribe(tables["scored"], on_change=traffic.on_scored)
+    pw.io.subscribe(tables["kept"], on_change=traffic.on_kept)
+    setup_s = time.perf_counter() - t_setup
+
+    probe = HybridProbe(pw)
+    traffic.probe = probe
+    seen: dict[tuple, int] = {}
+    removers = [h.remove for h in (record_launches(m, seen) for m in (enc, ce))]
+    events: list = []
+    if on_card:
+        for m in (enc, ce):
+            ev, remove = forward_events(m)
+            events.append(ev)
+            removers.append(remove)
+    scoring = [0, 0.0]  # pairs, host s in CrossEncoder.score
+
+    def timed_score(pairs, *args, score=ce.score, **kwargs):
+        t0 = time.perf_counter()
+        out = score(pairs, *args, **kwargs)
+        scoring[0] += len(pairs)
+        scoring[1] += time.perf_counter() - t0
+        return out
+
+    epochs: list[float] = []
+    run_epoch = df.Scope.run_epoch
+
+    def timed_epoch(scope, time_):
+        t0 = time.perf_counter()
+        try:
+            return run_epoch(scope, time_)
+        finally:
+            if scope.parent is None:
+                epochs.append((time.perf_counter() - t0) * 1e3)
+
+    gc_time = [0.0, 0.0, 0]  # seconds in collections, the current start, collections
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_time[1] = time.perf_counter()
+        else:
+            gc_time[0] += time.perf_counter() - gc_time[1]
+            gc_time[2] += 1
+
+    before = rail_state(device) if on_card else None
+    probe.install()
+    gc.callbacks.append(on_gc)
+    ce.score = timed_score
+    df.Scope.run_epoch = timed_epoch
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen.clear()
+    try:
+        t_run, cpu_run, process_run, threads = _now(), time.thread_time(), time.process_time(), threading.active_count()
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+        wall_s, run_cpu_s = _now() - t_run, time.thread_time() - cpu_run
+    except KeyboardInterrupt:
+        fail(f"hybrid: {traffic.failure or 'interrupted'}")
+    finally:
+        df.Scope.run_epoch = run_epoch
+        gc.callbacks.remove(on_gc)
+        del ce.score
+        probe.uninstall()
+        pw.G.clear()
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    for remove in removers:
+        remove()
+    if traffic.failure:
+        fail(f"hybrid: {traffic.failure}")
+    rail = rail_gate("hybrid", device, before) if on_card else {}
+    device_ms = sum(events_ms(ev) for ev in events) if on_card else None
+
+    searches = probe.searches
+    stage_of = {False: "questions", True: "change"}
+    by_stage: dict[str, dict] = {}
+    for after, name in stage_of.items():
+        mine = [s for s in searches if s["after"] == after]
+        if not mine:
+            by_stage[name] = {"searches": 0}
+            continue
+        hnsw_ms = [s["inner_ms"]["hnsw"] for s in mine]
+        bm25_ms = [s["inner_ms"]["bm25"] for s in mine]
+        fusion_ms = [s["ms"] - s["inner_ms"]["hnsw"] - s["inner_ms"]["bm25"] for s in mine]
+        by_stage[name] = {"searches": len(mine), "questions": len({s["query"] for s in mine}),
+                          "hnsw_ms": percentiles(hnsw_ms), "bm25_ms": percentiles(bm25_ms),
+                          "fusion_ms": percentiles(fusion_ms), "hnsw_ms_total": sum(hnsw_ms),
+                          "bm25_ms_total": sum(bm25_ms), "fusion_ms_total": sum(fusion_ms)}
+    latency = [traffic.first[q] - traffic.t_commit[traffic.batch_of[q]] for q in traffic.first]
+    n_chunks = len(corpus["initial"])
+    res = {
+        "card": card, "files": sizes.files, "chunks": n_chunks, "chunks_final": len(corpus["final"]),
+        "questions": sizes.questions, "commits": sizes.commits, "k": sizes.k, "fetch": sizes.k * HY_FETCH,
+        "deleted": sizes.deleted, "rewritten": sizes.rewritten, "setup_s": setup_s, "wall_s": wall_s,
+        "ingest_s": traffic.t_indexed - traffic.t_docs, "ingest_chunks_per_s": n_chunks / (traffic.t_indexed - traffic.t_docs),
+        "retrieve_latency_ms": percentiles(np.array(latency) * 1e3),
+        "searches": by_stage, "dense_index": sorted(probe.dense_types),
+        "revised_answers": len(traffic.revised),
+        "change_to_last_revision_ms": ((traffic.t_last_revision - traffic.t_change) * 1e3
+                                       if traffic.t_last_revision else None),
+        "change_to_settled_ms": (traffic.t_settled - traffic.t_change) * 1e3,
+        "rerank_pairs": scoring[0], "rerank_pairs_per_s": scoring[0] / scoring[1] if scoring[1] else None,
+        "epochs": len(epochs), "host_ms_per_epoch": percentiles(epochs) if epochs else {},
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / (wall_s * 1e3) if on_card else None,
+        "run_thread_cpu_s": run_cpu_s, "process_cpu_s": time.process_time() - process_run,
+        "gc_s": gc_time[0], "gc_collections": gc_time[2], "threads_at_start": threads,
+        "error_rows": traffic.errors,
+    }
+    t_check = time.perf_counter()
+    with torch.inference_mode():
+        res["check"] = hybrid_checks(probe, traffic, enc, ce, device)
+    res["check_s"] = time.perf_counter() - t_check
+    log("hybrid", **res, kernel_launches=launches)
+
+    problems = list(res["check"]["problems"])
+    if probe.dense_types != {"NativeHnswIndex"}:
+        problems.append(f"the dense index was {sorted(probe.dense_types)}, not NativeHnswIndex")
+    if by_stage["questions"]["searches"] != sizes.questions:
+        problems.append(f"{by_stage['questions']['searches']} searches answered {sizes.questions} questions")
+    if traffic.errors:
+        problems.append(f"{traffic.errors} rows hold ERROR")
+    if on_card:
+        expected = sum(seen.values())
+        if launches["encoder_attention"] != expected or not expected:
+            problems.append(f"attention launches {launches['encoder_attention']} != {expected} "
+                            f"(layers x forwards per shape {seen})")
+    if problems:
+        fail("hybrid: " + "; ".join(problems))
+    if on_card:
+        gen = torch.Generator(device=device).manual_seed(seed + 405)
+        for shape in sorted(set(seen) - set(checked)):
+            checked[shape] = check_attention_shape(gen, shape, device)
+        log("hybrid", step="shapes", card=card, launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+            max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": launches, "attention_launches": dict(seen) if on_card else {}, "rail": rail, **res}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--docs", type=int, default=262144)
+    parser.add_argument("--docs", type=int, default=131072)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--skip", default="", help="comma-separated phases to leave out: " + ", ".join(SKIPPABLE))
     args = parser.parse_args(argv)
@@ -5301,6 +6110,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["rag"] = rag_phase(device, args.seed, checked, card)
         seconds["rag"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "hybrid" not in skip:
+        t_phase = time.perf_counter()
+        phases["hybrid"] = hybrid_phase(device, args.seed, checked, card)
+        seconds["hybrid"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

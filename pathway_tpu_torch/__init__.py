@@ -29,8 +29,11 @@ A UDF that calls an encoder (through ``AsyncMicroBatcher``) runs the
 encoder's kernels inside the dataflow.  ``pw.io`` holds the streaming
 connectors (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``,
 ``subscribe``), ``pw.indexing`` the Table-API indexes (``DataIndex`` over
-``BruteForceKnn``), and ``xpacks.llm`` the retrieval half of the LLM
-xpack (``VectorStoreServer`` over ``SentenceTransformerEmbedder``).
+``BruteForceKnn`` on the device, or the host's HNSW, BM25 and their
+reciprocal-rank fusion), ``pw.ml``, ``pw.stateful``, ``pw.statistical``,
+``pw.ordered`` and ``pw.utils`` the small modules of the standard library,
+and ``xpacks.llm`` the LLM xpack (``VectorStoreServer``, ``DocumentStore``,
+rerankers and the question answerers).
 """
 
 from __future__ import annotations
@@ -100,7 +103,20 @@ from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals import universes
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
 from pathway_tpu_torch import debug, io, udfs
-from pathway_tpu_torch.stdlib import indexing
+from pathway_tpu_torch.stdlib import (
+    LATER as _TEMPORAL_SLICE,
+    graphs,
+    indexing,
+    ml,
+    ordered,
+    stateful,
+    statistical,
+    temporal,
+    utils,
+    viz,
+)
+from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 
 # datetime convenience types (pw.DateTimeNaive etc.)
 DateTimeNaive = _datetime.datetime
@@ -125,6 +141,26 @@ class Type:
     BYTES = _dt.BYTES
     PY_OBJECT_WRAPPER = _dt.PY_OBJECT_WRAPPER
 
+
+def _temporal_method(name: str):
+    def later(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"Table.{name} needs stdlib/temporal, which the port brings in "
+            f"{_TEMPORAL_SLICE}"
+        )
+
+    later.__name__ = name
+    return later
+
+
+# the stdlib-defined Table methods, attached as the JAX package attaches them
+for _name in (
+    "windowby", "asof_join", "asof_join_left", "asof_join_right", "asof_join_outer",
+    "asof_now_join", "interval_join", "interval_join_left", "interval_join_right",
+    "interval_join_outer", "window_join",
+):
+    setattr(Table, _name, _temporal_method(_name))
+Table.interpolate = lambda self, *args, **kwargs: statistical.interpolate(self, *args, **kwargs)
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderLM
@@ -163,6 +199,7 @@ __all__ = [
     "TableSlice",
     "Type",
     "UDF",
+    "AsyncTransformer",
     "apply",
     "apply_async",
     "apply_with_type",
@@ -176,6 +213,7 @@ __all__ = [
     "global_error_log",
     "groupby",
     "if_else",
+    "graphs",
     "indexing",
     "io",
     "iterate",
@@ -189,6 +227,9 @@ __all__ = [
     "local_error_log",
     "local_pathway_config",
     "make_tuple",
+    "ml",
+    "ordered",
+    "pandas_transformer",
     "reducers",
     "require",
     "right",
@@ -198,11 +239,16 @@ __all__ = [
     "schema_from_csv",
     "schema_from_dict",
     "schema_from_types",
+    "stateful",
+    "statistical",
+    "temporal",
     "this",
     "udf",
     "udfs",
     "universes",
     "unwrap",
+    "utils",
+    "viz",
     "wrap_py_object",
     "BruteForceKnnIndex",
     "CrossEncoder",

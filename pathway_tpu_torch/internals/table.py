@@ -1420,10 +1420,9 @@ class Table(Joinable):
         return Table(schema_mod.schema_from_columns(cols), build, universe=self._universe)
 
     def diff(self, timestamp, *values, instance=None) -> "Table":
-        raise NotImplementedError(
-            "Table.diff needs stdlib.ordered, which the port brings in slice "
-            "H6"
-        )
+        from pathway_tpu_torch.stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
 
     # -- typing ops --
     def cast_to_types(self, **kwargs) -> "Table":

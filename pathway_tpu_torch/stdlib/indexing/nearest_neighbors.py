@@ -7,8 +7,9 @@ matrix kept on the device (``ops/topk.py::DeviceIndexCache``) and a batch
 of queries is answered by one scored, masked top-k.  ``BruteForceKnn`` is
 its Table-API wrapper, whose factory binds the default index mesh late.
 ``LshKnn`` is the pure-host LSH analog of the reference's
-``ml/classifiers/_knn_lsh.py``.  ``USearchKnn`` needs ``hnsw.py``, which
-the port brings in the index slice: it raises ``NotImplementedError``.
+``ml/classifiers/_knn_lsh.py``.  ``USearchKnn`` is approximate: an HNSW
+graph on the host (``hnsw.py``) honoring the USearch tuning parameters
+(connectivity / expansion_add / expansion_search).
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from pathway_tpu_torch.stdlib.indexing.filters import metadata_matches
 from pathway_tpu_torch.stdlib.indexing.retrievers import (
     BruteForceKnnMetricKind,
     USearchMetricKind,
-    index_slice_error,
 )
 
 
@@ -208,18 +208,62 @@ class BruteForceKnn(InnerIndex):
 
 class USearchKnn(BruteForceKnn):
     """Approximate KNN over an HNSW graph (parity: the reference's USearch
-    index, nearest_neighbors.py:65 + usearch_integration.rs:163).  Its
-    graph, ``hnsw.py``, comes with the index slice of the port."""
+    index, nearest_neighbors.py:65 + usearch_integration.rs:163).
+
+    Backed by the HNSW graph of ``hnsw.py``, on the host; the USearch
+    tuning parameters map directly: ``connectivity`` = M,
+    ``expansion_add`` = efConstruction, ``expansion_search`` = ef.
+    ``device`` is taken for ``BruteForceKnn``'s signature and unused: the
+    index allocates nothing on a device."""
 
     def __init__(
         self,
         data_column: ColumnReference,
         metadata_column: ColumnReference | None = None,
         *,
+        dimensions: int | None = None,
+        reserved_space: int = 0,
         metric: USearchMetricKind | DistanceMetric = DistanceMetric.COS,
-        **kwargs,
+        connectivity: int = 0,
+        expansion_add: int = 0,
+        expansion_search: int = 0,
+        embedder=None,
+        mesh=None,
+        device=None,
     ):
-        raise index_slice_error("USearchKnn", "hnsw.py")
+        if isinstance(metric, USearchMetricKind):
+            metric = DistanceMetric(metric.value)
+        super().__init__(
+            data_column,
+            metadata_column,
+            dimensions=dimensions,
+            reserved_space=reserved_space,
+            metric=metric,
+            embedder=embedder,
+            mesh=mesh,
+            device=device,
+        )
+        self.connectivity = connectivity
+        self.expansion_add = expansion_add
+        self.expansion_search = expansion_search
+
+    def factory(self):
+        metric = self.metric
+        connectivity = self.connectivity
+        expansion_add = self.expansion_add
+        expansion_search = self.expansion_search
+
+        def make():
+            from pathway_tpu_torch.stdlib.indexing.hnsw import HnswIndex
+
+            return HnswIndex(
+                metric=metric.value,
+                connectivity=connectivity,
+                expansion_add=expansion_add,
+                expansion_search=expansion_search,
+            )
+
+        return _SimpleFactory(make)
 
 
 class LshKnnIndex:

@@ -1,9 +1,7 @@
 """Retriever factory enums/abstracts (parity: stdlib/indexing/retrievers.py).
 
-A copy of ``pathway_tpu/stdlib/indexing/retrievers.py``.
-``BruteForceKnnFactory`` and ``LshKnnFactory`` work; the factories of the
-indexes that the port brings in the index slice (``hnsw.py``,
-``bm25.py``, ``hybrid_index.py``) raise ``NotImplementedError`` when made.
+A copy of ``pathway_tpu/stdlib/indexing/retrievers.py``;
+``BruteForceKnnFactory``'s ``device`` is the port's own.
 """
 
 from __future__ import annotations
@@ -62,17 +60,9 @@ class BruteForceKnnFactory(AbstractRetrieverFactory):
         return DataIndex(data_table, inner)
 
 
-def index_slice_error(name: str, module: str) -> NotImplementedError:
-    """What an index of the index slice raises until the port brings it."""
-    return NotImplementedError(
-        f"{name} needs stdlib/indexing/{module}, which the port brings in "
-        "the index slice (bm25, hybrid_index, hnsw)"
-    )
-
-
 @dataclasses.dataclass
 class UsearchKnnFactory(AbstractRetrieverFactory):
-    """Factory keeping USearch HNSW API parity (shares the dense backend)."""
+    """Factory keeping USearch HNSW API parity (an HNSW graph on the host)."""
 
     dimensions: int | None = None
     reserved_space: int = 0
@@ -81,10 +71,29 @@ class UsearchKnnFactory(AbstractRetrieverFactory):
     connectivity: int = 0
     expansion_add: int = 0
     expansion_search: int = 0
-    mesh: object | None = None  # DeviceMesh → corpus-sharded device index
+    mesh: object | None = None  # unused: the HNSW graph lives on the host
 
-    def __post_init__(self):
-        raise index_slice_error("UsearchKnnFactory", "hnsw.py")
+    def build_index(self, data_column, data_table, metadata_column=None):
+        from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex
+        from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
+            DistanceMetric,
+            USearchKnn,
+        )
+
+        metric = self.metric or USearchMetricKind.COS
+        inner = USearchKnn(
+            data_column,
+            metadata_column,
+            dimensions=self.dimensions,
+            reserved_space=self.reserved_space,
+            metric=DistanceMetric(metric.value),
+            connectivity=self.connectivity,
+            expansion_add=self.expansion_add,
+            expansion_search=self.expansion_search,
+            embedder=self.embedder,
+            mesh=self.mesh,
+        )
+        return DataIndex(data_table, inner)
 
 
 @dataclasses.dataclass
@@ -94,8 +103,17 @@ class TantivyBM25Factory(AbstractRetrieverFactory):
     ram_budget: int = 50_000_000
     in_memory_index: bool = True
 
-    def __post_init__(self):
-        raise index_slice_error("TantivyBM25Factory", "bm25.py")
+    def build_index(self, data_column, data_table, metadata_column=None):
+        from pathway_tpu_torch.stdlib.indexing.bm25 import TantivyBM25
+        from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex
+
+        inner = TantivyBM25(
+            data_column,
+            metadata_column,
+            ram_budget=self.ram_budget,
+            in_memory_index=self.in_memory_index,
+        )
+        return DataIndex(data_table, inner)
 
 
 @dataclasses.dataclass
@@ -105,8 +123,14 @@ class HybridIndexFactory(AbstractRetrieverFactory):
     retriever_factories: list = None  # type: ignore[assignment]
     k: float = 60.0
 
-    def __post_init__(self):
-        raise index_slice_error("HybridIndexFactory", "hybrid_index.py")
+    def build_index(self, data_column, data_table, metadata_column=None):
+        from pathway_tpu_torch.stdlib.indexing.hybrid_index import HybridDataIndex
+
+        indexes = [
+            f.build_index(data_column, data_table, metadata_column)
+            for f in self.retriever_factories
+        ]
+        return HybridDataIndex(data_table, indexes, k=self.k)
 
 
 @dataclasses.dataclass

@@ -2,9 +2,8 @@
 stdlib/indexing/vector_document_index.py:34-157).
 
 A copy of ``pathway_tpu/stdlib/indexing/vector_document_index.py``.  The
-default index is USearch's HNSW, as in the JAX package, so
-``default_vector_document_index`` raises until the index slice brings
-``hnsw.py``; ``device`` of the brute-force index is the port's own.
+default index is USearch's HNSW on the host, as in the JAX package;
+``device`` of the brute-force index is the port's own.
 """
 
 from __future__ import annotations

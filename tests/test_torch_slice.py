@@ -171,7 +171,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     three-row ``groupby`` through ``pw.run``; then the connectors, the
     indexes and the LLM xpack's retrieval half answer a query of a
     ``VectorStoreServer`` over ``SentenceTransformerEmbedder`` fed by
-    ``pw.io.fs.read``."""
+    ``pw.io.fs.read``, and a hybrid BM25 + HNSW ``DocumentStore`` answers
+    it too; then the stdlib's small modules import and ``Table.diff``
+    runs."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -277,6 +279,30 @@ def test_port_imports_nothing_of_jax(model_dir):
         pt.io.subscribe(server.retrieve_query(queries), on_change=lambda key, row, time, is_addition: answers.append(row))
         pt.run(monitoring_level=pt.MonitoringLevel.NONE)
         assert answers[-1]["result"].value[0]["text"] == texts[3], answers
+        pt.G.clear()
+        from pathway_tpu_torch.stdlib.indexing import (HybridIndexFactory, TantivyBM25Factory,
+            UsearchKnnFactory, default_full_text_document_index, default_vector_document_index)  # noqa: F401
+        from pathway_tpu_torch.stdlib.indexing.hnsw import NativeHnswIndex
+        from pathway_tpu_torch.xpacks.llm import DocumentStore
+
+        docs = pt.io.fs.read(docs_dir, format="binary", mode="static", with_metadata=True)
+        store = DocumentStore(docs, HybridIndexFactory(retriever_factories=[UsearchKnnFactory(embedder=emb),
+                                                                            TantivyBM25Factory()]))
+        answers = []
+        pt.io.subscribe(store.retrieve_query(queries), on_change=lambda key, row, time, is_addition: answers.append(row))
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        assert answers[-1]["result"].value[0]["text"] == texts[3], answers
+        assert NativeHnswIndex().search(np.ones(3, np.float32), 1) == []
+        pt.G.clear()
+        from pathway_tpu_torch import ml, ordered, stateful, statistical  # noqa: F401
+        from pathway_tpu_torch.stdlib.ml import classifiers, hmm, index, smart_table_ops  # noqa: F401
+        from pathway_tpu_torch.stdlib.utils import async_transformer, col, filtering, pandas_transformer  # noqa: F401
+
+        t = pt.debug.table_from_markdown("t | v\\n1 | 10\\n2 | 13")
+        diffs = []
+        t.diff(pt.this.t, pt.this.v)._subscribe_raw(lambda key, row, time, diff: diffs.append(row[-1]))
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        assert sorted(diffs, key=str) == [3, None], diffs
         pt.G.clear()
         fut = ex.submit(lambda: enc.encode(texts[:3]), name="direct")
         assert fut.result(timeout=60).shape == (3, enc.dimensions)

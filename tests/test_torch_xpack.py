@@ -13,7 +13,8 @@ one's Pallas attention in interpret mode) with its documents from
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
 raises ``NotImplementedError`` naming its slice (``run_server`` with the
-default ``with_cache=True`` needs the persistence of slice H4).
+default ``with_cache=True`` needs the persistence of slice H4; ``pw.temporal``,
+``pw.graphs`` and ``pw.viz`` wait for the temporal slice).
 """
 
 from __future__ import annotations
@@ -194,18 +195,14 @@ def test_vector_store_over_the_encoder_matches_jax(small_encoders, tmp_path):
 
 def deferred(name: str):
     """Call a deferred entry point of the port; returns the message."""
-    from pathway_tpu_torch.stdlib import indexing
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
         "run_server_with_cache": lambda: llm.servers.BaseRestServer("127.0.0.1", 8000).run_server(),
         "io.kafka": lambda: tpw.io.kafka.read,
-        "UsearchKnnFactory": lambda: indexing.UsearchKnnFactory(),
-        "TantivyBM25Factory": lambda: indexing.TantivyBM25Factory(),
-        "HybridIndexFactory": lambda: indexing.HybridIndexFactory(),
-        "USearchKnn": lambda: indexing.USearchKnn(None),
-        "default_vector_document_index": lambda: indexing.default_vector_document_index(None, None),
-        "TantivyBM25": lambda: indexing.TantivyBM25(None),
+        "temporal": lambda: tpw.temporal.tumbling,
+        "graphs": lambda: tpw.graphs.pagerank,
+        "viz": lambda: tpw.viz.plot,
     }
     with pytest.raises(NotImplementedError) as err:
         calls[name]()
@@ -213,9 +210,8 @@ def deferred(name: str):
 
 
 @pytest.mark.parametrize("name,later", [
-    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"), ("UsearchKnnFactory", "index slice"),
-    ("TantivyBM25Factory", "index slice"), ("HybridIndexFactory", "index slice"), ("USearchKnn", "index slice"),
-    ("default_vector_document_index", "index slice"), ("TantivyBM25", "index slice"),
+    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"), ("temporal", "temporal slice"),
+    ("graphs", "temporal slice"), ("viz", "temporal slice"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later):
     assert later in deferred(name)

@@ -510,6 +510,191 @@ def index_program(pw, metric: str, inner: str, n_data: int = 40, dim: int = 8, s
     return out
 
 
+def hybrid_index_program(pw, dense: str, n_data: int = 36, seed: int = SEED + 30) -> dict:
+    """``DataIndex`` over ``HybridIndex([dense, TantivyBM25])`` on one text
+    column, ``dense`` a ``BruteForceKnn`` or a ``USearchKnn`` over the mock
+    embedder: the data gains and loses rows over three epochs, queries carry
+    their own ``k`` and a metadata filter.  Returns ``query_as_of_now`` and
+    ``query``, collapsed and not."""
+    idx = sub(pw, "stdlib.indexing")
+    mocks = sub(pw, "xpacks.llm.mocks")
+    rng = np.random.default_rng(seed)
+
+    class Data(pw.Schema):
+        text: str
+        meta: pw.Json
+
+    class Query(pw.Schema):
+        q: str
+        k: int
+        filt: str | None
+
+    texts = [" ".join(rng.choice(WORDS, size=int(rng.integers(2, 9)))) for _ in range(n_data + 6)]
+    rows = [(texts[i], pw.Json({"group": i % 3}), 2 if i < 24 else 4, 1) for i in range(n_data)]
+    rows += [(texts[i], pw.Json({"group": i % 3}), 6, -1) for i in range(0, 12, 3)]
+    data = pw.debug.table_from_rows(Data, rows, is_stream=True)
+    filters = [None, "group == 1", None, "group != 0", None, None]
+    qrows = [(texts[n_data + j], int(rng.integers(1, 6)), filters[j], 2 if j < 3 else 4, 1) for j in range(6)]
+    queries = pw.debug.table_from_rows(Query, qrows, is_stream=True)
+    kw = {"embedder": mocks.fake_embeddings_model}
+    if dense == "brute":
+        inner = idx.BruteForceKnn(data.text, data.meta, **kw, **port_kw(pw))
+    elif dense == "lsh":
+        inner = idx.LshKnn(data.text, data.meta, dimensions=8, n_or=6, n_and=2, **kw)
+    else:
+        inner = idx.USearchKnn(data.text, data.meta, **kw)
+    index = idx.DataIndex(data, idx.HybridIndex([inner, idx.TantivyBM25(data.text, data.meta)]))
+    out = {}
+    for method in ("query_as_of_now", "query"):
+        for collapse in (True, False):
+            out[f"{method}:{collapse}"] = getattr(index, method)(
+                queries.q, number_of_matches=queries.k, metadata_filter=queries.filt, collapse_rows=collapse)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the stdlib's small modules (tests/test_stdlib_misc.py's programs, and
+# ml's): programs of either package
+# ---------------------------------------------------------------------------
+
+
+def _stream(pw, schema, rows):
+    return pw.debug.table_from_rows(schema, rows, is_stream=True)
+
+
+def _values(rng, n: int, times=(2, 4, 6)) -> list:
+    """``n`` rows (k, v, t) of a stream: a key of three, a value, a time."""
+    return [(str(rng.choice(["a", "b", "c"])), int(rng.integers(-20, 20)), int(rng.integers(0, 50)), int(t), 1)
+            for t in rng.choice(times, size=n)]
+
+
+def _hmm_graph():
+    import functools
+
+    import networkx as nx
+
+    def emission(observation, state):
+        table = {("HUNGRY", "GRUMPY"): 0.9, ("HUNGRY", "HAPPY"): 0.1, ("FULL", "GRUMPY"): 0.7,
+                 ("FULL", "HAPPY"): 0.3}
+        return np.log(table[(state, observation)])
+
+    g = nx.DiGraph()
+    for state in ("HUNGRY", "FULL"):
+        g.add_node(state, calc_emission_log_ppb=functools.partial(emission, state=state))
+    for a, b, p in (("HUNGRY", "HUNGRY", 0.4), ("HUNGRY", "FULL", 0.6), ("FULL", "HUNGRY", 0.6),
+                    ("FULL", "FULL", 0.4)):
+        g.add_edge(a, b, log_transition_ppb=np.log(p))
+    g.graph["start_nodes"] = ["HUNGRY", "FULL"]
+    return g
+
+
+def stdlib_program(pw, name: str) -> dict:
+    """The stdlib program ``name`` (a key of ``STDLIB_PROGRAMS``) in ``pw``."""
+    rng = np.random.default_rng(SEED + 50 + sorted(STDLIB_PROGRAMS).index(name))
+    std = sub(pw, "stdlib")
+    kvt = pw.schema_from_types(k=str, v=int, t=int)
+    if name == "deduplicate":
+        t = _stream(pw, kvt, _values(rng, 30))
+        return {"latest": std.stateful.deduplicate(t, value=pw.this.v, acceptor=lambda new, old: new > old),
+                "method": t.deduplicate(value=pw.this.v),
+                "instance": t.deduplicate(value=pw.this.v, instance=pw.this.k,
+                                          acceptor=lambda new, old: abs(new) >= abs(old))}
+    if name == "interpolate":
+        xs = rng.choice(40, size=16, replace=False)
+        rows = [(int(x), None if rng.random() < 0.4 else float(rng.normal()), 2 if i < 10 else 4, 1)
+                for i, x in enumerate(xs)]
+        t = _stream(pw, pw.schema_from_types(t=int, v=float | None), rows)
+        return {"function": std.statistical.interpolate(t, pw.this.t, pw.this.v),
+                "method": t.interpolate(pw.this.t, pw.this.v)}
+    if name == "diff":
+        rows = [(k, v, int(t_), tt, d) for (k, v, t_, tt, d) in _values(rng, 24)]
+        t = _stream(pw, kvt, list({(r[0], r[2]): r for r in rows}.values()))
+        return {"plain": std.ordered.diff(t, pw.this.t, pw.this.v),
+                "instance": t.diff(pw.this.t, pw.this.v, instance=pw.this.k)}
+    if name == "diff_columns":
+        rows = [(int(t_), float(rng.normal()), int(rng.integers(0, 9)), tt, 1)
+                for t_, tt in zip(rng.choice(60, size=14, replace=False), rng.choice((2, 4), size=14))]
+        t = _stream(pw, pw.schema_from_types(t=int, x=float, n=int), rows)
+        return {"both": t.diff(pw.this.t, pw.this.x, pw.this.n)}
+    if name == "filtering":
+        t = _stream(pw, kvt, _values(rng, 24))
+        filt = sub(pw, "stdlib.utils.filtering")
+        return {"argmax": filt.argmax_rows(t, pw.this.k, what=pw.this.v),
+                "argmin": filt.argmin_rows(t, pw.this.k, what=pw.this.v)}
+    if name == "col":
+        t = _stream(pw, kvt, _values(rng, 12))
+        packed = t.select(data=pw.make_tuple(pw.this.k, pw.this.v, pw.this.t))
+        rep = t.select(k=pw.this.k, vals=pw.apply(lambda v: tuple(range(abs(v) % 4)), pw.this.v))
+        return {"unpack": std.utils.unpack_col(packed.data, "key", "value", "time"),
+                "flatten": std.utils.flatten_column(rep.vals)}
+    if name == "async_transformer":
+        import asyncio
+
+        class Doubler(pw.AsyncTransformer):
+            output_schema = pw.schema_from_types(doubled=int, tag=str)
+
+            async def invoke(self, k, v, t) -> dict:
+                await asyncio.sleep(0)
+                if v == 13:
+                    raise ValueError("dropped")
+                return {"doubled": 2 * v + t, "tag": k.upper()}
+
+        t = _stream(pw, kvt, _values(rng, 16, times=(2, 4)) + [("z", 13, 0, 2, 1)])
+        return {"successful": Doubler(t).successful}
+    if name == "pandas_transformer":
+        t = pw.debug.table_from_rows(kvt, [r[:3] for r in _values(rng, 10)])
+
+        @pw.pandas_transformer(output_schema=pw.schema_from_types(k=str, s=int))
+        def totals(df):
+            grouped = df.groupby("k")["v"].sum()
+            return grouped.reset_index().rename(columns={"v": "s"})
+
+        return {"totals": totals(t)}
+    if name == "knn_classifier":
+        centers = {"low": (0.0, 0.0), "mid": (3.0, -2.0), "high": (6.0, 5.0)}
+        data_rows, query_rows = [], []
+        for label, c in centers.items():
+            for _ in range(5):
+                data_rows.append((tuple(float(x) for x in np.add(c, rng.normal(scale=0.3, size=2))), label))
+            query_rows.append((tuple(float(x) for x in np.add(c, rng.normal(scale=0.3, size=2))),))
+        data = pw.debug.table_from_rows(pw.schema_from_types(data=tuple, label=str), data_rows)
+        queries = pw.debug.table_from_rows(pw.schema_from_types(data=tuple), query_rows)
+        classify = std.ml.classifiers.knn_lsh_classifier_train(data, L=4, d=2, **port_kw(pw))
+        cosine = std.ml.classifiers.knn_lsh_classifier_train(data, L=4, type="cosine", d=2, **port_kw(pw))
+        return {"labels": classify(data, queries, k=3), "cosine": cosine(data, queries, k=1)}
+    if name == "knn_index":
+        dim = 6
+        vecs = rng.normal(size=(30, dim)).astype(np.float32)
+        drows = [(vecs[i], pw.Json({"g": i % 2}), 2 if i < 20 else 4, 1) for i in range(24)]
+        drows += [(vecs[i], pw.Json({"g": i % 2}), 6, -1) for i in (1, 5)]
+        data = _stream(pw, pw.schema_from_types(emb=np.ndarray, meta=pw.Json), drows)
+        qs = _stream(pw, pw.schema_from_types(q=np.ndarray, filt=str | None),
+                     [(vecs[24 + j], [None, "g == 1"][j % 2], 2 if j < 3 else 4, 1) for j in range(6)])
+        index = std.ml.index.KNNIndex(data.emb, data, n_dimensions=dim, distance_type="cosine",
+                                      metadata=data.meta, **port_kw(pw))
+        return {"nearest": index.get_nearest_items(qs.q, k=3, metadata_filter=qs.filt).without("emb"),
+                "asof_now": index.get_nearest_items_asof_now(qs.q, k=2, with_distances=True).without("emb")}
+    if name == "fuzzy_match":
+        left = pw.debug.table_from_rows(pw.schema_from_types(name=str),
+                                        [(" ".join(rng.choice(WORDS, size=2)),) for _ in range(8)])
+        right = pw.debug.table_from_rows(pw.schema_from_types(name=str),
+                                         [(" ".join(rng.choice(WORDS, size=2)).upper(),) for _ in range(8)])
+        return {"matches": std.ml.smart_table_ops.fuzzy_match_tables(left, right)}
+    if name == "hmm":
+        obs = _stream(pw, pw.schema_from_types(observation=str),
+                      [(str(o), 2 + 2 * i, 1) for i, o in enumerate(rng.choice(["HAPPY", "GRUMPY"], size=6))])
+        hmm = std.ml.hmm
+        return {"kept": obs.reduce(decoded=pw.reducers.udf_reducer(
+                    hmm.create_hmm_reducer(_hmm_graph(), num_results_kept=3))(pw.this.observation)),
+                "beam": obs.reduce(decoded=pw.reducers.udf_reducer(
+                    hmm.create_hmm_reducer(_hmm_graph(), beam_size=1))(pw.this.observation))}
+    raise KeyError(name)
+
+
+STDLIB_PROGRAMS = ("deduplicate", "interpolate", "diff", "diff_columns", "filtering", "col", "async_transformer",
+                   "pandas_transformer", "knn_classifier", "knn_index", "fuzzy_match", "hmm")
+
+
 def _capture_port_paths(out: str, model_dir: str | None = None, params_path: str | None = None) -> None:
     """Every program of the port (or the embedding program alone) with the
     columnar path on and off."""
