@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -82,6 +82,32 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``encode`` of the live texts (cosine > 0.999, retracted docs absent,
    replaced texts embedded), counts to a recount and sums within 1e-3,
    no ``ERROR``, the native core loaded, launches counted like phase 4;
+7c. temporal: the temporal slice (``pw.temporal``'s windows, behaviors and
+   time joins) as a live windowed topic monitor at full BAAI/bge-base-en-v1.5
+   width (seeded weights, ``SentenceTransformerEmbedder``, an async UDF
+   through ``AsyncMicroBatcher`` at 256): 32,768 texts of 6-60 words at
+   int event times over one day, 16 topics drawn Zipf-distributed, fed by
+   ``pw.io.python.read`` in event-time order in 64 commits (2% held back
+   2-6 commits), each commit sent once the run has taken the one before
+   into an epoch; 512 alerts in the commits of their times and 256
+   questions in 4 commits of their own.  Sliding windows of an hour every
+   10 minutes per topic under ``common_behavior(delay=300, cutoff=600)``
+   (count, vector sum, first and last time), hourly tumbling windows under
+   ``exactly_once_behavior()``, sessions of max gap 900, each alert's
+   events within 300 s by ``interval_join`` (pairs, best dot product),
+   each question answered by ``asof_now_join`` against its topic's latest
+   sliding window (``argmax_rows``) with the cosine to its centroid.
+   Events/s, commit-to-window latency, epochs, host ms per epoch by node
+   class, rows dropped by the cutoff, peak buffered rows, columnar bails,
+   the forwards' device ms and idle share, batch sizes, launches by shape;
+   gated on 256 events re-embedded on the plain attention path (cosine
+   > 0.999), the final sliding, hourly and session windows equal to a
+   plain Python replay of the epochs the run had (counts, times and
+   dropped rows exactly, vector sums within 1e-4 relative), the hourly
+   stream equal to the replay's epoch by epoch, the interval join's pairs
+   exactly and best dot within 1e-4, every answer the replay's latest
+   window at its epoch (score within 1e-4) and never revised, the sliding
+   windows assigned by the columnar branches, and the rail still;
 8. generate: decoder generation at full mistral-7b-instruct width (seeded
    random bf16 weights): a burst of 16 requests (prompts of 64-896 token
    ids, 128 new tokens, 12 greedy and 4 at temperature 0.7 / top-p 0.9)
@@ -213,19 +239,19 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``AdaptiveRAGQuestionAnswerer(JaxChat("mistral-7b-instruct",
    max_new_tokens=64, max_cache=4096))`` (seeded bf16 weights, through the
    continuous-batching scheduler; 2 starting documents, factor 2, 4
-   iterations) over a ``DocumentStore`` of 4,096 files of 100-1,000 words
+   iterations) over a ``DocumentStore`` of 2,048 files of 100-1,000 words
    read by ``pw.io.fs.read(mode="static")`` (``ParseUtf8``,
    ``TokenCountSplitter()``, MiniLM through ``SentenceTransformerEmbedder``
    at 256, a cosine ``BruteForceKnn``), behind ``build_server`` and
    ``run_server(threaded=True, with_cache=False)``, with admission set to
    16 in flight and 8 queued.  A standard-library client, 16 threads:
-   32 /v1/retrieve questions at k=10 with one /v1/statistics and one
-   /v2/list_documents; the 32 questions (8-32 words) to /v1/pw_ai_answer
-   with 4 /v1/pw_ai_summary text lists; malformed JSON (400), an unknown
+   16 /v1/retrieve questions at k=10 with one /v1/statistics and one
+   /v2/list_documents; the 16 questions (8-32 words) to /v1/pw_ai_answer
+   with 2 /v1/pw_ai_summary text lists; malformed JSON (400), an unknown
    route (404), a 1 ms ``X-Pathway-Deadline-Ms`` (504); a burst of 40
    summaries (429 with ``Retry-After`` past the budget); then a Table
    program on the same store retrieves the 16 documents of each question
-   and scores the 512 pairs with ``CrossEncoderReranker``
+   and scores the 256 pairs with ``CrossEncoderReranker``
    (ms-marco-MiniLM-L-6-v2) and ``rerank_topk_filter(k=5)``; the client
    closes the server, which ends the run.  Latency by route, TTFT and
    tokens/s, admission queue wait, the median of each request-trace span,
@@ -243,14 +269,14 @@ Phases, each on a line of its own; any failure exits non-zero:
    SentenceTransformerEmbedder("all-MiniLM-L6-v2")), TantivyBM25Factory()]))``
    (reciprocal rank fusion at k 60; HNSW M 16, efC 128, ef 64, on the
    host in the native core), ``ParseUtf8`` and ``TokenCountSplitter()``
-   over 2,048 files of 100-1,000 words drawn Zipf-distributed (exponent
+   over 1,024 files of 100-1,000 words drawn Zipf-distributed (exponent
    1.0) over the 20,000-word vocabulary, fed by ``pw.io.python.read`` in
-   one commit; 256 questions of 8-32 words (spans of chunks, a quarter of
-   the words swapped) in 4 commits of 64 through ``retrieve_query`` at
-   k 16, the 4,096 (question, document) pairs reranked by
+   one commit; 128 questions of 8-32 words (spans of chunks, a quarter of
+   the words swapped) in 4 commits of 32 through ``retrieve_query`` at
+   k 16, the 2,048 (question, document) pairs reranked by
    ``CrossEncoderReranker`` (ms-marco-MiniLM-L-6-v2) and
-   ``rerank_topk_filter(k=5)``; then one commit deletes 128 files and
-   rewrites 128 while the questions stand, and the engine re-answers them
+   ``rerank_topk_filter(k=5)``; then one commit deletes 64 files and
+   rewrites 64 while the questions stand, and the engine re-answers them
    one search at a time.  Ingest chunks/s, retrieve latency from commit
    to answer, host ms per search in HNSW, BM25 and the fusion, searches
    run and answers revised after the change with the time to the last,
@@ -271,14 +297,14 @@ Phases, each on a line of its own; any failure exits non-zero:
    the shared default executor, batches of up to 256),
    ``TokenCountSplitter()``, ``ParseUtf8`` and a cosine ``BruteForceKnn``,
    fed by ``pw.io.fs.read(mode="streaming", format="binary",
-   with_metadata=True)`` over 8,192 files of 100-1,000 words and queried
+   with_metadata=True)`` over 4,096 files of 100-1,000 words and queried
    through ``pw.io.python.read``, its answers, its chunk table and its
-   statistics read by ``pw.io.subscribe``: once the corpus is indexed, 32
+   statistics read by ``pw.io.subscribe``: once the corpus is indexed, 16
    batches of 64 queries at k=10 (8-32 word spans of live chunks with a
    quarter of the words swapped), each committed and answered before the
-   next; 1,024 live changes (512 files added, 256 deleted, 256
-   rewritten) in 16 bursts 0.25 s apart; once the statistics show 8,448
-   files and every change has shown in the chunk table, 32 more batches;
+   next; 512 live changes (256 files added, 128 deleted, 128
+   rewritten) in 8 bursts 0.25 s apart; once the statistics show 4,224
+   files and every change has shown in the chunk table, 16 more batches;
    the answers' subscriber ends the run with an exception of the phase's
    own at the last query's first answer.  Ingest chunks/s and docs/s, host
    ms per epoch, the forwards' device ms and idle share, batch sizes, the
@@ -292,7 +318,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b, 15b and 15c (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b and 15c (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -307,6 +333,7 @@ import dataclasses
 import faulthandler
 import functools
 import gc
+import importlib
 import json
 import math
 import os
@@ -831,8 +858,8 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # Phase 5: retrieve then rerank; phase 6: BGE-base and the W8A8 embedder.
 # ---------------------------------------------------------------------------
 
-SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "generate", "moe", "speculative", "vision", "lora", "train",
-             "parallel", "sharded", "rag", "hybrid", "vector_store")
+SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "temporal", "generate", "moe", "speculative", "vision", "lora",
+             "train", "parallel", "sharded", "rag", "hybrid", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -1866,6 +1893,553 @@ def dataflow_phase(device, seed: int, checked: dict) -> dict:
     log("dataflow", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen.items())},
         max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
     return {"launches": launches, "attention_launches": dict(seen), "rail": rail, **res}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: the temporal slice, a live windowed topic monitor over BGE-base.
+# ---------------------------------------------------------------------------
+
+TEMPORAL_MODEL = BGE_MODEL  # BASELINE.md's streaming-ingest model
+TEMPORAL_EVENTS = 32768
+TEMPORAL_COMMITS = 64  # of about 512 events, in event-time order
+TEMPORAL_TOPICS = 16  # drawn Zipf-distributed, exponent 1.0
+TEMPORAL_DAY = 86400  # event times in seconds
+TEMPORAL_LATE = 0.02  # share of events held back ...
+TEMPORAL_LATE_COMMITS = (2, 6)  # ... this many commits
+TEMPORAL_ALERTS = 512
+TEMPORAL_QUESTIONS = 256  # in 4 commits, after every 16th commit of events
+TEMPORAL_TEXT_WORDS = (8, 32)  # of alerts and questions
+TEMPORAL_HOP, TEMPORAL_SPAN = 600, 3600  # the sliding windows
+TEMPORAL_DELAY, TEMPORAL_CUTOFF = 300, 600  # their common_behavior
+TEMPORAL_HOUR = 3600  # the tumbling windows, exactly_once_behavior
+TEMPORAL_GAP = 900  # the sessions' max_gap
+TEMPORAL_JOIN = (-300, 300)  # the alerts' interval join
+TEMPORAL_REL = 1e-4  # vector sums, dot products and scores against the replay
+TEMPORAL_PLAIN = 256  # events re-embedded on the plain attention path
+TEMPORAL_WAIT_S = 300.0  # the longest the subject waits for an epoch
+
+
+def temporal_stream(n_events: int, commits: int, n_alerts: int, n_questions: int, seed: int,
+                    span: int = TEMPORAL_DAY) -> list:
+    """The ``[temporal]`` program's input as a list of commits, each a list of
+    rows ``{n, kind, t, topic, text, batch}``: ``n_events`` texts of 6-60
+    words at event times spread over ``span`` seconds, each with one of
+    ``TEMPORAL_TOPICS`` topics drawn Zipf-distributed (exponent 1.0), in
+    ``commits`` commits in event-time order, but a share ``TEMPORAL_LATE``
+    held back 2-6 commits; ``n_alerts`` alerts of 8-32 words, each in the
+    commit of its time; ``n_questions`` questions of 8-32 words in 4 commits
+    of their own, after every quarter of the events' commits."""
+    rng = np.random.default_rng(seed)
+    texts, _, _, _ = synthetic_corpus(n_events, seed + 1)
+    short, _, _, _ = synthetic_corpus(n_alerts + n_questions, seed + 2, words_per_text=TEMPORAL_TEXT_WORDS)
+    p = 1.0 / np.arange(1, TEMPORAL_TOPICS + 1)
+    p /= p.sum()
+    times = np.sort(rng.integers(0, span, size=n_events))
+    topics = rng.choice(TEMPORAL_TOPICS, size=n_events, p=p)
+    per = -(-n_events // commits)
+    slot = np.arange(n_events) // per
+    lo, hi = TEMPORAL_LATE_COMMITS
+    late = rng.random(n_events) < TEMPORAL_LATE
+    slot = np.where(late, np.minimum(slot + rng.integers(lo, hi + 1, size=n_events), commits - 1), slot)
+    batches: list[list] = [[] for _ in range(commits)]
+    for i in range(n_events):
+        batches[slot[i]].append(dict(n=i, kind="event", t=int(times[i]), topic=int(topics[i]), text=texts[i]))
+    alert_t = rng.integers(0, span, size=n_alerts)
+    alert_topic = rng.choice(TEMPORAL_TOPICS, size=n_alerts, p=p)
+    for j in range(n_alerts):
+        c = min(int(np.searchsorted(times, alert_t[j])) // per, commits - 1)
+        batches[c].append(dict(n=n_events + j, kind="alert", t=int(alert_t[j]), topic=int(alert_topic[j]),
+                               text=short[j]))
+    q_topic = rng.choice(TEMPORAL_TOPICS, size=n_questions, p=p)
+    out, per_q, q = [], n_questions // 4, 0
+    for c, rows in enumerate(batches):
+        out.append(rows)
+        if (c + 1) % (commits // 4) == 0:
+            head = int(times[min((c + 1) * per, n_events) - 1])  # the question's own time: the events' head
+            out.append([dict(n=n_events + n_alerts + q + k, kind="question", t=head, topic=int(q_topic[q + k]),
+                             text=short[n_alerts + q + k]) for k in range(per_q)])
+            q += per_q
+    for b, rows in enumerate(out):
+        for row in rows:
+            row["batch"] = b
+    return out
+
+
+def temporal_schema(pw):
+    class TemporalRow(pw.Schema):
+        n: int = pw.column_definition(primary_key=True)
+        kind: str
+        t: int
+        topic: int
+        text: str
+        batch: int
+
+    return TemporalRow
+
+
+def _dot(a, b) -> float:
+    return float(np.dot(a, b))
+
+
+def _cos_to_sum(q, s) -> float:
+    return float(np.dot(q, s) / np.linalg.norm(s))
+
+
+def temporal_program(pw, stream, embed) -> dict:
+    """The ``[temporal]`` Table program, for either package as ``pw``, over
+    the table ``stream`` (``temporal_schema``): every text embedded by
+    ``embed``; the events summarised per topic in (a) sliding windows of an
+    hour every 10 minutes under ``common_behavior(delay=300, cutoff=600)``
+    (count, vector sum, first and last time), (b) hourly tumbling windows
+    under ``exactly_once_behavior()`` (count, vector sum) and (c) sessions
+    of ``max_gap`` 900 (count, start, end); (d) each alert's events of its
+    topic within 300 s by ``interval_join``, reduced to their count and the
+    largest dot product; (e) each question answered by ``asof_now_join``
+    against its topic's latest sliding window, scored by the cosine to the
+    window's centroid.  Returns the tables by name, ``embedded`` first."""
+    temporal = pw.temporal
+    filtering = importlib.import_module(pw.__name__ + ".stdlib.utils.filtering")
+    embedded = stream.select(pw.this.n, pw.this.kind, pw.this.t, pw.this.topic, pw.this.batch,
+                             vec=embed(pw.this.text))
+    events = embedded.filter(pw.this.kind == "event").select(pw.this.n, pw.this.t, pw.this.topic, pw.this.vec)
+    # the join sides' columns are named apart: a join-select that reads one
+    # name from both sides takes the engine's row path
+    alerts = embedded.filter(pw.this.kind == "alert").select(
+        alert=pw.this.n, at=pw.this.t, atopic=pw.this.topic, avec=pw.this.vec)
+    questions = embedded.filter(pw.this.kind == "question").select(
+        q=pw.this.n, qtopic=pw.this.topic, qvec=pw.this.vec)
+    window = dict(topic=pw.this._pw_instance, start=pw.this._pw_window_start, end=pw.this._pw_window_end,
+                  count=pw.reducers.count())
+    sliding = events.windowby(
+        events.t, window=temporal.sliding(hop=TEMPORAL_HOP, duration=TEMPORAL_SPAN), instance=events.topic,
+        behavior=temporal.common_behavior(delay=TEMPORAL_DELAY, cutoff=TEMPORAL_CUTOFF),
+    ).reduce(**window, vsum=pw.reducers.sum(pw.this.vec), tmin=pw.reducers.min(pw.this.t),
+             tmax=pw.reducers.max(pw.this.t))
+    hourly = events.windowby(
+        events.t, window=temporal.tumbling(TEMPORAL_HOUR), instance=events.topic,
+        behavior=temporal.exactly_once_behavior(),
+    ).reduce(**window, vsum=pw.reducers.sum(pw.this.vec))
+    times = events.select(pw.this.t, pw.this.topic)
+    sessions = times.windowby(times.t, window=temporal.session(max_gap=TEMPORAL_GAP),
+                              instance=times.topic).reduce(**window)
+    pairs = alerts.interval_join(events, alerts.at, events.t, temporal.interval(*TEMPORAL_JOIN),
+                                 alerts.atopic == events.topic).select(alerts.alert, alerts.avec, events.vec)
+    per_alert = pairs.select(pw.this.alert, dot=pw.apply_with_type(_dot, float, pw.this.avec, pw.this.vec)).groupby(
+        pw.this.alert).reduce(pw.this.alert, pairs=pw.reducers.count(), best=pw.reducers.max(pw.this.dot))
+    latest = filtering.argmax_rows(sliding, sliding.topic, what=sliding.end)
+    answers = questions.asof_now_join(latest, questions.qtopic == latest.topic).select(
+        questions.q, questions.qtopic, start=latest.start, end=latest.end,
+        score=pw.apply_with_type(_cos_to_sum, float, questions.qvec, latest.vsum))
+    return {"embedded": embedded, "sliding": sliding, "hourly": hourly, "sessions": sessions,
+            "alerts": per_alert, "answers": answers}
+
+
+class PlainWindows:
+    """A plain replay of ``windowby`` under a buffer-then-freeze behavior, as
+    the engine runs it.  Each epoch's events (in arrival order) are assigned
+    their windows window-major (the columnar branches, one per window offset,
+    concatenated); the buffer ingests them, its watermark the largest event
+    time ingested so far, this epoch included, and releases (in ingestion
+    order) every held row whose threshold is at most the watermark; the
+    freeze walks the released rows in that order, drops a row whose cutoff
+    threshold is at most its own watermark (the largest time of the rows it
+    has let through, advanced row by row), and lets the rest through to the
+    per-(topic, start, end) count, vector sum and first and last time.  At
+    the end of the stream the buffer releases what it still holds.  With
+    ``window_major`` False the rows go event by event instead, each event's
+    windows in turn, as the flatten path of the assignment gives them."""
+
+    def __init__(self, windows, release, cutoff, window_major: bool = True):
+        self.windows, self.release, self.cutoff = windows, release, cutoff
+        self.window_major = window_major
+        self.held: list = []
+        self.wm_buffer = self.wm_freeze = None
+        self.groups: dict = {}  # (topic, start, end) -> [count, vectors, tmin, tmax]
+        self.dropped = self.peak_held = 0
+
+    def vsum(self, key) -> np.ndarray:
+        """The vector sum of the window ``key`` so far, in float64."""
+        return np.sum(self.groups[key][1], axis=0, dtype=np.float64)
+
+    def epoch(self, events) -> list:
+        """Feed one epoch's ``[(t, topic, vec)]``; returns its changes
+        ``[((topic, start, end), count, diff)]``."""
+        rows = []
+        if events:
+            per_event = [self.windows(t) for t, _topic, _vec in events]
+            if self.window_major:
+                for j in range(len(per_event[0])):
+                    rows += [(t, topic, vec, *w[j]) for (t, topic, vec), w in zip(events, per_event)]
+            else:
+                rows = [(t, topic, vec, *w) for (t, topic, vec), ws in zip(events, per_event) for w in ws]
+            top = max(t for t, _topic, _vec in events)
+            self.wm_buffer = top if self.wm_buffer is None else max(self.wm_buffer, top)
+        self.held += rows
+        out, keep = [], []
+        for row in self.held:
+            (out if self.release(*row[:1], *row[3:]) <= self.wm_buffer else keep).append(row)
+        self.held = keep
+        self.peak_held = max(self.peak_held, len(keep))
+        return self._apply(out)
+
+    def finish(self) -> list:
+        out, self.held = self.held, []
+        return self._apply(out)
+
+    def _apply(self, rows) -> list:
+        touched: dict = {}
+        for t, topic, vec, start, end in rows:
+            if self.wm_freeze is not None and self.cutoff(start, end) <= self.wm_freeze:
+                self.dropped += 1
+                continue
+            self.wm_freeze = t if self.wm_freeze is None else max(self.wm_freeze, t)
+            key = (topic, start, end)
+            g = self.groups.get(key)
+            touched.setdefault(key, None if g is None else g[0])
+            if g is None:
+                self.groups[key] = [1, [vec], t, t]
+            else:
+                g[0] += 1
+                g[1].append(vec)
+                g[2], g[3] = min(g[2], t), max(g[3], t)
+        changes = []
+        for key, old in touched.items():
+            if old is not None:
+                changes.append((key, old, -1))
+            changes.append((key, self.groups[key][0], 1))
+        return sorted(changes)
+
+
+def sliding_windows(t: int) -> list:
+    base = t // TEMPORAL_HOP * TEMPORAL_HOP
+    m = TEMPORAL_SPAN // TEMPORAL_HOP
+    return [(base - (m - 1 - j) * TEMPORAL_HOP, base - (m - 1 - j) * TEMPORAL_HOP + TEMPORAL_SPAN) for j in range(m)]
+
+
+def temporal_replay(epochs: list) -> dict:
+    """The ``[temporal]`` program replayed in plain Python on ``epochs``, the
+    embedded table's rows ``(n, kind, t, topic, batch, vec)`` of each epoch
+    in the order the run delivered them: the sliding, hourly and session
+    windows, the alerts' pairs and the questions' answers, with the sliding
+    windows' rows dropped by the cutoff (and what the flatten path's
+    event-major order would drop) and the hourly windows' changes per
+    epoch."""
+    behavior = (lambda t, s, e: t + TEMPORAL_DELAY, lambda s, e: e + TEMPORAL_CUTOFF)
+    sliding = PlainWindows(sliding_windows, *behavior)
+    event_major = PlainWindows(sliding_windows, *behavior, window_major=False)
+    hourly = PlainWindows(lambda t: [(t // TEMPORAL_HOUR * TEMPORAL_HOUR, t // TEMPORAL_HOUR * TEMPORAL_HOUR + TEMPORAL_HOUR)],
+                          lambda t, s, e: e, lambda s, e: e)
+    hourly_changes, answers, events, alerts = [], {}, [], []
+    for rows in epochs:
+        batch = [(r[2], r[3], r[5]) for r in rows if r[1] == "event"]
+        events += batch
+        alerts += [r for r in rows if r[1] == "alert"]
+        sliding.epoch(batch)
+        event_major.epoch(batch)
+        hourly_changes.append(hourly.epoch(batch))
+        for n, kind, _t, topic, _b, qvec in rows:
+            live = [(key[2], key) for key in sliding.groups if key[0] == topic] if kind == "question" else ()
+            if live:
+                _, key = max(live)
+                vsum = sliding.vsum(key)
+                answers[n] = (topic, key[1], key[2], float(np.dot(qvec, vsum) / np.linalg.norm(vsum)))
+    sliding.finish()
+    event_major.finish()
+    hourly_changes.append(hourly.finish())
+    by_topic: dict = {}
+    for t, topic, vec in events:
+        by_topic.setdefault(topic, []).append((t, vec))
+    index, sessions = {}, {}
+    for topic, rows in by_topic.items():
+        rows.sort(key=lambda r: r[0])
+        ts = np.array([t for t, _vec in rows])
+        index[topic] = (ts, np.stack([vec for _t, vec in rows]))
+        breaks = np.flatnonzero(np.diff(ts) > TEMPORAL_GAP)
+        for a, b in zip(np.concatenate(([0], breaks + 1)), np.concatenate((breaks, [len(ts) - 1]))):
+            sessions[(topic, int(ts[a]), int(ts[b]))] = int(b - a + 1)
+    per_alert = {}
+    for n, _kind, at, topic, _b, avec in alerts:
+        ts, vecs = index.get(topic, (np.zeros(0, np.int64), None))
+        lo, hi = np.searchsorted(ts, at + TEMPORAL_JOIN[0]), np.searchsorted(ts, at + TEMPORAL_JOIN[1], side="right")
+        if hi > lo:
+            per_alert[n] = (int(hi - lo), float((vecs[lo:hi] @ avec).max()))
+    for windows in (sliding, hourly):
+        for key, g in windows.groups.items():
+            g[1] = windows.vsum(key)
+    return {"sliding": sliding.groups, "dropped": sliding.dropped, "dropped_event_major": event_major.dropped,
+            "peak_held": sliding.peak_held,
+            "hourly": hourly.groups, "hourly_changes": [c for c in hourly_changes if c],
+            "sessions": sessions, "alerts": per_alert, "answers": answers}
+
+
+def temporal_checks(run: dict, replay: dict) -> dict:
+    """The run's final tables and change streams against the replay's:
+    the number of each mismatch, and the largest relative errors."""
+    def rel(a, b) -> float:
+        return float(np.linalg.norm(np.asarray(a, np.float64) - b) / max(np.linalg.norm(b), 1e-30))
+
+    sliding = {(r["topic"], r["start"], r["end"]): r for r in run["sliding"].values()}
+    want = replay["sliding"]
+    bad = [k for k in want if k not in sliding or (sliding[k]["count"], sliding[k]["tmin"], sliding[k]["tmax"])
+           != (want[k][0], want[k][2], want[k][3])]
+    out = {"sliding_windows": len(sliding), "sliding_mismatched": len(bad) + len(set(sliding) - set(want)),
+           "sliding_sum_rel": max((rel(sliding[k]["vsum"], want[k][1]) for k in want if k in sliding), default=0.0)}
+    hourly = {(r["topic"], r["start"], r["end"]): r for r in run["hourly"].values()}
+    out["hourly_windows"] = len(hourly)
+    out["hourly_mismatched"] = sum(1 for k, g in replay["hourly"].items() if k not in hourly or hourly[k]["count"] != g[0]) \
+        + len(set(hourly) - set(replay["hourly"]))
+    out["hourly_sum_rel"] = max((rel(hourly[k]["vsum"], g[1]) for k, g in replay["hourly"].items() if k in hourly),
+                                default=0.0)
+    by_time: dict = {}
+    for _key, row, time_, add in run["hourly_stream"]:
+        by_time.setdefault(time_, []).append(((row["topic"], row["start"], row["end"]), row["count"], 1 if add else -1))
+    out["hourly_stream_equal"] = [sorted(by_time[t]) for t in sorted(by_time)] == replay["hourly_changes"]
+    out["hourly_retractions"] = sum(1 for *_r, add in run["hourly_stream"] if not add)
+    sessions = {(r["topic"], r["start"], r["end"]): r["count"] for r in run["sessions"].values()}
+    out["sessions"] = len(sessions)
+    out["sessions_equal"] = sessions == replay["sessions"]
+    alerts = {r["alert"]: (r["pairs"], r["best"]) for r in run["alerts"].values()}
+    out["alerts_with_pairs"] = len(alerts)
+    out["alert_pairs"] = sum(c for c, _b in alerts.values())
+    out["alert_counts_equal"] = {n: c for n, (c, _b) in alerts.items()} == {n: c for n, (c, _b) in replay["alerts"].items()}
+    out["alert_best_err"] = max((abs(alerts[n][1] - b) for n, (_c, b) in replay["alerts"].items() if n in alerts),
+                                default=0.0)
+    answers = {r["q"]: (r["qtopic"], r["start"], r["end"], r["score"]) for r in run["answers"].values()}
+    out["answers"] = len(answers)
+    out["answers_revised"] = sum(1 for *_r, add in run["answers_stream"] if not add)
+    out["answer_windows_equal"] = {q: a[:3] for q, a in answers.items()} == \
+        {q: a[:3] for q, a in replay["answers"].items()}
+    out["answer_score_err"] = max((abs(answers[q][3] - a[3]) for q, a in replay["answers"].items() if q in answers),
+                                  default=0.0)
+    return out
+
+
+def temporal_phase(device, seed: int, checked: dict) -> dict:
+    """Phase 7c: the temporal slice at full BGE-base width: ``pw.temporal``'s
+    windows, behaviors and time joins over a live topic stream fed by
+    ``pw.io.python.read``, through ``pw.run``, held to a plain replay of the
+    epochs the run had.  ``checked`` gains the attention shapes the run gave
+    the kernel."""
+    import threading
+
+    t_setup = time.perf_counter()
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.engine import dataflow as df
+    from pathway_tpu_torch.internals import vector_compiler as vc
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    if native.get() is None:
+        fail("temporal: the native core did not load")
+    embedder = SentenceTransformerEmbedder(TEMPORAL_MODEL)
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, seed))  # seeded weights at full width
+    batches = temporal_stream(TEMPORAL_EVENTS, TEMPORAL_COMMITS, TEMPORAL_ALERTS, TEMPORAL_QUESTIONS, seed + 601)
+    enc.encode([row["text"] for row in batches[-1]])  # warm-up, outside the counted run
+    setup_s = time.perf_counter() - t_setup
+
+    progress = threading.Condition()
+    seen = {"batch": -1, "epoch_max": -1}
+    commit_at: list[float] = []
+    stalled: list[str] = []
+
+    class Topics(pw.io.python.ConnectorSubject):
+        """Each commit waits until the run has taken it into an epoch: a
+        producer that reads its log as fast as the pipeline keeps up."""
+
+        def run(self):
+            for b, rows in enumerate(batches):
+                for row in rows:
+                    self.next(**row)
+                self.commit()
+                commit_at.append(time.perf_counter())
+                with progress:
+                    if not progress.wait_for(lambda: seen["batch"] >= b, timeout=TEMPORAL_WAIT_S):
+                        stalled.append(f"commit {b} reached no epoch in {TEMPORAL_WAIT_S} s")
+                        break
+            self.close()
+
+    stream = pw.io.python.read(Topics(), schema=temporal_schema(pw))
+    tables = temporal_program(pw, stream, embedder)
+    arrivals: list[tuple] = []  # (time, n, kind, t, topic, batch, vec) in delivery order
+    captured = {name: [] for name in tables if name != "embedded"}
+    epoch_end: dict[int, float] = {}  # sliding output's epochs: time -> wall clock at on_time_end
+
+    def on_embedded(key, row, time, is_addition):
+        arrivals.append((time, row["n"], row["kind"], row["t"], row["topic"], row["batch"], row["vec"]))
+        seen["epoch_max"] = max(seen["epoch_max"], row["batch"])
+
+    def on_embedded_epoch(time):
+        with progress:
+            seen["batch"] = max(seen["batch"], seen["epoch_max"])
+            progress.notify_all()
+
+    pw.io.subscribe(tables["embedded"], on_change=on_embedded, on_time_end=on_embedded_epoch)
+    for name in captured:
+        pw.io.subscribe(tables[name], on_change=lambda key, row, time, is_addition, out=captured[name]:
+                        out.append((key, row, time, is_addition)),
+                        on_time_end=(lambda time: epoch_end.__setitem__(time, _now())) if name == "sliding" else None)
+
+    sizes: list[int] = []
+    process = embedder._batcher.process_batch
+
+    def counted(items):
+        sizes.append(len(items))
+        return process(items)
+
+    embedder._batcher.process_batch = counted
+    scopes: list = []
+    held_peak: dict[int, int] = {}
+    run_epoch, buffer_step = df.Scope.run_epoch, df.BufferNode.step
+
+    def first_scope(scope, time_):
+        if not scopes:
+            scopes.append(scope)
+        return run_epoch(scope, time_)
+
+    def peak_buffer(node, time_):
+        try:
+            return buffer_step(node, time_)
+        finally:
+            held_peak[node.id] = max(held_peak.get(node.id, 0), len(node._held))
+
+    seen_shapes: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen_shapes)]
+    events, remove_events = forward_events(enc)
+    bails_before = dict(vc.BAIL_COUNTS)
+    df.Scope.run_epoch, df.BufferNode.step = first_scope, peak_buffer
+    # ---- the counted run: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen_shapes.clear()
+    before = rail_state(device)
+    try:
+        t0 = time.perf_counter()
+        result = pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+        wall_s = time.perf_counter() - t0
+    finally:
+        df.Scope.run_epoch, df.BufferNode.step = run_epoch, buffer_step
+        embedder._batcher.process_batch = process
+        pw.G.clear()
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted run ----
+    t_after = time.perf_counter()
+    device_ms = events_ms(events)
+    for h in hooks:
+        h.remove()
+    remove_events()
+    rail = rail_gate("temporal", device, before)
+    if stalled:
+        fail(f"temporal: {stalled[0]}")
+
+    # the run's graph: node host time by class, the behaviors' nodes
+    nodes = scopes[0].nodes if scopes else []
+    node_ms: dict[str, float] = {}
+    for node in nodes:
+        node_ms[type(node).__name__] = node_ms.get(type(node).__name__, 0.0) + node.step_seconds * 1e3
+    buffers = [n for n in nodes if isinstance(n, df.BufferNode)]
+    sliding_buffer = [n for n in buffers if isinstance(n.inputs[0], df.ConcatNode)
+                      and len(n.inputs[0].inputs) == TEMPORAL_SPAN // TEMPORAL_HOP
+                      and all(isinstance(b, df.SaltRekeyNode) for b in n.inputs[0].inputs)]
+    freezes = {n.inputs[0].id: n for n in nodes if isinstance(n, df.FreezeNode)}
+    temporal_nodes = {f"{type(n).__name__}#{n.id}<{type(n.inputs[0]).__name__}": {
+                      "vec_batches": n.vec_batches, "row_batches": n.row_batches, "ms": n.step_seconds * 1e3}
+                      for n in nodes if isinstance(n, (df.BufferNode, df.FreezeNode, df.GroupByNode))}
+    dropped = [freezes[b.id].rows_in - freezes[b.id].rows_out for b in sliding_buffer if b.id in freezes]
+
+    def lineage(node, depth: int = 4) -> str:
+        names = []
+        while node is not None and len(names) < depth:
+            names.append(f"{type(node).__name__}#{node.id}")
+            node = node.inputs[0] if node.inputs else None
+        return "<".join(names)
+
+    top_nodes = {lineage(n): {"ms": n.step_seconds * 1e3, "rows_in": n.rows_in, "rows_out": n.rows_out}
+                 for n in sorted(nodes, key=lambda n: -n.step_seconds)[:10]}
+    bails = {f"{op}:{reason}": n - bails_before.get((op, reason), 0) for (op, reason), n in vc.BAIL_COUNTS.items()
+             if n != bails_before.get((op, reason), 0)}
+
+    # the replay, on the epochs the run had
+    by_time: dict[int, list] = {}
+    for time_, *row in arrivals:
+        by_time.setdefault(time_, []).append(tuple(row))
+    epochs = [by_time[t] for t in sorted(by_time)]
+    t_check = time.perf_counter()
+    replay = temporal_replay(epochs)
+    run = {name: final_rows(rows) for name, rows in captured.items()}
+    run["hourly_stream"], run["answers_stream"] = captured["hourly"], captured["answers"]
+    res = temporal_checks(run, replay)
+    res["dropped_run"], res["dropped_replay"] = sum(dropped), replay["dropped"]
+    res["dropped_replay_event_major"] = replay["dropped_event_major"]
+
+    # the embeddings against the plain attention path
+    rng = np.random.default_rng(seed + 607)
+    event_rows = [row for rows in batches for row in rows if row["kind"] == "event"]
+    sample = [event_rows[i] for i in rng.choice(len(event_rows), size=TEMPORAL_PLAIN, replace=False)]
+    got = {n: vec for _t, n, _k, _tt, _top, _b, vec in arrivals}
+    plain = plain_embeddings(enc, [row["text"] for row in sample], device)
+    mine = np.stack([got[row["n"]] for row in sample])
+    cos = (plain * mine).sum(1) / (np.linalg.norm(plain, axis=1) * np.linalg.norm(mine, axis=1))
+    check_s = time.perf_counter() - t_check
+
+    # throughput and latency: commit -> the first sliding update at or after the commit's epoch
+    landed = {}
+    for time_, _n, _k, _t, _top, b, _v in arrivals:
+        landed.setdefault(b, time_)
+    updates = sorted(t for t in epoch_end if any(d[2] == t for d in captured["sliding"]))
+    event_batches = [b for b, rows in enumerate(batches) if rows and rows[0]["kind"] != "question"]
+    latency = []
+    for b in event_batches:
+        after = [t for t in updates if t >= landed.get(b, float("inf"))]
+        if after:
+            latency.append((epoch_end[after[0]] - commit_at[b]) * 1e3)
+    n_events = len(event_rows)
+    span_s = (epoch_end[updates[-1]] - commit_at[0]) if updates else float("nan")
+    res.update({
+        "events": n_events, "alerts": TEMPORAL_ALERTS, "questions": TEMPORAL_QUESTIONS, "commits": len(batches),
+        "epochs": result.epochs, "input_epochs": len(epochs), "wall_ms": wall_s * 1e3, "setup_s": setup_s,
+        "check_s": check_s, "after_run_s": t_check - t_after, "events_per_s": n_events / span_s,
+        "commit_to_window_ms": percentiles(latency) if latency else {},
+        "host_ms_per_epoch_by_node": {k: v / max(result.epochs, 1) for k, v in sorted(node_ms.items(), key=lambda kv: -kv[1])},
+        "top_nodes": top_nodes, "behavior_nodes": temporal_nodes, "peak_buffered": {f"buffer{i}": held_peak.get(b.id, 0) for i, b in enumerate(buffers)},
+        "peak_buffered_replay": replay["peak_held"], "columnar_bails": bails,
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / (wall_s * 1e3), "batches": len(sizes),
+        "batch_sizes": {int(s): sizes.count(s) for s in sorted(set(sizes))}, "texts_embedded": sum(sizes),
+        "min_cos_vs_plain": float(cos.min()), "sliding_branches": len(sliding_buffer), "launches": launches,
+    })
+    log("temporal", **{k: v for k, v in res.items() if k != "launches"}, kernel_launches=launches)
+    if len(latency) != len(event_batches):
+        fail(f"temporal: {len(event_batches) - len(latency)} commits of events never showed in the sliding windows")
+    if len(sliding_buffer) != 1:
+        fail("temporal: the sliding windows were not assigned by the columnar branches (a flatten path ran)")
+    if res["min_cos_vs_plain"] <= COS_MIN:
+        fail(f"temporal: embeddings against the plain attention path, min cosine {res['min_cos_vs_plain']}")
+    if res["sliding_mismatched"] or res["sliding_sum_rel"] > TEMPORAL_REL or res["dropped_run"] != res["dropped_replay"]:
+        fail(f"temporal: sliding windows against the replay: {res['sliding_mismatched']} mismatched, vector sums "
+             f"{res['sliding_sum_rel']} relative, dropped {res['dropped_run']} against {res['dropped_replay']}")
+    if res["hourly_mismatched"] or res["hourly_sum_rel"] > TEMPORAL_REL or not res["sessions_equal"]:
+        fail(f"temporal: hourly windows {res['hourly_mismatched']} mismatched (sums {res['hourly_sum_rel']}), "
+             f"sessions equal {res['sessions_equal']}")
+    if not res["hourly_stream_equal"]:
+        fail("temporal: the exactly-once hourly stream is not the replay's, epoch by epoch")
+    if not res["alert_counts_equal"] or res["alert_best_err"] > TEMPORAL_REL:
+        fail(f"temporal: interval join counts equal {res['alert_counts_equal']}, best dot off by {res['alert_best_err']}")
+    if not res["answer_windows_equal"] or res["answer_score_err"] > TEMPORAL_REL or res["answers_revised"]:
+        fail(f"temporal: as-of-now answers name the replay's windows {res['answer_windows_equal']}, scores off by "
+             f"{res['answer_score_err']}, {res['answers_revised']} revised")
+    expected = sum(seen_shapes.values())
+    if launches["encoder_attention"] != expected or not expected:
+        fail(f"temporal: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen_shapes})")
+    gen = torch.Generator(device=device).manual_seed(seed + 611)
+    t_shapes = time.perf_counter()
+    for shape in sorted(set(seen_shapes) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("temporal", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen_shapes.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen_shapes)},
+        check_s=time.perf_counter() - t_shapes)
+    return {"launches": launches, "attention_launches": dict(seen_shapes), "rail": rail, **res}
 
 
 # ---------------------------------------------------------------------------
@@ -4104,14 +4678,14 @@ def sharded_phase(device, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 VS_MODEL = "all-MiniLM-L6-v2"
-VS_FILES = 8192  # 16,384 passed the script's time limit with [hybrid] beside it (PERF.md section 5)
+VS_FILES = 4096  # 16,384, then 8,192 passed the script's time limit with the later phases (PERF.md section 4)
 VS_WORDS = (100, 1000)
-VS_BATCHES = 32  # per traffic stage, one commit each
+VS_BATCHES = 16  # per traffic stage, one commit each
 VS_QUERIES = 64
 VS_K = 10
 VS_QUERY_WORDS = (8, 32)
-VS_NEW, VS_DELETED, VS_REWRITTEN = 512, 256, 256
-VS_BURSTS = 16  # the live changes, in bursts VS_BURST_GAP_S apart
+VS_NEW, VS_DELETED, VS_REWRITTEN = 256, 128, 128
+VS_BURSTS = 8  # the live changes, in bursts VS_BURST_GAP_S apart
 VS_BURST_GAP_S = 0.25
 VS_CHUNK_WORDS = 500  # TokenCountSplitter's max_tokens; the corpus has no sentence ends to break at
 VS_WAIT_S = 300.0  # the longest any stage may wait on the run
@@ -4611,13 +5185,14 @@ RAG_TEMPLATE = ('Use the below articles to answer the subsequent question. If th
 @dataclasses.dataclass(frozen=True)
 class RagSizes:
     """The ``[rag]`` phase's scale (the defaults: BASELINE.md's Adaptive RAG
-    configuration at full width)."""
+    configuration at full width, its depth cut to keep the script inside
+    its time limit, PERF.md section 4)."""
 
-    files: int = 4096
+    files: int = 2048
     words: tuple = (100, 1000)  # words per file
-    questions: int = 32  # each sent to /v1/pw_ai_answer and to /v1/retrieve
+    questions: int = 16  # each sent to /v1/pw_ai_answer and to /v1/retrieve
     question_words: tuple = (8, 32)
-    summaries: int = 4
+    summaries: int = 2
     burst: int = 40  # past RAG_INFLIGHT + RAG_QUEUE
     model: str = "mistral-7b-instruct"
     new_tokens: int = 64
@@ -5252,18 +5827,18 @@ HY_WAIT_S = 300.0  # the longest any stage may wait on the run
 @dataclasses.dataclass(frozen=True)
 class HybridSizes:
     """The ``[hybrid]`` phase's scale (the defaults: BASELINE.md's fourth
-    configuration at full width, half ``[rag]``'s corpus and a cut
-    question count: at 4,096 files and 512 questions the phase took
-    184.1-349.6 s, and the script passed its limit, PERF.md section 5)."""
+    configuration at full width, a quarter of its corpus and question
+    count: at 4,096 files and 512 questions the phase took 184.1-349.6 s,
+    and the script passed its limit, PERF.md sections 4-5)."""
 
-    files: int = 2048
+    files: int = 1024
     words: tuple = (100, 1000)  # words per file
-    questions: int = 256
+    questions: int = 128
     commits: int = 4  # the questions arrive in this many commits
     question_words: tuple = (8, 32)
     k: int = 16  # retrieve_query's k: each inner index fetches 48
-    deleted: int = 128  # files whose chunks the change deletes
-    rewritten: int = 128  # files the change rewrites with new text
+    deleted: int = 64  # files whose chunks the change deletes
+    rewritten: int = 64  # files the change rewrites with new text
 
 
 def zipf_texts(n: int, seed: int, words_per_text: tuple[int, int]):
@@ -6081,6 +6656,10 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["dataflow"] = dataflow_phase(device, args.seed, checked)
         seconds["dataflow"] = time.perf_counter() - t_phase
+    if "temporal" not in skip:
+        t_phase = time.perf_counter()
+        phases["temporal"] = temporal_phase(device, args.seed, checked)
+        seconds["temporal"] = time.perf_counter() - t_phase
     parallel_texts = texts[:LONG_TEXTS]
     del texts, lengths
     # the decoder phases and the multimodal encoder, one model on the card at a time

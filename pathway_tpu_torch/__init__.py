@@ -32,7 +32,10 @@ connectors (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``,
 ``BruteForceKnn`` on the device, or the host's HNSW, BM25 and their
 reciprocal-rank fusion), ``pw.ml``, ``pw.stateful``, ``pw.statistical``,
 ``pw.ordered`` and ``pw.utils`` the small modules of the standard library,
-and ``xpacks.llm`` the LLM xpack (``VectorStoreServer``, ``DocumentStore``,
+``pw.temporal`` the event-time windows, behaviors and time joins,
+``pw.graphs`` the graph algorithms over ``iterate``, ``pw.viz`` the
+notebook widgets, ``pw.demo`` the synthetic streams, and ``xpacks.llm``
+the LLM xpack (``VectorStoreServer``, ``DocumentStore``,
 rerankers and the question answerers).
 """
 
@@ -102,9 +105,15 @@ from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals import universes
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
-from pathway_tpu_torch import debug, io, udfs
+
+# datetime convenience types (pw.DateTimeNaive etc.); defined before the
+# subpackages, whose time_utils reads pw.DateTimeUtc while this package loads
+DateTimeNaive = _datetime.datetime
+DateTimeUtc = _datetime.datetime
+Duration = _datetime.timedelta
+
+from pathway_tpu_torch import debug, demo, io, udfs
 from pathway_tpu_torch.stdlib import (
-    LATER as _TEMPORAL_SLICE,
     graphs,
     indexing,
     ml,
@@ -115,13 +124,15 @@ from pathway_tpu_torch.stdlib import (
     utils,
     viz,
 )
+from pathway_tpu_torch.stdlib.temporal import (
+    AsofJoinResult,
+    IntervalJoinResult,
+    WindowJoinResult,
+    windowby,
+)
+from pathway_tpu_torch.stdlib.temporal import _window as window
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
-
-# datetime convenience types (pw.DateTimeNaive etc.)
-DateTimeNaive = _datetime.datetime
-DateTimeUtc = _datetime.datetime
-Duration = _datetime.timedelta
 
 
 class Type:
@@ -142,24 +153,14 @@ class Type:
     PY_OBJECT_WRAPPER = _dt.PY_OBJECT_WRAPPER
 
 
-def _temporal_method(name: str):
-    def later(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Table.{name} needs stdlib/temporal, which the port brings in "
-            f"{_TEMPORAL_SLICE}"
-        )
-
-    later.__name__ = name
-    return later
-
-
-# the stdlib-defined Table methods, attached as the JAX package attaches them
+# the stdlib-defined Table methods, attached as the JAX package attaches
+# them, keeping table.py free of temporal imports
 for _name in (
     "windowby", "asof_join", "asof_join_left", "asof_join_right", "asof_join_outer",
     "asof_now_join", "interval_join", "interval_join_left", "interval_join_right",
     "interval_join_outer", "window_join",
 ):
-    setattr(Table, _name, _temporal_method(_name))
+    setattr(Table, _name, getattr(temporal, _name))
 Table.interpolate = lambda self, *args, **kwargs: statistical.interpolate(self, *args, **kwargs)
 
 from pathway_tpu_torch.device import resolve_device
@@ -200,6 +201,9 @@ __all__ = [
     "Type",
     "UDF",
     "AsyncTransformer",
+    "AsofJoinResult",
+    "IntervalJoinResult",
+    "WindowJoinResult",
     "apply",
     "apply_async",
     "apply_with_type",
@@ -209,6 +213,7 @@ __all__ = [
     "column_definition",
     "debug",
     "declare_type",
+    "demo",
     "fill_error",
     "global_error_log",
     "groupby",
@@ -249,6 +254,8 @@ __all__ = [
     "unwrap",
     "utils",
     "viz",
+    "window",
+    "windowby",
     "wrap_py_object",
     "BruteForceKnnIndex",
     "CrossEncoder",

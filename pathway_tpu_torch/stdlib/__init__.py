@@ -1,22 +1,18 @@
 """Standard library of the PyTorch port (parity: ``pathway_tpu/stdlib``):
-indexing, ml, ordered, stateful, statistical, utils.  ``temporal``,
-``graphs`` and ``viz`` are stand-ins that raise ``NotImplementedError`` on
-use, naming the temporal slice, which brings them."""
+graphs, indexing, ml, ordered, stateful, statistical, temporal, utils,
+viz."""
 
-from pathway_tpu_torch.io import _LaterSlice
 from pathway_tpu_torch.stdlib import (
+    graphs,
     indexing,
     ml,
     ordered,
     stateful,
     statistical,
+    temporal,
     utils,
+    viz,
 )
-
-LATER = "the temporal slice (stdlib/temporal, graphs, viz)"
-graphs = _LaterSlice("pw.graphs", LATER)
-temporal = _LaterSlice("pw.temporal", LATER)
-viz = _LaterSlice("pw.viz", LATER)
 
 __all__ = [
     "graphs",

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import math
 import os
-import pickle
 import subprocess
 import sys
 
@@ -63,9 +62,7 @@ def python_core_run(tmp_path_factory):
     """Every program of the port under ``PATHWAY_NATIVE=0``, started in a
     subprocess at the module's first test and read when first needed."""
     out = tmp_path_factory.mktemp("python_core") / "deltas.pkl"
-    env = dict(os.environ, PATHWAY_NATIVE="0", PYTHONPATH=REPO)
-    proc = subprocess.Popen([sys.executable, "-m", "tests.torch_dataflow_programs", str(out)], cwd=REPO, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = P.spawn_python_core(out)
     yield proc, out
     if proc.poll() is None:
         proc.kill()
@@ -95,11 +92,7 @@ def build_race(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def python_core(python_core_run) -> dict:
-    proc, out = python_core_run
-    _, err = proc.communicate(timeout=120)
-    assert proc.returncode == 0, err[-3000:]
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    return P.python_core_result(*python_core_run)
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +126,6 @@ def test_row_path_matches_columnar(port, name):
 @pytest.mark.parametrize("columnar", list(PATHS), ids=list(PATHS.values()))
 @pytest.mark.parametrize("name", NAMES)
 def test_python_core_matches_native(port, python_core, name, columnar):
-    assert python_core["native_loaded"] is False
     assert python_core[columnar][name] == port[columnar][name]
 
 

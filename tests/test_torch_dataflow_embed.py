@@ -21,9 +21,7 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import pickle
-import subprocess
 import sys
 
 import jax
@@ -39,7 +37,6 @@ from pathway_tpu_torch.device import get_default_executor
 from pathway_tpu_torch.internals import vector_compiler as vc
 from tests import torch_dataflow_programs as P
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {
     "vocab_size": 1000,
     "hidden_size": 128,
@@ -74,10 +71,7 @@ def python_core_run(model, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("python_core_embed")
     with open(tmp / "params.pkl", "wb") as f:
         pickle.dump(params, f)
-    env = dict(os.environ, PATHWAY_NATIVE="0", PYTHONPATH=REPO)
-    proc = subprocess.Popen([sys.executable, "-m", "tests.torch_dataflow_programs", str(tmp / "out.pkl"), model_dir,
-                             str(tmp / "params.pkl")], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc = P.spawn_python_core(tmp / "out.pkl", model_dir, tmp / "params.pkl")
     yield proc, tmp / "out.pkl"
     if proc.poll() is None:
         proc.kill()
@@ -151,10 +145,5 @@ def test_row_path_matches_columnar(streams):
 
 @pytest.mark.parametrize("columnar", [True, False], ids=["columnar", "row"])
 def test_python_core_matches_native(python_core_run, streams, columnar):
-    proc, out = python_core_run
-    _, err = proc.communicate(timeout=120)
-    assert proc.returncode == 0, err[-3000:]
-    with open(out, "rb") as f:
-        got = pickle.load(f)
-    assert got["native_loaded"] is False
+    got = P.python_core_result(*python_core_run)
     _assert_same(got[columnar]["embedding"], streams[True])

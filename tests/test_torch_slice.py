@@ -173,7 +173,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     ``VectorStoreServer`` over ``SentenceTransformerEmbedder`` fed by
     ``pw.io.fs.read``, and a hybrid BM25 + HNSW ``DocumentStore`` answers
     it too; then the stdlib's small modules import and ``Table.diff``
-    runs."""
+    runs, and a sliding ``windowby``, ``pw.graphs.pagerank``,
+    ``pw.viz``'s ``show`` and a ``pw.demo.range_stream`` run in one
+    ``pw.run``."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -303,6 +305,18 @@ def test_port_imports_nothing_of_jax(model_dir):
         t.diff(pt.this.t, pt.this.v)._subscribe_raw(lambda key, row, time, diff: diffs.append(row[-1]))
         pt.run(monitoring_level=pt.MonitoringLevel.NONE)
         assert sorted(diffs, key=str) == [3, None], diffs
+        pt.G.clear()
+        from pathway_tpu_torch import demo, graphs, temporal, viz  # noqa: F401
+
+        win = t.windowby(pt.this.t, window=temporal.sliding(hop=1, duration=2)).reduce(n=pt.reducers.count())
+        e = pt.debug.table_from_markdown("u | v\\n1 | 2\\n2 | 1")
+        ranks = graphs.pagerank(e.select(u=e.pointer_from(pt.this.u), v=e.pointer_from(pt.this.v)), steps=3)
+        shown, stream = win.show(), demo.range_stream(nb_rows=3, input_rate=1e4, autocommit_duration_ms=5)
+        seen = []
+        stream._subscribe_raw(lambda key, row, time, diff: seen.append(row[0]))
+        ranks._subscribe_raw(lambda key, row, time, diff: None)
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        assert sorted(r[0] for r in shown.rows.values()) == [1, 1, 2] and seen == [0.0, 1.0, 2.0], (shown.rows, seen)
         pt.G.clear()
         fut = ex.submit(lambda: enc.encode(texts[:3]), name="direct")
         assert fut.result(timeout=60).shape == (3, enc.dimensions)

@@ -5,8 +5,7 @@ programs of ``tests/test_stdlib_misc.py`` for ``stateful``,
 ``statistical``, ``ordered`` and ``utils``, and ``ml``'s classifier,
 ``KNNIndex``, fuzzy match and HMM reducer, on seeded streams with several
 epochs) runs in both packages; their change streams are equal, keys,
-times and float bits included.  The temporal slice's names raise
-``NotImplementedError`` naming it.
+times and float bits included.
 """
 
 from __future__ import annotations
@@ -45,13 +44,6 @@ def test_deduplicate_and_diff_revise_their_rows():
     assert {t for t, _k, _d, _r in port["instance"]} > {2}
 
 
-@pytest.mark.parametrize("name", ["windowby", "asof_join", "interval_join"])
-def test_temporal_methods_raise_naming_their_slice(name):
-    t = tpw.debug.table_from_markdown("t | v\n1 | 2")
-    with pytest.raises(NotImplementedError, match="temporal slice"):
-        getattr(t, name)(t.t)
-
-
 DOCTESTED = ("stateful", "statistical", "ordered", "utils.async_transformer")
 
 
@@ -59,14 +51,4 @@ DOCTESTED = ("stateful", "statistical", "ordered", "utils.async_transformer")
 def test_copied_docstring_examples_run(module):
     """The ``>>>`` examples the port's stdlib modules carry over from the
     JAX package's (which ``tests/test_doctests.py`` runs there) run here."""
-    import doctest
-    import importlib
-
-    mod = importlib.import_module(f"pathway_tpu_torch.stdlib.{module}")
-    tests = [t for t in doctest.DocTestFinder(exclude_empty=True).find(mod) if t.examples]
-    assert tests
-    runner = doctest.DocTestRunner(optionflags=doctest.NORMALIZE_WHITESPACE)
-    for test in tests:
-        tpw.G.clear()
-        runner.run(test)
-    assert runner.failures == 0
+    assert progs.doctest_failures(tpw, f"stdlib.{module}") == 0

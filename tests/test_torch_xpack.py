@@ -13,8 +13,7 @@ one's Pallas attention in interpret mode) with its documents from
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
 raises ``NotImplementedError`` naming its slice (``run_server`` with the
-default ``with_cache=True`` needs the persistence of slice H4; ``pw.temporal``,
-``pw.graphs`` and ``pw.viz`` wait for the temporal slice).
+default ``with_cache=True`` needs the persistence of slice H4).
 """
 
 from __future__ import annotations
@@ -200,9 +199,6 @@ def deferred(name: str):
     calls = {
         "run_server_with_cache": lambda: llm.servers.BaseRestServer("127.0.0.1", 8000).run_server(),
         "io.kafka": lambda: tpw.io.kafka.read,
-        "temporal": lambda: tpw.temporal.tumbling,
-        "graphs": lambda: tpw.graphs.pagerank,
-        "viz": lambda: tpw.viz.plot,
     }
     with pytest.raises(NotImplementedError) as err:
         calls[name]()
@@ -210,8 +206,7 @@ def deferred(name: str):
 
 
 @pytest.mark.parametrize("name,later", [
-    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"), ("temporal", "temporal slice"),
-    ("graphs", "temporal slice"), ("viz", "temporal slice"),
+    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later):
     assert later in deferred(name)

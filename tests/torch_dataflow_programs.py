@@ -12,13 +12,17 @@ and float bits included.
 The embedding program is ``chip_smoke.py``'s ``[dataflow]`` program at a
 small size (:func:`capture_embedding`): an async UDF embeds each doc
 through the package's ``AsyncMicroBatcher`` over a sentence encoder, so
-its rows are held with tolerances where they carry vectors.
+its rows are held with tolerances where they carry vectors; so is
+``[temporal]``'s windowed topic monitor (:func:`capture_temporal_embedding`).
+The temporal slice's programs (windows, behaviors, time joins) and
+``pw.graphs``' are :func:`temporal_program` and :func:`graph_program`.
 
-Run as a script (``python -m tests.torch_dataflow_programs OUT [MODEL_DIR
-PARAMS]``), it captures every program of the port into the pickle ``OUT``
-under the environment it was started in, with the columnar path on and
-off; given the encoder's config directory and its weights (a pickle of
-numpy arrays), the embedding program alone.  The parity tests start it
+Run as a script (``python -m tests.torch_dataflow_programs OUT [SUITE |
+MODEL_DIR PARAMS]``), it captures every program of the port into the
+pickle ``OUT`` under the environment it was started in, with the columnar
+path on and off; given a suite (``temporal``, ``graphs``), that suite's
+programs; given the encoder's config directory and its weights (a pickle
+of numpy arrays), the embedding program alone.  The parity tests start it
 with ``PATHWAY_NATIVE=0`` for the pure-Python core.
 """
 
@@ -26,7 +30,11 @@ from __future__ import annotations
 
 import asyncio
 import datetime
+import functools
+import importlib
+import os
 import pickle
+import subprocess
 import sys
 
 import numpy as np
@@ -327,8 +335,6 @@ def capture_embedding(pw, encode, dim: int, executor=None) -> dict:
     """``{name: sorted [(time, key, diff, row)]}`` of the embedding
     program's tables, rows of plain values, with ``encode`` (a
     ``SentenceEncoder.encode``) behind the package's micro-batcher."""
-    import importlib
-
     import chip_smoke
 
     batching = importlib.import_module(pw.__name__ + ".utils.batching")
@@ -340,6 +346,38 @@ def capture_embedding(pw, encode, dim: int, executor=None) -> dict:
         deltas = pw.debug._capture_table(table).deltas
         out[name] = sorted(((t, int(k), d, tuple(plain(v) for v in r)) for k, r, t, d in deltas),
                            key=lambda e: e[:3])
+    return out
+
+
+TEMPORAL_BATCH = 64  # one forward an epoch: fewer shapes for the JAX encoder to compile
+# [temporal]'s input at a small size: 128 events over 6 hours in 8 commits, 16 alerts, 8 questions
+TEMPORAL_SIZES = dict(n_events=128, commits=8, n_alerts=16, n_questions=8, span=6 * 3600)
+
+
+def capture_temporal_embedding(pw, encode, executor=None) -> dict:
+    """``{name: [(time, key, diff, row)]}`` of the ``[temporal]`` program's
+    tables at a small size, in the order one ``pw.run`` delivered them,
+    rows as ``{column: plain value}``: its commits staged as epochs 2, 4,
+    ... by ``pw.debug.table_from_rows``, ``encode`` (a
+    ``SentenceEncoder.encode``) behind the package's micro-batcher."""
+    import chip_smoke
+
+    batching = importlib.import_module(pw.__name__ + ".utils.batching")
+    batcher = batching.AsyncMicroBatcher(encode, max_batch_size=TEMPORAL_BATCH, executor=executor)
+    schema = chip_smoke.temporal_schema(pw)
+    names = list(schema.__columns__)
+    batches = chip_smoke.temporal_stream(**TEMPORAL_SIZES, seed=SEED + 8)
+    rows = [tuple(row[n] for n in names) + (2 + 2 * b, 1) for b, batch in enumerate(batches) for row in batch]
+    stream = pw.debug.table_from_rows(schema, rows, is_stream=True)
+    tables = chip_smoke.temporal_program(pw, stream, chip_smoke.embedding_udf(pw, batcher.submit))
+    out = {name: [] for name in tables}
+    for name, table in tables.items():
+        table._subscribe_raw(lambda k, r, t, d, rows=out[name], cols=table.column_names():
+                             rows.append((t, int(k), d, dict(zip(cols, (plain(v) for v in r))))))
+    try:
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    finally:
+        pw.G.clear()
     return out
 
 
@@ -374,8 +412,6 @@ def port_kw(pw) -> dict:
 
 def sub(pw, name: str):
     """The package's submodule ``name`` (``"io._utils"``, ...)."""
-    import importlib
-
     return importlib.import_module(f"{pw.__name__}.{name}")
 
 
@@ -695,22 +731,261 @@ STDLIB_PROGRAMS = ("deduplicate", "interpolate", "diff", "diff_columns", "filter
                    "pandas_transformer", "knn_classifier", "knn_index", "fuzzy_match", "hmm")
 
 
+# ---------------------------------------------------------------------------
+# the temporal slice: windows, behaviors and time joins (tests/test_temporal*.py,
+# tests/test_window_columnar.py), and pw.graphs (tests/test_graphs_iterate.py)
+# ---------------------------------------------------------------------------
+
+EPOCHS = (2, 4, 6, 8, 10)
+
+
+def _timed(rng, n: int, span: int, offset: int = 0, late: float = 0.2) -> list:
+    """``n`` (event time, epoch) pairs: event times grow with the epoch, each
+    epoch covering ``span``, a share ``late`` of them two epochs behind."""
+    out = []
+    for _ in range(n):
+        e = int(rng.integers(0, len(EPOCHS)))
+        t = int(rng.integers(e * span, (e + 1) * span)) + offset
+        if rng.random() < late:
+            t -= 2 * span
+        out.append((t, EPOCHS[e]))
+    return out
+
+
+def _events(pw, rng, n: int = 60, span: int = 12, offset: int = 0):
+    """A stream (k, t, v) over ``EPOCHS`` with late rows, and a few rows
+    retracted two epochs after they came."""
+    rows = [(str(rng.choice(["a", "b", "c"])), t, int(rng.integers(-9, 10)), e, 1)
+            for t, e in _timed(rng, n, span, offset)]
+    rows += [(k, t, v, e + 4, -1) for k, t, v, e, _d in rows[::7] if e + 4 <= EPOCHS[-1]]
+    return _stream(pw, pw.schema_from_types(k=str, t=int, v=int), rows)
+
+
+def _reduce(pw, grouped):
+    return grouped.reduce(start=pw.this._pw_window_start, end=pw.this._pw_window_end, n=pw.reducers.count(),
+                          s=pw.reducers.sum(pw.this.v), lo=pw.reducers.min(pw.this.t), hi=pw.reducers.max(pw.this.t))
+
+
+def temporal_program(pw, name: str) -> dict:
+    """The temporal program ``name`` (a key of ``TEMPORAL_PROGRAMS``) in ``pw``."""
+    rng = np.random.default_rng(SEED + 80 + TEMPORAL_PROGRAMS.index(name))
+    tp = pw.temporal
+    if name in ("tumbling", "sliding", "session"):
+        t = _events(pw, rng, offset=-20 if name == "tumbling" else 0)
+        w = {"tumbling": {"plain": tp.tumbling(10), "origin": tp.tumbling(7, origin=3), "shift": tp.tumbling(9, shift=3)},
+             "sliding": {"branches": tp.sliding(hop=3, duration=9), "flatten": tp.sliding(hop=4, duration=10),
+                         "ratio": tp.sliding(hop=5, ratio=2), "origin": tp.sliding(hop=4, duration=8, origin=1)},
+             "session": {"gap": tp.session(max_gap=3), "predicate": tp.session(predicate=lambda a, b: b - a <= 2)}}[name]
+        out = {k: _reduce(pw, t.windowby(t.t, window=win)) for k, win in w.items()}
+        out.update({f"{k}:instance": _reduce(pw, t.windowby(t.t, window=win, instance=t.k)) for k, win in w.items()})
+        return out
+    if name == "intervals_over":
+        t = _events(pw, rng)
+        at = _stream(pw, pw.schema_from_types(at=int), [(int(a), e, 1) for a, e in _timed(rng, 6, 12, late=0)]
+                     + [(100, 4, 1)])
+        out = {}
+        for outer in (True, False):
+            win = tp.intervals_over(at=at.at, lower_bound=-5, upper_bound=5, is_outer=outer)
+            out[f"outer:{outer}"] = t.windowby(t.t, window=win).reduce(
+                at=pw.this._pw_window, n=pw.reducers.count(), s=pw.reducers.sum(pw.this.v))
+        win = tp.intervals_over(at=at.at, lower_bound=-3, upper_bound=0)
+        out["instance"] = t.windowby(t.t, window=win, instance=t.k).reduce(at=pw.this._pw_window, n=pw.reducers.count())
+        return out
+    if name == "datetime":
+        base = datetime.datetime(2024, 5, 1, 9, 0)
+        out = {}
+        for kind, tz in (("utc", datetime.timezone.utc), ("naive", None)):
+            rows = [(str(rng.choice(["a", "b"])), base.replace(tzinfo=tz) + datetime.timedelta(minutes=t), int(v), e, 1)
+                    for (t, e), v in zip(_timed(rng, 40, 25), rng.integers(0, 9, 40))]
+            typ = pw.DateTimeUtc if tz else pw.DateTimeNaive
+            t = _stream(pw, pw.schema_from_types(k=str, t=typ, v=int), rows)
+            minutes = datetime.timedelta(minutes=1)
+            for wname, win in (("tumbling", tp.tumbling(10 * minutes)),
+                               ("sliding", tp.sliding(hop=5 * minutes, duration=15 * minutes)),
+                               ("session", tp.session(max_gap=7 * minutes))):
+                out[f"{kind}:{wname}"] = _reduce(pw, t.windowby(t.t, window=win, instance=t.k))
+        return out
+    if name == "behaviors":
+        t = _events(pw, rng, n=80, span=8)
+        behaviors = {"delay": tp.common_behavior(delay=4), "cutoff": tp.common_behavior(cutoff=3),
+                     "delay_cutoff": tp.common_behavior(delay=2, cutoff=5),
+                     "forget": tp.common_behavior(cutoff=2, keep_results=False),
+                     "exactly_once": tp.exactly_once_behavior(), "exactly_once_shift": tp.exactly_once_behavior(shift=3)}
+        out = {k: _reduce(pw, t.windowby(t.t, window=tp.tumbling(10), instance=t.k, behavior=b))
+               for k, b in behaviors.items()}
+        out["sliding_delay_cutoff"] = _reduce(pw, t.windowby(t.t, window=tp.sliding(hop=4, duration=12),
+                                                             behavior=tp.common_behavior(delay=3, cutoff=4)))
+        out["session_cutoff"] = _reduce(pw, t.windowby(t.t, window=tp.session(max_gap=2),
+                                                       behavior=tp.common_behavior(cutoff=6)))
+        # a late row reaching an emitted window before the next one closes:
+        # the exactly-once output revises it, in both packages
+        late = _stream(pw, pw.schema_from_types(t=int, v=int), [(1, 1, 2, 1), (12, 1, 4, 1), (5, 1, 6, 1),
+                                                               (25, 1, 8, 1)])
+        out["exactly_once_late"] = _reduce(pw, late.windowby(late.t, window=tp.tumbling(10),
+                                                             behavior=tp.exactly_once_behavior()))
+        return out
+    quotes = _stream(pw, pw.schema_from_types(qt=int, ticker=str, price=int),
+                     [(t, str(rng.choice(["x", "y"])), int(rng.integers(90, 110)), e, 1)
+                      for t, e in _timed(rng, 30, 10)])
+    trades = _stream(pw, pw.schema_from_types(tt=int, ticker=str, qty=int),
+                     [(t, str(rng.choice(["x", "y"])), int(rng.integers(1, 50)), e, 1)
+                      for t, e in _timed(rng, 24, 10)] + [(13, "x", 7, 4, 1), (13, "x", 7, 8, -1)])
+    if name == "asof_join":
+        out = {}
+        for d in ("BACKWARD", "FORWARD", "NEAREST"):
+            direction = tp.Direction[d]
+            out[d] = trades.asof_join(quotes, trades.tt, quotes.qt, trades.ticker == quotes.ticker,
+                                      direction=direction).select(trades.tt, trades.qty, quotes.price)
+        out["left_defaults"] = tp.asof_join_left(trades, quotes, trades.tt, quotes.qt, trades.ticker == quotes.ticker,
+                                                 defaults={quotes.price: -1}).select(trades.tt, quotes.price)
+        out["right"] = trades.asof_join_right(quotes, trades.tt, quotes.qt).select(quotes.qt, trades.qty)
+        out["outer"] = trades.asof_join_outer(quotes, trades.tt, quotes.qt, trades.ticker == quotes.ticker).select(
+            trades.tt, quotes.price)
+        out["unkeyed"] = tp.asof_join(trades, quotes, trades.tt, quotes.qt).select(trades.qty, quotes.price)
+        return out
+    if name == "interval_join":
+        iv = tp.interval(-3, 2)
+        out = {}
+        for how in ("interval_join", "interval_join_left", "interval_join_right", "interval_join_outer"):
+            out[how] = getattr(trades, how)(quotes, trades.tt, quotes.qt, iv, trades.ticker == quotes.ticker).select(
+                trades.tt, trades.qty, quotes.qt, quotes.price)
+        out["unkeyed"] = tp.interval_join(trades, quotes, trades.tt, quotes.qt, tp.interval(0, 1)).select(
+            trades.qty, quotes.price)
+        return out
+    if name == "window_join":
+        out = {}
+        for how in ("window_join", "window_join_left", "window_join_right", "window_join_outer"):
+            fn = trades.window_join if how == "window_join" else functools.partial(getattr(tp, how), trades)
+            out[how] = fn(quotes, trades.tt, quotes.qt, tp.tumbling(8), trades.ticker == quotes.ticker).select(
+                trades.tt, trades.qty, quotes.qt, quotes.price)
+        out["sliding"] = tp.window_join(trades, quotes, trades.tt, quotes.qt, tp.sliding(hop=3, duration=6)).select(
+            trades.qty, quotes.price)
+        return out
+    if name == "asof_now_join":
+        rows = [(k, int(rng.integers(0, 99)), e, 1) for k, e in zip("abcab", (2, 2, 4, 6, 8))]
+        data = _stream(pw, pw.schema_from_types(k=str, v=int), rows + [(*rows[0][:2], 6, -1)])
+        queries = _stream(pw, pw.schema_from_types(qk=str), [(str(rng.choice(list("abcd"))), e, 1)
+                                                             for e in (2, 4, 4, 6, 8, 8, 10)] + [("a", 10, -1)])
+        return {"inner": queries.asof_now_join(data, queries.qk == data.k).select(queries.qk, data.v),
+                "left": tp.asof_now_join_left(queries, data, queries.qk == data.k).select(queries.qk, data.v)}
+    raise KeyError(name)
+
+
+TEMPORAL_PROGRAMS = ("tumbling", "sliding", "session", "intervals_over", "datetime", "behaviors", "asof_join",
+                     "interval_join", "window_join", "asof_now_join")
+
+
+def graph_program(pw, name: str) -> dict:
+    """The ``pw.graphs`` program ``name`` (a key of ``GRAPH_PROGRAMS``) in ``pw``."""
+    rng = np.random.default_rng(SEED + 95 + GRAPH_PROGRAMS.index(name))
+    names = [f"v{i}" for i in range(10)]
+    edge_s = pw.schema_from_types(u=str, v=str)
+    if name == "pagerank":
+        edges = [(str(rng.choice(names)), str(rng.choice(names))) for _ in range(24)]
+        static = pw.debug.table_from_rows(edge_s, list(dict.fromkeys((u, v) for u, v in edges if u != v)))
+        grown = _stream(pw, edge_s, [("A", "B", 2, 1), ("B", "A", 2, 1), ("C", "B", 4, 1), ("D", "C", 6, 1),
+                                     ("C", "B", 8, -1)])
+        return {"random": pw.graphs.pagerank(static, steps=20), "incremental": pw.graphs.pagerank(grown, steps=50)}
+    if name == "bellman_ford":
+        class Vertex(pw.Schema):
+            name: str = pw.column_definition(primary_key=True)
+            is_source: bool
+
+        vertices = pw.debug.table_from_rows(Vertex, [(n, n == "v0") for n in names])
+        pairs = {(str(rng.choice(names)), str(rng.choice(names))) for _ in range(20)}
+        labeled = _stream(pw, pw.schema_from_types(lu=str, lv=str, dist=float),
+                          [(u, v, float(rng.integers(1, 9)), 2 if i % 3 else 4, 1) for i, (u, v) in enumerate(sorted(pairs))])
+        edges = labeled.select(u=vertices.pointer_from(pw.this.lu), v=vertices.pointer_from(pw.this.lv),
+                               dist=pw.this.dist)
+        return {"distances": pw.graphs.bellman_ford(vertices, edges, iteration_limit=12)}
+    if name == "louvain":
+        cliques = [(f"{c}{i}", f"{c}{j}") for c in "ab" for i in range(3) for j in range(i + 1, 3)]
+        edges = pw.debug.table_from_rows(edge_s, cliques + [("a0", "b0")])
+        return {"two_cliques": pw.graphs.louvain_level(edges, iteration_limit=10)}
+    raise KeyError(name)
+
+
+GRAPH_PROGRAMS = ("pagerank", "bellman_ford", "louvain")
+SUITES = {"temporal": (TEMPORAL_PROGRAMS, temporal_program), "graphs": (GRAPH_PROGRAMS, graph_program)}
+
+
+def capture_suite(pw, suite: str) -> dict:
+    names, program = SUITES[suite]
+    return {name: capture(pw, program(pw, name)) for name in names}
+
+
+def capture_suite_paths(pw, suite: str) -> dict:
+    """``{columnar: capture_suite(pw, suite)}`` on the columnar path and the
+    row path of ``pw``."""
+    compiler = sub(pw, "internals.vector_compiler")
+    out = {}
+    for columnar in (True, False):
+        compiler.set_enabled(columnar)
+        try:
+            out[columnar] = capture_suite(pw, suite)
+        finally:
+            compiler.set_enabled(True)
+            pw.G.clear()
+    return out
+
+
+def spawn_python_core(out, *args) -> subprocess.Popen:
+    """This module as a script (``OUT *args``) under ``PATHWAY_NATIVE=0``:
+    the port's pure-Python core."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PATHWAY_NATIVE="0", PYTHONPATH=repo)
+    return subprocess.Popen([sys.executable, "-m", "tests.torch_dataflow_programs", str(out), *args], cwd=repo,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def python_core_result(proc: subprocess.Popen, out) -> dict:
+    """What ``spawn_python_core`` captured, once it has ended cleanly on
+    the pure-Python core."""
+    _, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err[-3000:]
+    with open(out, "rb") as f:
+        got = pickle.load(f)
+    assert got["native_loaded"] is False
+    return got
+
+
+def doctest_failures(pw, module: str) -> int:
+    """Run the ``>>>`` examples of ``pw``'s module ``module`` (the ones the
+    port carries over from the JAX package's); the number that failed.
+    Fails if the module has none."""
+    import doctest
+
+    mod = sub(pw, module)
+    tests = [t for t in doctest.DocTestFinder(exclude_empty=True).find(mod) if t.examples]
+    assert tests, module
+    runner = doctest.DocTestRunner(optionflags=doctest.NORMALIZE_WHITESPACE)
+    for test in tests:
+        pw.G.clear()
+        runner.run(test)
+    pw.G.clear()
+    return runner.failures
+
+
 def _capture_port_paths(out: str, model_dir: str | None = None, params_path: str | None = None) -> None:
-    """Every program of the port (or the embedding program alone) with the
-    columnar path on and off."""
+    """Every program of the port, one suite of ``SUITES`` (``model_dir``
+    naming it) or the embedding program alone, with the columnar path on
+    and off."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch import native
     from pathway_tpu_torch.device import get_default_executor
     from pathway_tpu_torch.internals import vector_compiler as vc
 
     enc = None
-    if model_dir is not None:
+    suite = model_dir if model_dir in SUITES else None
+    if model_dir is not None and suite is None:
         with open(params_path, "rb") as f:
             enc = port_encoder(model_dir, pickle.load(f))
     got = {"native_loaded": native.get() is not None}
     for columnar in (True, False):
         vc.set_enabled(columnar)
-        if enc is None:
+        if suite is not None:
+            got[columnar] = capture_suite(pw, suite)
+        elif enc is None:
             got[columnar] = {name: capture_program(pw, name) for name in PROGRAMS}
         else:
             got[columnar] = {"embedding": capture_embedding(pw, enc.encode, enc.dimensions,
