@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions, the
-   TF32 flags (set off explicitly);
+   TF32 flags (set off explicitly), whether ``ml_dtypes`` imports (a bf16
+   UDF result enters a column as its ``bfloat16`` array);
 2. build: every CUDA kernel of the port, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    bf16, at the reference shapes, the main path's and the kernel's edge
@@ -290,6 +291,40 @@ Phases, each on a line of its own; any failure exits non-zero:
    0.05·(max|ref|+1) of the plain path, the kept 5 its top 5 but at
    near-ties; ``NativeHnswIndex`` serving and the rail still.
 
+15d. persistence: one worker's storage path (``pw.persistence``, input
+   and operator snapshots, the UDF ``DiskCache``) at full
+   all-MiniLM-L6-v2 width with seeded weights.  ``resume``, in this
+   process: ``[dataflow]``'s program (an async ``pw.udf`` through
+   ``AsyncMicroBatcher``, the select, join and groupby) over
+   ``pw.io.jsonlines.read(mode="static", name="docs")`` of 16,384 texts
+   in 8 files; run 1 reads 6 files to a clean finish on a fresh root, 2
+   files are added and run 2 resumes on it, in ``PERSISTING`` (the UDF
+   under ``DiskCache``) and in ``OPERATOR_PERSISTING``; one unbroken run
+   over the 8 files without persistence is the reference.  Gated on run
+   2's net sink state against the unbroken run's (keys, ids, names and
+   counts exact, vectors at cosine > 0.999, scores and sums within 1e-2
+   and 1e-3 relative) and on run 2 embedding exactly the 4,096 texts run 1
+   did not, counted at the forwards: every replayed row a cache hit
+   (input mode), ``replay_into`` 0 and the input taking only the new rows
+   (operator mode); run 2's wall s against the unbroken run's, the bytes
+   and generations under the root, ``CommitMetrics`` and the forwards.
+   ``crash``, in two spawned children: ``VectorStoreServer(docs,
+   embedder=<async pw.udf under DiskCache over the
+   SentenceTransformerEmbedder batcher>, splitter=TokenCountSplitter())
+   .run_server(..., with_cache=True, cache_backend=filesystem(root))``
+   over ``pw.io.fs.read(mode="streaming", format="binary",
+   with_metadata=True)``: the corpus (1,024 files of ``[vector_store]``'s
+   generator) written in batches of 128, child 1 SIGKILLed once
+   ``/v1/statistics`` shows 512 files, 64 files added, child 2 started on
+   the same root; once it shows all 1,088 files, 64 ``/v1/retrieve``
+   queries at k 10, then it closes.  Gated on the answers against a direct
+   ``encode`` and f32 ``torch.topk`` (as phase 16), on child 2 embedding
+   exactly the chunks that had no cache entry when it started (keys
+   computed here by ``DiskCache._cache_key``) and the queries, and on both
+   children launching the kernel (their launches and shapes come back in
+   a JSON file each and join the kernel line); child 2's time to its first
+   answer and to a full index, the cache hit share, the chunks each child
+   embedded and the time from the kill to the answers;
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
    package's does): ``VectorStoreServer`` over
@@ -318,7 +353,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b and 15c (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b, 15c and 15d (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -859,7 +894,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "temporal", "generate", "moe", "speculative", "vision", "lora",
-             "train", "parallel", "sharded", "rag", "hybrid", "vector_store")
+             "train", "parallel", "sharded", "rag", "hybrid", "persistence", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -1699,22 +1734,21 @@ def dataflow_stream(texts, n_docs: int, epochs: int, changes: int, n_sources: in
     return {"rows": rows, "sources": names, "live": live, "retracted": retracted, "replaced": replaced}
 
 
-def embedding_udf(pw, submit):
+def embedding_udf(pw, submit, cache_strategy=None):
     """An async ``pw.udf`` over ``submit`` (a micro-batcher's), as
-    ``SentenceTransformerEmbedder`` builds it (xpacks/llm/embedders.py:50-80)."""
+    ``SentenceTransformerEmbedder`` builds it (xpacks/llm/embedders.py:50-80),
+    its results cached by ``cache_strategy`` when one is given."""
 
-    @pw.udf(executor=pw.udfs.async_executor(), deterministic=True)
+    @pw.udf(executor=pw.udfs.async_executor(), deterministic=True, cache_strategy=cache_strategy)
     async def embed(text: str) -> np.ndarray:
         return await submit(text)
 
     return embed
 
 
-def dataflow_program(pw, stream: dict, embed, query) -> dict:
-    """The ``[dataflow]`` Table program, for either package as ``pw``: the
-    docs embedded by ``embed``, scored against the unit vector ``query``,
-    joined with their source, and each source's count and score sum.
-    Returns ``{"docs": ..., "per_source": ...}``."""
+def dataflow_schemas(pw):
+    """The ``[dataflow]`` program's input schemas: docs keyed by ``doc_id``
+    and their sources keyed by ``source``."""
 
     class Doc(pw.Schema):
         doc_id: int = pw.column_definition(primary_key=True)
@@ -1725,7 +1759,18 @@ def dataflow_program(pw, stream: dict, embed, query) -> dict:
         source: int = pw.column_definition(primary_key=True)
         name: str
 
-    docs = pw.debug.table_from_rows(Doc, stream["rows"], is_stream=True)
+    return Doc, Source
+
+
+def dataflow_program(pw, stream: dict, embed, query, docs=None) -> dict:
+    """The ``[dataflow]`` Table program, for either package as ``pw``: the
+    docs (``stream["rows"]``, or the table ``docs``) embedded by ``embed``,
+    scored against the unit vector ``query``, joined with their source, and
+    each source's count and score sum.  Returns ``{"docs": ...,
+    "per_source": ...}``."""
+    Doc, Source = dataflow_schemas(pw)
+    if docs is None:
+        docs = pw.debug.table_from_rows(Doc, stream["rows"], is_stream=True)
     sources = pw.debug.table_from_rows(Source, stream["sources"])
     query = np.asarray(query, np.float32)
     vecs = docs.select(doc_id=pw.this.doc_id, source=pw.this.source, vec=embed(pw.this.text))
@@ -4674,6 +4719,657 @@ def sharded_phase(device, seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15d: persistence on one worker: stop and resume, kill and resume.
+# ---------------------------------------------------------------------------
+
+PERSIST_MODEL = "all-MiniLM-L6-v2"
+PERSIST_DOCS = 16384  # in PERSIST_FILES jsonlines files
+PERSIST_FILES = 8
+PERSIST_FIRST = 6  # files of run 1; the other 2 (4,096 texts) come before run 2
+PERSIST_SOURCES = 64
+PERSIST_SERVED = 1024  # part B's files, of [vector_store]'s generator
+PERSIST_SERVE_BATCH = 128  # files written at a time while child 1 ingests ...
+PERSIST_SERVE_GAP_S = 0.5  # ... this far apart
+PERSIST_KILL_AT = 512  # files indexed when child 1 is killed
+PERSIST_ADDED = 64  # files added before child 2
+PERSIST_QUERIES = 64
+PERSIST_K = 10
+PERSIST_WAIT_S = 300.0  # the longest any stage of part B may wait
+
+
+def persist_docs(seed: int) -> dict:
+    """Part A's input: ``PERSIST_DOCS`` texts of the main generator keyed by
+    ``doc_id`` with one of ``PERSIST_SOURCES`` source ids, split into
+    ``PERSIST_FILES`` files of consecutive ids."""
+    texts, _, _, _ = synthetic_corpus(PERSIST_DOCS, seed + 301)
+    if len(set(texts)) != len(texts):
+        fail("persistence: the seeded corpus repeats a text")
+    sources = np.random.default_rng(seed + 303).integers(0, PERSIST_SOURCES, size=PERSIST_DOCS)
+    per = PERSIST_DOCS // PERSIST_FILES
+    files = [[{"doc_id": i, "text": texts[i], "source": int(sources[i])} for i in range(f * per, (f + 1) * per)]
+             for f in range(PERSIST_FILES)]
+    names = [(s, f"source-{s:02d}") for s in range(PERSIST_SOURCES)]
+    return {"texts": texts, "files": files, "sources": names, "first": per * PERSIST_FIRST}
+
+
+def write_jsonlines(path: str, rows) -> None:
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+
+
+def root_bytes(root: str) -> dict:
+    """Bytes under a persistence root: the snapshots' and manifests', and the
+    UDF cache's as its entry count times one entry's size (every entry is
+    the pickle of one f32 vector of the model's width: one size), sparing a
+    stat of each of thousands of entries."""
+    cache = os.path.join(root, "udf_cache")
+    snap = sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(root)
+               if not d.startswith(cache) for n in names)
+    entries = []
+    for d, _, names in os.walk(cache):
+        entries += [os.path.join(d, n) for n in names]
+    one = os.path.getsize(entries[0]) if entries else 0
+    return {"root_bytes": snap + one * len(entries), "snapshot_bytes": snap, "cache_entries": len(entries),
+            "cache_entry_bytes": one}
+
+
+def net_rows(*streams) -> dict:
+    """``{key: row}`` after the change streams ``[(key, row, time, diff)]``
+    of consecutive runs, each applied in its own epoch order (as
+    :func:`final_rows` applies one)."""
+    live: dict = {}
+    for deltas in streams:
+        for key, row, _time, diff in sorted(deltas, key=lambda d: (d[2], d[3])):
+            if diff > 0:
+                live[key] = row
+            else:
+                live.pop(key, None)
+    return live
+
+
+class PersistProbe:
+    """What one Part A run did: the texts its forwards embedded, the
+    ``DiskCache`` hits and misses, the rows ``replay_into`` replayed, the
+    rows each ``InputNode`` took in, and the run's ``PersistentStorage``."""
+
+    def __init__(self, pw):
+        from pathway_tpu_torch.engine import dataflow as df
+        from pathway_tpu_torch.engine import persistence as pz
+        from pathway_tpu_torch.internals.udfs import caches
+
+        self.hits = self.misses = 0
+        self.cache_s = 0.0  # in DiskCache._get and _put
+        self.replayed: list = []
+        self.inserted = 0
+        self.storages: list = []
+        probe = self
+        self._saved = [(pz.PersistentStorage, "__init__"), (pz.PersistentStorage, "replay_into"),
+                       (df.InputNode, "insert"), (caches.DiskCache, "_get"), (caches.DiskCache, "_put")]
+        self._orig = [getattr(cls, name) for cls, name in self._saved]
+        init, replay, insert, get, put = self._orig
+
+        def init_(storage, *a, **kw):
+            init(storage, *a, **kw)
+            probe.storages.append(storage)
+
+        def replay_(storage, state, fn):
+            n = replay(storage, state, fn)
+            probe.replayed.append(n)
+            return n
+
+        def insert_(node, *a, **kw):
+            probe.inserted += 1
+            return insert(node, *a, **kw)
+
+        def get_(cache, key):
+            t0 = time.perf_counter()
+            hit, value = get(cache, key)
+            probe.cache_s += time.perf_counter() - t0
+            if hit:
+                probe.hits += 1
+            else:
+                probe.misses += 1
+            return hit, value
+
+        def put_(cache, key, value):
+            t0 = time.perf_counter()
+            put(cache, key, value)
+            probe.cache_s += time.perf_counter() - t0
+
+        for (cls, name), fn in zip(self._saved, (init_, replay_, insert_, get_, put_)):
+            setattr(cls, name, fn)
+
+    def close(self) -> None:
+        for (cls, name), fn in zip(self._saved, self._orig):
+            setattr(cls, name, fn)
+
+
+def persist_run(pw, data: dict, docs_dir: str, embed_fn, query, root: str | None, mode: str | None,
+                cached: bool) -> dict:
+    """One ``pw.run`` of the ``[dataflow]`` program over the jsonlines in
+    ``docs_dir`` (persisted on ``root`` in ``mode``, the UDF under
+    ``DiskCache`` when ``cached``): its change streams, wall s and probe."""
+    Doc, _Source = dataflow_schemas(pw)
+    docs = pw.io.jsonlines.read(docs_dir, schema=Doc, mode="static", name="docs")
+    embed = embedding_udf(pw, embed_fn, cache_strategy=pw.udfs.DiskCache() if cached else None)
+    tables = dataflow_program(pw, {"sources": data["sources"]}, embed, query, docs=docs)
+    captured = {name: [] for name in tables}
+    for name, table in tables.items():
+        table._subscribe_raw(lambda k, r, t, d, out=captured[name]: out.append((k, r, t, d)), name=f"persist:{name}")
+    config = None
+    if root is not None:
+        config = pw.persistence.Config(pw.persistence.Backend.filesystem(root),
+                                       persistence_mode=getattr(pw.PersistenceMode, mode))
+    probe = PersistProbe(pw)
+    try:
+        t0 = time.perf_counter()
+        pw.run(persistence_config=config, monitoring_level=pw.MonitoringLevel.NONE)
+        wall_s = time.perf_counter() - t0
+    finally:
+        probe.close()
+        pw.G.clear()
+    return {"streams": captured, "wall_s": wall_s, "probe": probe}
+
+
+def persist_state_check(live: dict, ref: dict) -> dict:
+    """A resumed run's net sink state against the unbroken run's: keys and
+    doc ids, names and counts exact; vectors at cosine > ``COS_MIN``;
+    scores and score sums (functions of the vectors) within
+    ``DATAFLOW_SUM_REL`` relative."""
+    out = {}
+    for name in ("docs", "per_source"):
+        got, want = live[name], ref[name]
+        out[f"{name}_keys_equal"] = sorted(got) == sorted(want)
+    docs, ref_docs = live["docs"], ref["docs"]
+    common = sorted(set(docs) & set(ref_docs))
+    a = np.stack([np.asarray(docs[k][2], np.float32) for k in common])
+    b = np.stack([np.asarray(ref_docs[k][2], np.float32) for k in common])
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    out["min_cos_vs_unbroken"] = float(cos.min())
+    out["ids_names_equal"] = all(docs[k][:2] == ref_docs[k][:2] for k in common)
+    out["max_score_err"] = max(abs(docs[k][3] - ref_docs[k][3]) for k in common)
+    groups, ref_groups = live["per_source"], ref["per_source"]
+    out["counts_equal"] = all(groups[k][:2] == ref_groups[k][:2] for k in groups if k in ref_groups)
+    out["max_sum_rel_err"] = max((abs(groups[k][2] - ref_groups[k][2]) / max(abs(ref_groups[k][2]), 1.0)
+                                  for k in groups if k in ref_groups), default=1.0)
+    return out
+
+
+def persist_resume_part(pw, enc, ex, data: dict, query, base: str) -> dict:
+    """Part A: run 1 over 6 files to a clean finish on a fresh root, 2 files
+    added, run 2 resumed on it, in ``PERSISTING`` (the UDF under
+    ``DiskCache``) and ``OPERATOR_PERSISTING``; one unbroken run over all 8
+    files without persistence is the reference.  Returns each mode's
+    report; fails on a gate."""
+    import asyncio
+
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    sink: list = []
+
+    def process(items):
+        sink.append(list(items))
+        return enc.encode(items)
+
+    batcher = AsyncMicroBatcher(process, max_batch_size=DATAFLOW_BATCH, executor=ex, name="persistence:embedder")
+
+    async def warm_up():
+        return await asyncio.gather(*(batcher.submit(t) for t in data["texts"][:512]))
+
+    asyncio.run(warm_up())
+    all_dir = os.path.join(base, "all")
+    os.makedirs(all_dir)
+    for f, rows in enumerate(data["files"]):
+        write_jsonlines(os.path.join(all_dir, f"part-{f}.jsonl"), rows)
+
+    def one(docs_dir, root, mode, cached):
+        sink.clear()
+        run = persist_run(pw, data, docs_dir, batcher.submit, query, root, mode, cached)
+        run["texts"] = [t for batch in sink for t in batch]
+        run["forwards"] = len(sink)
+        return run
+
+    unbroken = one(all_dir, None, None, False)
+    ref = {name: final_rows(deltas) for name, deltas in unbroken["streams"].items()}
+    first_texts = set(data["texts"][: data["first"]])
+    new_texts = set(data["texts"][data["first"]:])
+    reports = {"unbroken": {"wall_s": unbroken["wall_s"], "texts": len(unbroken["texts"]),
+                            "forwards": unbroken["forwards"]}}
+    for mode, cached in (("PERSISTING", True), ("OPERATOR_PERSISTING", False)):
+        docs_dir, root = os.path.join(base, mode, "docs"), os.path.join(base, mode, "root")
+        os.makedirs(docs_dir)
+        for f in range(PERSIST_FIRST):
+            write_jsonlines(os.path.join(docs_dir, f"part-{f}.jsonl"), data["files"][f])
+        run1 = one(docs_dir, root, mode, cached)
+        for f in range(PERSIST_FIRST, PERSIST_FILES):
+            write_jsonlines(os.path.join(docs_dir, f"part-{f}.jsonl"), data["files"][f])
+        run2 = one(docs_dir, root, mode, cached)
+        if mode == "PERSISTING":  # input snapshots: run 2 replays and re-emits the whole state
+            live = {name: final_rows(deltas) for name, deltas in run2["streams"].items()}
+        else:  # operator snapshots: run 2 emits the changes to run 1's state
+            live = {name: net_rows(run1["streams"][name], run2["streams"][name]) for name in run2["streams"]}
+        state = persist_state_check(live, ref)
+        p1, p2 = run1["probe"], run2["probe"]
+        storage = p2.storages[-1]
+        gens = storage.backend.list_keys("manifests/0/")
+        rep = {
+            "run1_wall_s": run1["wall_s"], "run2_wall_s": run2["wall_s"],
+            "run2_over_unbroken": run2["wall_s"] / unbroken["wall_s"],
+            **root_bytes(root), "generations_kept": len(gens), "generation": storage.generation,
+            "commit": storage.metrics.snapshot(),
+            "run1_texts": len(run1["texts"]), "run1_forwards": run1["forwards"],
+            "run2_texts": len(run2["texts"]), "run2_forwards": run2["forwards"],
+            "run2_replayed_rows": sum(p2.replayed), "run2_input_rows": p2.inserted,
+            "run2_cache_hits": p2.hits, "run2_cache_misses": p2.misses, "run1_cache_misses": p1.misses,
+            "run1_cache_s": p1.cache_s, "run2_cache_s": p2.cache_s,
+            **state,
+        }
+        log("persistence", part="resume", mode=mode, **rep)
+        reports[mode] = rep
+        # A1: the resumed net state is the unbroken run's
+        if not (state["docs_keys_equal"] and state["per_source_keys_equal"] and state["ids_names_equal"]
+                and state["counts_equal"]):
+            fail(f"persistence: {mode}: run 2's net state is not the unbroken run's: {state}")
+        if state["min_cos_vs_unbroken"] <= COS_MIN or state["max_sum_rel_err"] > DATAFLOW_SUM_REL \
+                or state["max_score_err"] > SCORE_TOL:
+            fail(f"persistence: {mode}: vectors or scores part from the unbroken run's: {state}")
+        # A2: run 2 embeds exactly the texts run 1 did not
+        if set(run1["texts"]) != first_texts or set(run2["texts"]) != new_texts - first_texts \
+                or len(run2["texts"]) != len(new_texts):
+            fail(f"persistence: {mode}: run 2 embedded {len(run2['texts'])} texts "
+                 f"({len(set(run2['texts']) - new_texts)} of run 1), not the {len(new_texts)} new ones")
+        if mode == "PERSISTING" and (p2.hits != sum(p2.replayed) or p2.hits != data["first"]
+                                     or p2.misses != len(new_texts)):
+            fail(f"persistence: {mode}: {sum(p2.replayed)} rows replayed, {p2.hits} cache hits, "
+                 f"{p2.misses} misses")
+        if mode == "OPERATOR_PERSISTING" and (sum(p2.replayed) or p2.inserted != len(new_texts)):
+            fail(f"persistence: {mode}: replay_into gave {p2.replayed}, the input took {p2.inserted} rows")
+    return reports
+
+
+def served_corpus(seed: int) -> dict:
+    """Part B's files (``[vector_store]``'s generator: 100-1,000 words, 500-word
+    chunks), their chunk texts, and the queries: 8-32 word spans of final
+    chunks with a quarter of the words swapped."""
+    n = PERSIST_SERVED + PERSIST_ADDED
+    texts, _lengths, ids, vocab = synthetic_corpus(n, seed + 311, words_per_text=VS_WORDS)
+    chunks = [" ".join(vocab[w] for w in words) for t in range(n) for words in plain_chunks(ids[t])]
+    chunk_words = [words for t in range(n) for words in plain_chunks(ids[t])]
+    rng = np.random.default_rng(seed + 313)
+    queries: list = []
+    known = set(chunks)
+    while len(queries) < PERSIST_QUERIES:  # distinct, and none a chunk's whole text
+        words = chunk_words[int(rng.integers(len(chunk_words)))]
+        k = min(int(rng.integers(VS_QUERY_WORDS[0], VS_QUERY_WORDS[1] + 1)), len(words))
+        start = int(rng.integers(0, len(words) - k + 1))
+        span = np.array(words[start : start + k])
+        swap = rng.random(k) < QUERY_SWAP
+        span[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+        text = " ".join(vocab[w] for w in span)
+        if text not in known:
+            known.add(text)
+            queries.append(text)
+    return {"texts": texts, "names": [f"doc{i:05d}.txt" for i in range(n)], "chunks": chunks, "queries": queries}
+
+
+def persistence_child(spec: dict) -> None:
+    """Part B's server, in a process of its own: ``VectorStoreServer`` over an
+    async ``pw.udf`` under ``DiskCache`` that awaits the
+    ``SentenceTransformerEmbedder`` batcher (MiniLM, seeded weights), fed by
+    a streaming ``pw.io.fs.read``, served with ``with_cache=True`` on the
+    persistence root once ``spec["go"]`` exists (child 1 is started early,
+    so its import and model load overlap part A; child 2's gate is open at
+    its start).  After each forward it writes its kernel launches,
+    their shapes and its counts to ``spec["report"]``; once
+    ``spec["stop"]`` exists it closes the server, writes the texts it
+    embedded and exits."""
+    entered = time.time()
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.xpacks.llm import VectorStoreServer
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+
+    embedder = SentenceTransformerEmbedder(PERSIST_MODEL, device=spec["device"])
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, spec["seed"]))
+    seen: dict = {}
+    record_launches(enc, seen)
+    texts: list = []
+    process = embedder._batcher.process_batch
+
+    def report(final: bool = False) -> None:
+        out = {"launches": encoder_attention.launches, "seen": [[list(k), v] for k, v in seen.items()],
+               "texts": len(texts), "pid": os.getpid(), "entered": entered, "serving": serving}
+        if final:
+            out["embedded"] = list(texts)
+        with open(spec["report"] + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(spec["report"] + ".tmp", spec["report"])
+
+    def counted(items):
+        out = process(items)
+        texts.extend(items)
+        report()  # after the forward: its launches and shapes agree
+        return out
+
+    embedder._batcher.process_batch = counted
+
+    @pw.udf(executor=pw.udfs.async_executor(), cache_strategy=pw.udfs.DiskCache(), deterministic=True)
+    async def embed(text: str) -> np.ndarray:
+        return await embedder._batcher.submit(text)
+
+    docs = pw.io.fs.read(spec["docs"], format="binary", mode="streaming", with_metadata=True)
+    server = VectorStoreServer(docs, embedder=embed, splitter=TokenCountSplitter(), device=spec["device"])
+    serving = time.time()  # the package imported and the model on the card
+    while not os.path.exists(spec["go"]):
+        time.sleep(0.02)
+    encoder_attention.launches = 0
+    seen.clear()
+    report()
+
+    def serve():
+        try:
+            server.run_server(spec["host"], spec["port"], with_cache=True,
+                              cache_backend=pw.persistence.Backend.filesystem(spec["root"]))
+        except BaseException:  # noqa: BLE001 - a failed run fails the child, and the phase with it
+            import traceback
+
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(3)
+
+    threading.Thread(target=serve, daemon=True, name="persistence:server").start()
+    while not os.path.exists(spec["stop"]):
+        time.sleep(0.05)
+    server._server.close()
+    report(final=True)
+    sys.stdout.flush()
+    os._exit(0)  # the streaming fs reader polls on: nothing else ends the run
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def served_files(corpus: dict, docs_dir: str, lo: int, hi: int) -> None:
+    for i in range(lo, hi):
+        with open(os.path.join(docs_dir, corpus["names"][i]), "w") as f:
+            f.write(corpus["texts"][i])
+
+
+def file_count(url: str) -> int | None:
+    """The files ``/v1/statistics`` reports indexed, or None without an answer."""
+    res = http_call(url + "/v1/statistics", {}, timeout=10.0)
+    if res["status"] != 200 or not isinstance(res.get("body"), dict):
+        return None
+    return int(res["body"].get("file_count", 0))
+
+
+def start_child(ctx, spec: dict):
+    proc = ctx.Process(target=persistence_child, args=(spec,), daemon=True)
+    proc.started = time.time()
+    proc.start()
+    return proc
+
+
+def wait_for(proc, fn, what: str, deadline_s: float = PERSIST_WAIT_S):
+    """Poll ``fn()`` until it returns a true value; fail if ``proc`` dies or
+    the deadline passes."""
+    t0 = _now()
+    while True:
+        got = fn()
+        if got:
+            return got
+        if not proc.is_alive():
+            fail(f"persistence: the server died (exit {proc.exitcode}) while waiting for {what}")
+        if _now() - t0 > deadline_s:
+            fail(f"persistence: no {what} within {deadline_s} s")
+        time.sleep(0.05)
+
+
+def read_report(path: str) -> dict:
+    with open(path) as f:
+        rep = json.load(f)
+    rep["seen"] = {tuple(k): v for k, v in rep["seen"]}
+    return rep
+
+
+def persist_children(seed: int, base: str, device) -> tuple:
+    """Part B's two servers' specs, and child 1 started: its import and
+    model load run while part A does, and it serves once its go file is
+    written."""
+    import multiprocessing
+
+    docs_dir, root = os.path.join(base, "served"), os.path.join(base, "served_root")
+    os.makedirs(docs_dir)
+    ctx = multiprocessing.get_context("spawn")
+    specs = []
+    for n in (1, 2):
+        specs.append({"seed": seed, "device": str(device), "docs": docs_dir, "root": root, "host": "127.0.0.1",
+                      "port": free_port(), "report": os.path.join(base, f"child{n}.json"),
+                      "stop": os.path.join(base, f"stop{n}"), "go": os.path.join(base, f"go{n}")})
+    return ctx, specs, start_child(ctx, specs[0])
+
+
+def persist_crash_part(pw, enc, seed: int, ctx, specs: list, child1, device) -> dict:
+    """Part B: child 1 serves the growing corpus and is SIGKILLed once 512
+    files are indexed; 64 files are added; child 2 resumes on the same root,
+    indexes all 1,088 files, answers 64 ``/v1/retrieve`` queries and closes.
+    Returns the report, the children's launch counts and shapes; fails on
+    a gate."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    corpus = served_corpus(seed)
+    docs_dir, root = specs[0]["docs"], specs[0]["root"]
+    url1 = f"http://127.0.0.1:{specs[0]['port']}"
+    # the statistics answer once documents exist: the first batch is there at the start
+    served_files(corpus, docs_dir, 0, PERSIST_SERVE_BATCH)
+    written = PERSIST_SERVE_BATCH
+    t_start1 = _now()
+    open(specs[0]["go"], "w").close()
+    try:
+        wait_for(child1, lambda: file_count(url1) is not None, "first answer of child 1")
+        up1_s = _now() - t_start1
+        while True:
+            if written < PERSIST_SERVED:
+                served_files(corpus, docs_dir, written, written + PERSIST_SERVE_BATCH)
+                written += PERSIST_SERVE_BATCH
+            t_batch = _now()
+            indexed = 0
+            while _now() - t_batch < PERSIST_SERVE_GAP_S:
+                indexed = file_count(url1) or 0
+                if indexed >= PERSIST_KILL_AT:
+                    break
+                time.sleep(0.05)
+            if indexed >= PERSIST_KILL_AT:
+                break
+            if not child1.is_alive() or _now() - t_start1 > PERSIST_WAIT_S:
+                fail(f"persistence: child 1 indexed {indexed} files (alive {child1.is_alive()})")
+        os.kill(child1.pid, signal.SIGKILL)
+        t_kill = _now()
+        child1.join(30)
+    finally:
+        if child1.is_alive():
+            child1.kill()
+    if child1.exitcode != -signal.SIGKILL:
+        fail(f"persistence: child 1 exited {child1.exitcode}, not by SIGKILL")
+    rep1 = read_report(specs[0]["report"])
+    cache_dir = os.path.join(root, "udf_cache", "default")
+    cached_keys = set(n[:-4] for n in os.listdir(cache_dir) if n.endswith(".pkl"))
+
+    def named(name):
+        def fn():
+            pass
+        fn.__name__ = name
+        return fn
+
+    key_of = {c: pw.udfs.DiskCache._cache_key(named("embed"), (c,), {}) for c in corpus["chunks"]}
+    uncached = {c for c in corpus["chunks"] if key_of[c] not in cached_keys}
+    served_files(corpus, docs_dir, written, PERSIST_SERVED + PERSIST_ADDED)
+    total = PERSIST_SERVED + PERSIST_ADDED
+    url2 = f"http://127.0.0.1:{specs[1]['port']}"
+    t_start2 = _now()
+    open(specs[1]["go"], "w").close()
+    child2 = start_child(ctx, specs[1])
+    try:
+        wait_for(child2, lambda: file_count(url2) is not None, "first answer of child 2")
+        first_answer_s = _now() - t_start2
+        wait_for(child2, lambda: (file_count(url2) or 0) >= total, f"{total} files indexed by child 2")
+        full_index_s = _now() - t_start2
+        with ThreadPoolExecutor(16) as pool:
+            answers = list(pool.map(lambda q: http_call(url2 + "/v1/retrieve", {"query": q, "k": PERSIST_K}),
+                                    corpus["queries"]))
+        answered_s = _now() - t_kill
+        open(specs[1]["stop"], "w").close()
+        child2.join(60)
+    finally:
+        if child2.is_alive():
+            child2.kill()
+    if child2.exitcode != 0:
+        fail(f"persistence: child 2 exited {child2.exitcode}")
+    rep2 = read_report(specs[1]["report"])
+    bad = [a for a in answers if a["status"] != 200 or not isinstance(a.get("body"), list)
+           or len(a["body"]) != PERSIST_K]
+    if bad:
+        fail(f"persistence: {len(bad)} /v1/retrieve answers failed, first {bad[0]}")
+    # B1: the answers against a direct encode and f32 topk of the final corpus
+    chunk_ids = {c: i for i, c in enumerate(dict.fromkeys(corpus["chunks"]))}
+    chunk_texts = list(chunk_ids)
+    qs = corpus["queries"]
+    embs = {name: encode_sorted(enc, texts, np.argsort([len(t) for t in texts]))[0]
+            for name, texts in (("chunks", chunk_texts), ("queries", qs))}
+    chunks = torch.from_numpy(embs["chunks"]).to(device)
+    chunks = chunks / chunks.norm(dim=1, keepdim=True)
+    q = torch.from_numpy(embs["queries"]).to(device)
+    q = q / q.norm(dim=1, keepdim=True)
+    vals, idx = torch.topk(q @ chunks.T, PERSIST_K, dim=1)
+    ref_vals = vals.float().cpu().numpy()
+    got_ids = np.array([[chunk_ids.get(h["text"], -1) for h in a["body"]] for a in answers])
+    got_vals = np.array([[-float(h["dist"]) for h in a["body"]] for a in answers])
+    known = got_ids >= 0
+    own = torch.einsum("rd,rkd->rk", q, chunks[torch.from_numpy(np.maximum(got_ids, 0)).to(device)])
+    own = own.float().cpu().numpy()
+    parted, gap = topk_parted(got_ids, got_vals, idx.cpu().numpy(), ref_vals)
+    check = {"queries": len(qs), "rows_parted": parted, "parted_max_gap": gap,
+             "max_score_err": float(np.abs(got_vals - ref_vals).max()),
+             "max_own_score_err": float(np.abs(np.where(known, got_vals - own, 0.0)).max()),
+             "max_below_plain_kth": float(np.where(known, ref_vals[:, -1:] - own, 0.0).max()),
+             "unknown_texts": int((~known).sum())}
+    # B2: child 2 embeds exactly the chunks without a cache entry (and the queries)
+    embedded2 = rep2["embedded"]
+    query_set = set(qs)
+    chunks2 = [t for t in embedded2 if t not in query_set]
+    res = {
+        "files": total, "killed_at_files": PERSIST_KILL_AT, "child1_go_to_answer_s": up1_s,
+        "child1_chunks_embedded": rep1["texts"], "cache_entries_at_kill": len(cached_keys),
+        "chunks": len(chunk_ids), "uncached_at_child2": len(uncached),
+        "cache_hit_share": 1.0 - len(uncached) / len(chunk_ids),
+        "child2_chunks_embedded": len(chunks2), "child2_queries_embedded": len(embedded2) - len(chunks2),
+        "child2_first_answer_s": first_answer_s, "child2_full_index_s": full_index_s,
+        "kill_to_answers_s": answered_s, "child1_launches": rep1["launches"], "child2_launches": rep2["launches"],
+        "child_spawn_s": [rep["entered"] - proc.started for rep, proc in ((rep1, child1), (rep2, child2))],
+        "child_setup_s": [rep["serving"] - rep["entered"] for rep in (rep1, rep2)],
+        "retrieve_ms_p50": float(np.median([a["ms"] for a in answers])), **check,
+    }
+    log("persistence", part="crash", **res)
+    if check["unknown_texts"] or check["max_own_score_err"] > SCORE_TOL or check["max_score_err"] > SCORE_TOL \
+            or check["max_below_plain_kth"] > VS_TIE_TOL:
+        fail(f"persistence: child 2's answers part from the plain check: {check}")
+    if set(chunks2) != uncached or len(chunks2) != len(uncached) or len(embedded2) - len(chunks2) != len(qs):
+        fail(f"persistence: child 2 embedded {len(chunks2)} chunks ({len(set(chunks2) - uncached)} cached), "
+             f"not the {len(uncached)} without a cache entry")
+    if not uncached or len(uncached) == len(chunk_ids):
+        fail(f"persistence: the kill left {len(uncached)} of {len(chunk_ids)} chunks uncached: nothing resumed")
+    # B3: both children launched the kernel, once per layer of each forward
+    for n, rep in ((1, rep1), (2, rep2)):
+        if not rep["launches"] or rep["launches"] != sum(rep["seen"].values()):
+            fail(f"persistence: child {n} launched the kernel {rep['launches']} times "
+                 f"(layers x forwards per shape {rep['seen']})")
+    return {"report": res, "children": (rep1, rep2)}
+
+
+def persistence_phase(device, seed: int, checked: dict) -> dict:
+    """Phase 15d: persistence on one worker at full all-MiniLM-L6-v2 width.
+    Part A stops and resumes the ``[dataflow]`` program in this process,
+    part B kills and resumes a served ``VectorStoreServer`` in child
+    processes (spawn).  ``checked`` gains the attention shapes the runs
+    gave the kernel."""
+    import shutil
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+
+    ex = get_default_executor(device)
+    enc = pw.SentenceEncoder(PERSIST_MODEL, seed=seed)
+    enc.set_params(init_params(enc.config, seed))  # the children's weights
+    data = persist_docs(seed)
+    query = np.random.default_rng(seed + 307).normal(size=enc.dimensions).astype(np.float32)
+    query /= np.linalg.norm(query)
+    # the roots live in the checkout (an ignored directory), on the disk a
+    # deployment's persistence root would use
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_persistence")
+    os.makedirs(work, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="run_", dir=work)
+    seen: dict = {}
+    hook = record_launches(enc, seen)
+    ctx, specs, child1 = persist_children(seed, base, device)
+    try:
+        # ---- the counted run (part A): counts zeroed just before, read just after ----
+        encoder_attention.launches = 0
+        seen.clear()
+        before = rail_state(device)
+        t0 = time.perf_counter()
+        resume = persist_resume_part(pw, enc, ex, data, query, base)
+        resume_s = time.perf_counter() - t0
+        launches_a = encoder_attention.launches
+        # ---- end of the counted run ----
+        rail = rail_gate("persistence", device, before)
+        expected = sum(seen.values())
+        if launches_a != expected or not expected:
+            fail(f"persistence: attention launches {launches_a} != {expected} (layers x forwards per shape {seen})")
+        hook.remove()
+        shapes = dict(seen)
+        t0 = time.perf_counter()
+        crash = persist_crash_part(pw, enc, seed, ctx, specs, child1, device)
+        crash_s = time.perf_counter() - t0
+    finally:
+        hook.remove()
+        if child1.is_alive():
+            child1.kill()
+        # thousands of cache entries: removed behind the later phases
+        threading.Thread(target=shutil.rmtree, args=(base, True), daemon=True).start()
+    for rep in crash["children"]:
+        for shape, n in rep["seen"].items():
+            shapes[shape] = shapes.get(shape, 0) + n
+    launches = {"encoder_attention": launches_a + sum(rep["launches"] for rep in crash["children"])}
+    gen = torch.Generator(device=device).manual_seed(seed + 317)
+    for shape in sorted(set(shapes) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("persistence", step="shapes", launches={str(list(sh)): n for sh, n in sorted(shapes.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(shapes)})
+    runs_s = resume["unbroken"]["wall_s"] + sum(resume[m]["run1_wall_s"] + resume[m]["run2_wall_s"]
+                                                for m in ("PERSISTING", "OPERATOR_PERSISTING"))
+    log("persistence", step="summary", resume_s=resume_s, resume_runs_s=runs_s, crash_s=crash_s,
+        kernel_launches=launches)
+    return {"launches": launches, "attention_launches": shapes, "rail": rail, "resume": resume,
+            "crash": crash["report"], "resume_s": resume_s, "crash_s": crash_s}
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: the connectors and the retrieval half of the LLM xpack.
 # ---------------------------------------------------------------------------
 
@@ -5238,9 +5934,10 @@ def rag_corpus(seed: int, sizes: RagSizes) -> dict:
             "burst": burst}
 
 
-def http_call(url: str, body=None, headers=None, method: str = "POST") -> dict:
+def http_call(url: str, body=None, headers=None, method: str = "POST", timeout: float | None = None) -> dict:
     """One request with the standard library: status, JSON body, headers and
-    the client's ms; ``status`` None when no answer came."""
+    the client's ms; ``status`` None when no answer came (within ``timeout``
+    s, ``RAG_WAIT_S`` by default)."""
     import urllib.error
     import urllib.request
 
@@ -5249,7 +5946,7 @@ def http_call(url: str, body=None, headers=None, method: str = "POST") -> dict:
                                  headers={"Content-Type": "application/json", **(headers or {})})
     t0 = _now()
     try:
-        with urllib.request.urlopen(req, timeout=RAG_WAIT_S) as resp:
+        with urllib.request.urlopen(req, timeout=timeout or RAG_WAIT_S) as resp:
             status, raw, hdrs = resp.status, resp.read(), dict(resp.headers)
     except urllib.error.HTTPError as exc:
         status, raw, hdrs = exc.code, exc.read(), dict(exc.headers)
@@ -6609,9 +7306,15 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
+    try:  # a bf16 UDF result enters a column as an ml_dtypes.bfloat16 array (internals/dtype.py)
+        import ml_dtypes  # noqa: F401
+
+        bf16_arrays = True
+    except ImportError:
+        bf16_arrays = False
     log("card", nvidia_smi=card, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
-        python=sys.version.split()[0],
+        python=sys.version.split()[0], ml_dtypes=bf16_arrays,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
@@ -6695,6 +7398,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["hybrid"] = hybrid_phase(device, args.seed, checked, card)
         seconds["hybrid"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "persistence" not in skip:
+        t_phase = time.perf_counter()
+        phases["persistence"] = persistence_phase(device, args.seed, checked)
+        seconds["persistence"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

@@ -41,6 +41,7 @@ rerankers and the question answerers).
 
 from __future__ import annotations
 
+import enum as _enum
 import datetime as _datetime
 
 from pathway_tpu_torch.engine.types import (
@@ -102,6 +103,19 @@ from pathway_tpu_torch.internals.runner import run, run_all
 from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.udfs import UDF, udf
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel
+
+
+class PersistenceMode(_enum.Enum):
+    # mirrors engine PersistenceMode (src/connectors/mod.rs:108-116)
+    BATCH = 0
+    SPEEDRUN_REPLAY = 1
+    REALTIME_REPLAY = 2
+    PERSISTING = 3
+    SELECTIVE_PERSISTING = 4
+    OPERATOR_PERSISTING = 5
+    UDF_CACHING = 6
+
+
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe
 from pathway_tpu_torch.internals import universes
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
@@ -112,7 +126,7 @@ DateTimeNaive = _datetime.datetime
 DateTimeUtc = _datetime.datetime
 Duration = _datetime.timedelta
 
-from pathway_tpu_torch import debug, demo, io, udfs
+from pathway_tpu_torch import debug, demo, io, persistence, udfs
 from pathway_tpu_torch.stdlib import (
     graphs,
     indexing,
@@ -191,6 +205,7 @@ __all__ = [
     "Json",
     "MonitoringLevel",
     "OuterJoinResult",
+    "PersistenceMode",
     "Pointer",
     "PyObjectWrapper",
     "Schema",
@@ -235,6 +250,7 @@ __all__ = [
     "ml",
     "ordered",
     "pandas_transformer",
+    "persistence",
     "reducers",
     "require",
     "right",

@@ -2283,6 +2283,20 @@ async def _run_udf_traced(fn, k, r):
         return await fn(k, r)
 
 
+def _host_value(value: Any) -> Any:
+    """A ``torch.Tensor`` UDF result as the host numpy array its column will
+    hold (``internals/dtype.py``), so the cache pins no device memory and an
+    operator snapshot of it loads on a machine without the card; the JAX
+    package caches its arrays as they come."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        from pathway_tpu_torch.internals.dtype import tensor_to_numpy
+
+        return tensor_to_numpy(value)
+    return value
+
+
 class AsyncValuesNode(Node):
     """Computes extra columns with async functions: all rows of an epoch are
     awaited concurrently under one event loop, with an epoch barrier —
@@ -2330,7 +2344,7 @@ class AsyncValuesNode(Node):
                         )
                         values.append(ERROR)
                     else:
-                        values.append(as_hashable(res))
+                        values.append(as_hashable(_host_value(res)))
                 self._cache[(k, r)] = tuple(values)
         out = []
         for k, r, d in inserts:
@@ -2628,7 +2642,7 @@ class Scope:
         worker = self.worker
         if self.parent is None:
             # the worker fault kinds (epoch-boundary crash and hang
-            # injection) arrive with the supervisor in slice H4
+            # injection) arrive with the supervisor in slice H4b
             self.epochs_run += 1
         for node in self.nodes:
             try:

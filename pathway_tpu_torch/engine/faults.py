@@ -37,8 +37,16 @@ admission: a burst of ``count``, default 4, short synthetic requests;
 ``source`` the model name); ``trace_storm`` (``tracing.maybe_trace_storm``:
 ``count``, default 64, synthetic deep traces; ``source`` the route).
 
-The worker, persistence and connector kinds need the host engine and wait
-for its slice of the port; a plan naming one raises ``ValueError``.
+The persistence kinds fire on the checkpoint path, as in the JAX package:
+``blob_put``/``blob_get``/``blob_delete`` fail a backend call with
+:class:`InjectedFault`, ``blob_torn``/``blob_truncate``/``blob_bitflip`` let
+a write succeed with damaged bytes (``frac``, ``keep_bytes`` and ``bit``
+shape the damage), all through :class:`FlakyBackend`, which the runner
+puts around the storage when the plan names one (:func:`wrap_backend`);
+``writer_crash`` SIGKILLs the process from a checkpoint writer thread
+after a chunk is framed and before it is uploaded (``key`` filters on the
+blob key).  The worker and connector kinds need the supervisor and the
+multi-worker runner (slice H4b); a plan naming one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,18 +54,30 @@ from __future__ import annotations
 import json as _json
 import os
 import random
+import signal
 import threading
 from typing import Any
 
 from pathway_tpu_torch.engine import flight_recorder as _blackbox
+from pathway_tpu_torch.engine.persistence import BlobBackend
 
 ENV_PLAN = "PATHWAY_FAULT_PLAN"
 ENV_ATTEMPT = "PATHWAY_RESTART_ATTEMPT"
 
-KINDS = (
+_BLOB_KINDS = ("blob_put", "blob_get", "blob_delete")
+# write-corruption kinds: the I/O succeeds but the stored bytes are damaged
+# (torn write / truncation / bit rot) — the persistence integrity frames
+# must catch them on the read side
+_BLOB_CORRUPT_KINDS = ("blob_torn", "blob_truncate", "blob_bitflip")
+KINDS = _BLOB_KINDS + _BLOB_CORRUPT_KINDS + (
+    "writer_crash",
     "device_stall", "device_error", "device_oom", "device_compile_fail", "device_hang",
     "request_flood", "slow_handler", "request_churn", "trace_storm",
 )
+
+
+class InjectedFault(IOError):
+    """An error raised by the fault plan, never by real infrastructure."""
 
 
 def restart_attempt() -> int:
@@ -74,7 +94,8 @@ class FaultSpec:
 
     __slots__ = (
         "kind", "worker", "peer", "nth", "from_nth", "prob", "delay_ms",
-        "key", "source", "attempt", "max_times", "count", "seen", "fired", "_rng",
+        "key", "source", "attempt", "max_times", "frac", "keep_bytes", "bit",
+        "count", "seen", "fired", "_rng",
     )
 
     def __init__(self, spec: dict[str, Any], *, seed: int, index: int):
@@ -92,6 +113,10 @@ class FaultSpec:
         self.source = spec.get("source")
         self.attempt = spec.get("attempt")
         self.max_times = spec.get("max_times")
+        # corruption-kind knobs (blob_torn / blob_truncate / blob_bitflip)
+        self.frac = spec.get("frac")
+        self.keep_bytes = spec.get("keep_bytes")
+        self.bit = spec.get("bit")
         self.count = spec.get("count")
         if self.nth is None and self.from_nth is None and self.prob is None:
             self.nth = 1  # a bare spec fires once, on the first match
@@ -164,6 +189,9 @@ class FaultPlan:
             return None
         return cls.from_json(raw)
 
+    def has(self, *kinds: str) -> bool:
+        return any(k in self._kinds for k in kinds)
+
     def check(self, kind: str, **ctx: Any) -> FaultSpec | None:
         """The firing spec for this event, or None: the first declared
         match fires, so exactly one spec fires per event."""
@@ -219,3 +247,115 @@ def check(kind: str, **ctx: Any) -> FaultSpec | None:
     if plan is None:
         return None
     return plan.check(kind, **ctx)
+
+
+def maybe_crash_writer(*, worker: int, key: str) -> None:
+    """Async-commit crash injection: SIGKILL from a checkpoint writer-pool
+    thread MID-FLIGHT — after the artifact was framed and hashed, before
+    its upload.  Some chunks of the staged generation may already be on the
+    store, the generation manifest is not: the crash must leave only an
+    unreferenced partial generation (invisible to resume and to
+    ``python -m pathway_tpu_torch.cli scrub``).  The port's flight recorder
+    records the crash and dumps nothing (the dump comes with slice H5)."""
+    plan = active_plan()
+    if plan is None or not plan.has("writer_crash"):
+        return
+    if plan.check("writer_crash", worker=worker, key=key) is not None:
+        _blackbox.record("fault.writer_crash", worker=worker, key=key)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+# ---------------------------------------------------------------------------
+# Flaky blob backend
+# ---------------------------------------------------------------------------
+
+
+class FlakyBackend(BlobBackend):
+    """A ``BlobBackend`` wrapper that fails OR corrupts calls per the plan.
+
+    Raising kinds (``blob_put``/``blob_get``/``blob_delete``) abort the
+    call with :class:`InjectedFault`.  Corruption kinds (``blob_torn``,
+    ``blob_truncate``, ``blob_bitflip``) let the write SUCCEED but damage
+    the stored bytes — exactly what real storage faults look like to the
+    process that wrote them, and what the persistence layer's integrity
+    frames + generation manifests must catch on the read side.
+
+    With no explicit ``plan`` the process-wide active plan is consulted at
+    call time, so env-driven soak runs inject persistence faults without
+    any code change (``wrap_backend`` below is applied by the runner).
+    """
+
+    def __init__(self, inner: BlobBackend, plan: FaultPlan | None = None):
+        self.inner = inner
+        self.plan = plan
+
+    def describe(self) -> str:
+        return self.inner.describe()
+
+    def _active(self) -> FaultPlan | None:
+        return self.plan if self.plan is not None else active_plan()
+
+    def _gate(self, kind: str, key: str) -> None:
+        plan = self._active()
+        if plan is None:
+            return
+        if plan.check(kind, key=key) is not None:
+            raise InjectedFault(f"injected {kind} failure for key {key!r}")
+
+    def _mangle(self, key: str, data: bytes) -> bytes:
+        """Apply write-corruption specs (torn / truncate / bitflip)."""
+        plan = self._active()
+        if plan is None:
+            return data
+        spec = plan.check("blob_torn", key=key)
+        if spec is not None:
+            frac = spec.frac if spec.frac is not None else 0.5
+            data = data[: max(0, int(len(data) * float(frac)))]
+        spec = plan.check("blob_truncate", key=key)
+        if spec is not None:
+            data = data[: int(spec.keep_bytes or 0)]
+        spec = plan.check("blob_bitflip", key=key)
+        if spec is not None and data:
+            nbits = len(data) * 8
+            bit = (
+                int(spec.bit) if spec.bit is not None
+                else spec._rng.randrange(nbits)
+            ) % nbits
+            mangled = bytearray(data)
+            mangled[bit // 8] ^= 1 << (bit % 8)
+            data = bytes(mangled)
+        return data
+
+    def put(self, key: str, data: bytes) -> None:
+        self._gate("blob_put", key)
+        self.inner.put(key, self._mangle(key, data))
+
+    def put_atomic(self, key: str, data: bytes) -> None:
+        self._gate("blob_put", key)
+        self.inner.put_atomic(key, self._mangle(key, data))
+
+    def put_staged(self, key: str, data: bytes) -> None:
+        self._gate("blob_put", key)
+        self.inner.put_staged(key, self._mangle(key, data))
+
+    def sync_staged(self, keys: list[str]) -> None:
+        self.inner.sync_staged(keys)
+
+    def get(self, key: str) -> bytes | None:
+        self._gate("blob_get", key)
+        return self.inner.get(key)
+
+    def list_keys(self, prefix: str) -> list[str]:
+        return self.inner.list_keys(prefix)
+
+    def delete(self, key: str) -> None:
+        self._gate("blob_delete", key)
+        self.inner.delete(key)
+
+
+def wrap_backend(backend: BlobBackend) -> BlobBackend:
+    """Wrap with FlakyBackend iff the active plan injects blob faults."""
+    plan = active_plan()
+    if plan is not None and plan.has(*_BLOB_KINDS, *_BLOB_CORRUPT_KINDS):
+        return FlakyBackend(backend, plan)
+    return backend

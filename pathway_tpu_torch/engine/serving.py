@@ -28,7 +28,7 @@ ingress (``io/http/_server.py``):
 
 The promotion hooks (:func:`fail_inflight_for_promotion`,
 :func:`resume_after_promotion`) and :func:`ready_for_handoff` are copied
-but have no caller until the supervisor and live handoff of slice H4; the
+but have no caller until the supervisor and live handoff of slice H4b; the
 freshness sensor behind :func:`set_pressure_supplier` comes with H5.
 """
 

@@ -1,8 +1,10 @@
 """The ``PATHWAY_DEVICE_*`` environment knobs of the device executor, the
 worker topology that ``parallel/mesh.py::initialize_distributed`` reads,
 the dataflow engine's switches (``PATHWAY_NATIVE``, ``PATHWAY_COLUMNAR``),
-the serving edge's (``PATHWAY_SERVE_*``, ``PATHWAY_TRACE_*``)
-and the part of ``PathwayConfig`` that the expression evaluator reads.
+the serving edge's (``PATHWAY_SERVE_*``, ``PATHWAY_TRACE_*``), the
+persistence group (``PATHWAY_CHECKPOINT_*``, ``PATHWAY_BLOB_*``, the
+record/replay root) and the part of ``PathwayConfig`` that the expression
+evaluator and the runner's storage path read.
 
 A copy of the executor's part of ``pathway_tpu/internals/config.py``
 (``ENV_KNOBS`` and the typed accessors) and of its worker-topology fields
@@ -102,6 +104,38 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
             "load shedding: seconds back under target before degraded mode ends"),
     EnvKnob("PATHWAY_SERVE_DRAIN_S", "float", 10.0,
             "graceful drain budget of in-flight requests on stop-accept"),
+    EnvKnob("PATHWAY_REPLAY_STORAGE", "str", None,
+            "persistence root for record/replay runs (enables persistence "
+            "without an explicit `pw.persistence.Config`)"),
+    EnvKnob("PATHWAY_SNAPSHOT_ACCESS", "str", None,
+            "`record` | `replay` — connector snapshot mode for record/replay runs"),
+    EnvKnob("PATHWAY_CONTINUE_AFTER_REPLAY", "bool", False,
+            "keep consuming live connector data after a recorded stream drains"),
+    EnvKnob("PATHWAY_RESTART_ATTEMPT", "int", 0,
+            "supervisor restart attempt of this process (0 = first launch)"),
+    EnvKnob("PATHWAY_INCARNATION", "int", 0,
+            "cluster incarnation lease this worker runs under (exported by the "
+            "supervisor; fences zombie writers out of the root)"),
+    EnvKnob("PATHWAY_WORKER_FENCE", "int", 0,
+            "per-worker fence token of a promoted standby (0 otherwise)"),
+    EnvKnob("PATHWAY_CHECKPOINT_GENERATIONS", "int", 3,
+            "committed checkpoint generations retained (the deferred-GC "
+            "fallback window)"),
+    EnvKnob("PATHWAY_CHECKPOINT_WRITERS", "int", 2,
+            "background checkpoint writer threads; 0 = fully synchronous commits"),
+    EnvKnob("PATHWAY_CHECKPOINT_INFLIGHT_MB", "int", 256,
+            "cap of in-flight snapshot bytes before commit staging "
+            "backpressures the epoch thread"),
+    EnvKnob("PATHWAY_CHECKPOINT_PUBLISH_INTERVAL_MS", "float", 20.0,
+            "minimum spacing between pipelined manifest publishes (staged "
+            "frontiers conflate while the committer waits)"),
+    EnvKnob("PATHWAY_BLOB_RETRIES", "int", 3,
+            "bounded retries for transient object-store errors"),
+    EnvKnob("PATHWAY_BLOB_RETRY_INITIAL_MS", "int", 200,
+            "initial backoff of the blob retry schedule"),
+    EnvKnob("PATHWAY_PERSISTENT_STORAGE", "str", None,
+            "filesystem root for the UDF DiskCache when no persistence config "
+            "is active"),
 )
 
 ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}
@@ -187,10 +221,26 @@ def worker_topology() -> WorkerTopology:
 @dataclasses.dataclass
 class PathwayConfig:
     """The fields of the JAX package's ``PathwayConfig`` that the port's
-    dataflow reads; the rest arrive with the slices that read them."""
+    dataflow and its storage path read; the rest arrive with the slices
+    that read them."""
 
     terminate_on_error: bool = dataclasses.field(
         default_factory=lambda: env_bool("PATHWAY_TERMINATE_ON_ERROR")
+    )
+    replay_storage: str | None = dataclasses.field(
+        default_factory=lambda: env_str("PATHWAY_REPLAY_STORAGE")
+    )
+    snapshot_access: str | None = dataclasses.field(
+        default_factory=lambda: env_str("PATHWAY_SNAPSHOT_ACCESS")
+    )
+    continue_after_replay: bool = dataclasses.field(
+        default_factory=lambda: env_bool("PATHWAY_CONTINUE_AFTER_REPLAY")
+    )
+    processes: int = dataclasses.field(
+        default_factory=lambda: env_int("PATHWAY_PROCESSES")
+    )
+    process_id: int = dataclasses.field(
+        default_factory=lambda: env_int("PATHWAY_PROCESS_ID")
     )
 
 
@@ -216,3 +266,9 @@ def local_pathway_config(**overrides: Any):
         yield cfg
     finally:
         _config_var.reset(token)
+
+
+def refresh_config() -> None:
+    """Re-read the process-wide config from the environment."""
+    global _global_config
+    _global_config = PathwayConfig()

@@ -448,6 +448,24 @@ def dtype_of_value(value: Any) -> DType:
     return ANY
 
 
+def tensor_to_numpy(value: torch.Tensor) -> np.ndarray:
+    """A tensor as the host numpy array the JAX package stores for the same
+    JAX array (``np.asarray``): same dtype, same values.  numpy has no
+    bfloat16, so a bf16 tensor becomes an array of ``ml_dtypes.bfloat16``
+    (JAX's own numpy bf16) with the same bits, never an upcast."""
+    value = value.detach().cpu()
+    if value.dtype != torch.bfloat16:
+        return value.numpy()
+    try:
+        import ml_dtypes
+    except ImportError as exc:
+        raise TypeError(
+            "a bfloat16 tensor enters a column as an ml_dtypes.bfloat16 numpy "
+            "array, and the ml_dtypes package does not import"
+        ) from exc
+    return value.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 # Coercions applied when a value enters a column of a known dtype.
 def coerce(value: Any, dtype: DType) -> Any:
     # hot-path exact (value type, dtype) exits — ingest calls this per cell
@@ -467,7 +485,7 @@ def coerce(value: Any, dtype: DType) -> Any:
         if isinstance(value, _etypes.HashableNDArray):
             return value
     elif isinstance(value, torch.Tensor):
-        return _etypes.as_hashable(value.detach().cpu().numpy())
+        return _etypes.as_hashable(tensor_to_numpy(value))
     base = dtype.strip_optional()
     if base is FLOAT and isinstance(value, (int, np.integer)) and not isinstance(value, bool):
         return float(value)

@@ -7,6 +7,10 @@ A copy of ``pathway_tpu/io/_file_readers.py`` (parity target:
 IdentityParser:812).  Static mode reads the current snapshot; streaming
 mode polls for new files and appended rows.
 
+The persisted frontier is the JAX package's ``{path: [mtime, units]}``
+(``seek`` and ``Offset``).  A file resumed from it is read on from its
+consumed units in either mode, as in the JAX package.
+
 In streaming mode the port also takes back what a file no longer holds,
 as the reference's scanner does: a deleted file retracts its rows, and a
 file rewritten other than by appending retracts its old rows and inserts
@@ -110,6 +114,11 @@ class FileReader(Reader):
         # of them, to tell an append from a rewrite; the poller keeps the
         # rows themselves, by their FILE_ROW tags
         self._emitted: dict[str, tuple[int, bytes]] = {}
+        # files resumed from a persisted frontier (``seek``): this run
+        # emitted none of their rows, so it can neither hold an append to
+        # their digest nor take them back; they are read on from their
+        # consumed units, as the JAX package's reader reads every file
+        self._resumed: set[str] = set()
 
     def _emit_file(self, path: str, emit) -> bool:
         try:
@@ -120,7 +129,7 @@ class FileReader(Reader):
         offset = prev[1] if prev else 0
         if prev and prev[0] == mtime:
             return False
-        if self.streaming:
+        if self.streaming and path not in self._resumed:
             return self._emit_streaming(path, mtime, emit)
         rows, new_offset = self.parse_file(path, offset)
         emitted = False
@@ -188,6 +197,7 @@ class FileReader(Reader):
         self._progress = {
             path: (float(mtime), int(units)) for path, (mtime, units) in offset.items()
         }
+        self._resumed = set(self._progress)
 
     def _offset(self) -> Offset:
         return Offset({p: [m, u] for p, (m, u) in self._progress.items()})

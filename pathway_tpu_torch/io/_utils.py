@@ -8,21 +8,23 @@ through a thread-safe queue into an engine ``InputNode``; the runner's
 event loop calls ``poll`` each iteration and commits an epoch per
 ``autocommit_duration_ms``.
 
-Single-process form.  What the port brings in later slices raises
-``NotImplementedError`` naming that slice instead of passing silently:
-the persistence hooks (source registration, snapshot replay, offsets and
-the writers' incarnation sweep: slice H4).  REST rows carry
-``DEADLINE_TS``/``TRACE_STAMP``: a row whose deadline lapsed in the queue
-is never staged (``serving.shed_staged`` answers its client 504), and a
-staged one records a ``serve.stage`` span on its request's trace.  The
-connector fault kinds (``connector_read``, ``connector_stall``,
-``load_spike``) come with H4 too: until then ``engine/faults.py`` rejects
-a plan that names them.
+The persistence hooks are the JAX package's: a source under a persistence
+config registers with the run's storage, replays its committed snapshot,
+seeks its reader past the committed offset and logs what it stages
+(input snapshots), or closes epochs only at its offset markers (operator
+snapshots).  REST rows carry ``DEADLINE_TS``/``TRACE_STAMP``: a row whose
+deadline lapsed in the queue is never staged (``serving.shed_staged``
+answers its client 504), and a staged one records a ``serve.stage`` span
+on its request's trace.  The connector fault kinds (``connector_read``,
+``connector_stall``, ``load_spike``) and the multi-worker split of a
+source come with slice H4b: until then ``engine/faults.py`` rejects a
+plan that names them.
 
 One addition to the JAX package: a row that carries ``FILE_ROW`` (a file
 reader's ``(path, index)``) can later be retracted by a ``DELETE`` row
 with the same tag, so a deleted or rewritten file takes its old rows
-back (see ``_file_readers.FileReader``).
+back (see ``_file_readers.FileReader``).  Under input snapshots the
+retraction is logged like any row.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import queue
 import threading
 import time as _time
+from collections import deque
 from typing import Any, Callable, Iterable, Mapping
 
 from pathway_tpu_torch.engine import dataflow as df
@@ -286,6 +289,9 @@ class _QueuePoller:
         self.dtypes = [schema.__columns__[n].dtype for n in self.names]
         self.pk = schema.primary_key_columns()
         self.autocommit = (autocommit_duration_ms or 1500) / 1000.0
+        # the running auto-key count persists per source so resumed runs
+        # continue the sequence (fresh rows must never reuse keys already
+        # inside replayed snapshots / restored operator state)
         self._auto_seq = 0
         self._time = 2
         self._staged = False
@@ -293,6 +299,14 @@ class _QueuePoller:
         self.finished = False
         self.reader: Reader | None = None
         self.name = "source"  # monitoring label, set by make_input_table
+        self.persist_state: Any = None  # engine.persistence.SourceState
+        # external-resume sources emit no Offset markers; their chunks flush
+        # at commit boundaries instead (offset frontier stays None)
+        self.flush_on_commit = False
+        self._drained_commits = 0  # COMMIT sentinels this poller has consumed
+        # (marker seq, epoch time its rows were stamped with) awaiting the
+        # engine's durability point; popped by ack_processed
+        self._commit_markers: deque[tuple[int, int]] = deque()
         # FILE_ROW tag -> (key, row) of the rows a later retraction of the
         # same tag takes back
         self._file_rows: dict[Any, tuple[int, tuple]] = {}
@@ -306,14 +320,24 @@ class _QueuePoller:
         )
         ins = self.input_node.insert
         t = self._time
+        log = (
+            self.persist_state.log
+            if self.persist_state is not None
+            and not self.persist_state.operator_mode
+            else None
+        )
         if pk_idx is None:
             n = self._auto_seq
             keys = sequential_keys(n, len(rows))
             self._auto_seq = n + len(rows)
+            if self.persist_state is not None:
+                self.persist_state.key_seq = self._auto_seq
         else:
             keys = [hash_values([vrow[i] for i in pk_idx]) for vrow in rows]
         for key, vrow in zip(keys, rows):
             ins(key, vrow, t, 1)
+            if log is not None:
+                log.record(key, vrow, 1)
         if tags is not None:
             for tag, key, vrow in zip(tags, keys, rows):
                 self._file_rows[tag] = (key, vrow)
@@ -330,6 +354,8 @@ class _QueuePoller:
             return hash_values([values[self.names.index(c)] for c in self.pk])
         n = self._auto_seq
         self._auto_seq = n + 1
+        if self.persist_state is not None:
+            self.persist_state.key_seq = self._auto_seq
         return sequential_key(n)
 
     def poll(self) -> bool:
@@ -357,13 +383,40 @@ class _QueuePoller:
                 self.finished = True
                 return True
             if item is COMMIT:
+                self._drained_commits += 1
+                # rows covered by this marker were stamped with the epoch
+                # being closed (or an already-closed one if nothing staged);
+                # the marker may be acked once that epoch is durable.  The
+                # snapshot buffer must flush BEFORE the marker exists, even
+                # when the autocommit timer already closed the epoch —
+                # otherwise a snapshot commit could ack broker offsets for
+                # rows still sitting in the unflushed buffer
+                if self.flush_on_commit and self.persist_state is not None:
+                    self.persist_state.log.flush_chunk()
+                marker_time = self._time if self._staged else self._time - 2
+                self._commit_markers.append((self._drained_commits, marker_time))
                 if self._staged:
                     self._time += 2
                     self._staged = False
                     self._last_commit = _time.monotonic()
                 continue
             if isinstance(item, Offset):
-                # the offset frontier feeds the input snapshots of slice H4
+                # snapshot chunks flush exactly at offset markers so the
+                # committed (chunks, offset) pair always refers to the same
+                # row prefix — the consistency rule tracker.rs enforces with
+                # its offset antichains
+                if self.persist_state is not None:
+                    if self.persist_state.operator_mode:
+                        # operator snapshots cover processed epochs only:
+                        # stamp the offset with the epoch its rows were
+                        # staged into so commit() can gate on it
+                        marker_time = self._time if self._staged else self._time - 2
+                        self.persist_state.pending_offsets.append(
+                            (item.value, marker_time)
+                        )
+                    else:
+                        self.persist_state.pending_offset = item.value
+                        self.persist_state.log.flush_chunk()
                 continue
             if isinstance(item, RawRows):
                 self._bulk_insert(item.rows, item.tags)
@@ -385,6 +438,8 @@ class _QueuePoller:
                 held = self._file_rows.pop(tag, None)
                 if held is not None:
                     self.input_node.insert(held[0], held[1], self._time, -1)
+                    if self.persist_state is not None and not self.persist_state.operator_mode:
+                        self.persist_state.log.record(held[0], held[1], -1)
                     self._staged = True
                 continue
             values = [
@@ -400,14 +455,66 @@ class _QueuePoller:
                 tr = _tracing.active_trace(tp)
                 if tr is not None:
                     tr.add_span("serve.stage", _time.time(), 0.0, epoch=self._time)
+            if self.persist_state is not None and not self.persist_state.operator_mode:
+                self.persist_state.log.record(key, vrow, diff)
             if tag is not None:
                 self._file_rows[tag] = (key, vrow)
             self._staged = True
         if self._staged and (_time.monotonic() - self._last_commit) >= self.autocommit:
-            self._time += 2
-            self._staged = False
-            self._last_commit = _time.monotonic()
+            # operator-persisting sources close epochs only at COMMIT/Offset
+            # markers: a timer-closed epoch could be processed and dumped
+            # into an operator snapshot before its offset marker arrives,
+            # and the committed offset would lag the snapshot (re-ingestion
+            # on resume).  Marker-aligned epochs make snapshot and offset
+            # frontiers agree by construction.
+            if not (
+                self.persist_state is not None and self.persist_state.operator_mode
+            ):
+                self._time += 2
+                self._staged = False
+                self._last_commit = _time.monotonic()
+                if self.flush_on_commit and self.persist_state is not None:
+                    self.persist_state.log.flush_chunk()
         return False
+
+    def marker_frontier(self) -> int:
+        """Highest COMMIT-marker sequence drained so far.  The runner
+        captures this when it STAGES an async snapshot: only markers below
+        the captured frontier are covered by that snapshot, so the ack
+        that follows its publication must stop there (markers drained
+        while the publish was in flight belong to a later snapshot)."""
+        return self._drained_commits
+
+    def ack_processed(
+        self,
+        up_to_time: int | None = None,
+        *,
+        up_to_marker: int | None = None,
+    ) -> None:
+        """Durability point reached: let the reader commit its external
+        offsets (on its own thread) for every COMMIT marker whose rows are
+        covered.  ``up_to_time`` — the epoch the engine just processed —
+        gates markers for non-persisted sources (rows staged for a later
+        epoch are still in memory only); ``up_to_marker`` gates on the
+        marker frontier a published snapshot actually covers (see
+        :meth:`marker_frontier`); ``None`` for both means all drained
+        markers are durable.  The reader commits the offsets it captured
+        at the marker — never its live position, which may already cover
+        unprocessed rows."""
+        request = getattr(self.reader, "request_offset_commit", None)
+        if request is None or not self._commit_markers:
+            return
+        seq = None
+        while self._commit_markers and (
+            (up_to_time is None or self._commit_markers[0][1] <= up_to_time)
+            and (
+                up_to_marker is None
+                or self._commit_markers[0][0] <= up_to_marker
+            )
+        ):
+            seq = self._commit_markers.popleft()[0]
+        if seq is not None:
+            request(seq)
 
 
 def debug_rows(debug_data: Any, schema: type[schema_mod.Schema]) -> list[dict]:
@@ -444,11 +551,6 @@ def make_input_table(
             # pw.run(debug=True): static debug rows replace the live source
             static = make_static_input_table(schema, debug_rows(debug_data, schema))
             return lowerer.node(static)
-        if getattr(lowerer, "persistence_storage", None) is not None:
-            raise NotImplementedError(
-                "a connector's input snapshots and offsets need "
-                "engine/persistence.py, which the port brings in slice H4"
-            )
         node = df.InputNode(lowerer.scope)
         node.upsert = upsert
         if upsert:
@@ -461,10 +563,70 @@ def make_input_table(
         # per-connector monitoring identity (connectors/monitoring.rs)
         poller.name = name or type(reader).__name__.lstrip("_")
         poller.reader = reader
+
+        # persistence identity: a source counter that advances for every
+        # source, so unnamed sources keep the same id across runs
+        storage = getattr(lowerer, "persistence_storage", None)
+        if storage is not None and not storage.input_snapshots_enabled:
+            storage = None  # UDF-caching-only mode: no input snapshots
+        sid = None
+        if storage is not None:
+            counter = getattr(lowerer, "_source_counter", 0)
+            lowerer._source_counter = counter + 1
+            sid = name or f"source_{counter}"
+
+        # persistence: replay committed snapshot, seek reader past it
+        skip_rows = 0
+        if storage is not None:
+            state = storage.register_source(
+                sid, schema_digest=schema_digest(schema), base=sid
+            )
+            access = getattr(storage, "snapshot_access", None)
+            if access != "record":
+                storage.replay_into(
+                    state, lambda k, r, d: node.insert(k, r, 0, d)
+                )
+            if access == "replay" and not getattr(
+                storage, "continue_after_replay", True
+            ):
+                # pure replay: the recording is the whole input — no
+                # reader thread, no live data (reference ReplayMode)
+                node.close()
+                return node
+            if reader.external_resume and getattr(
+                storage, "rejected_generations", None
+            ):
+                # broker-side offsets (Kafka consumer groups, ...) were
+                # committed for generations that integrity verification
+                # just rejected: the broker will never re-deliver the rows
+                # between the verified generation and its own offset, so
+                # resuming here would silently LOSE them.  Fail loudly.
+                from pathway_tpu_torch.engine.persistence import CheckpointError
+
+                raise CheckpointError(
+                    f"persistence: source {sid!r} resumes from broker-side "
+                    "offsets, but checkpoint recovery fell back past "
+                    "damaged generation(s) "
+                    f"{[g for g, _ in storage.rejected_generations]} — the "
+                    "broker's committed offset may be ahead of the verified "
+                    "checkpoint and the gap would be lost. Repair the root "
+                    "(see `python -m pathway_tpu_torch.cli scrub`), or rewind "
+                    "the consumer group / clear the persistence directory to "
+                    "re-ingest."
+                )
+            poller.persist_state = state
+            poller._auto_seq = state.key_seq
+            if state.offset is not None:
+                if reader.supports_offsets:
+                    reader.seek(state.offset)
+                elif not reader.external_resume:
+                    skip_rows = int(state.offset.get("rows", 0))
+
+        poller.flush_on_commit = reader.external_resume
         if reader.supports_offsets or reader.external_resume:
             emit = poller.q.put
         else:
-            emit = _RowCountEmit(poller.q.put, 0)
+            emit = _RowCountEmit(poller.q.put, skip_rows)
 
         def target():
             # supervision with a consecutive-error budget (parity:
@@ -648,12 +810,38 @@ def make_static_input_table(
     return Table(schema, build, universe=Universe())
 
 
+def worker_part_path(filename: str) -> str:
+    """Per-worker output path: in multi-process runs each worker writes its
+    own shard of the output stream, so file sinks get a ``.part-N`` suffix
+    for workers > 0 (worker 0 keeps the plain name; single-process is
+    unchanged).  The combined output is the union of the part files.
+
+    Worker 0 of a SUPERVISED run additionally sweeps part files OUTSIDE
+    the current topology: an elastic shrink (degraded-mode rescale,
+    ``docs/fault_tolerance.md``) leaves the dead workers' ``.part-N``
+    shards behind, and since the combined output is a union, stale shards
+    from a larger topology would double-count rows the rescaled workers
+    re-emit.  Gated on the incarnation lease (supervised runs only): an
+    unrelated standalone run that happens to target the same filename
+    must never destroy another run's output shards."""
+    from pathway_tpu_torch.engine.persistence import writer_incarnation
+    from pathway_tpu_torch.internals.config import get_config
+
+    cfg = get_config()
+    if cfg.process_id == 0 and writer_incarnation() > 0:
+        _sweep_stale_parts(filename, cfg.processes)
+    if cfg.processes > 1 and cfg.process_id > 0:
+        return f"{filename}.part-{cfg.process_id}"
+    return filename
+
+
 class WorkerPartFile:
-    """An output file handle opened when the run starts (sink lowering)
-    rather than when the sink is registered at graph-build time: each run
-    lifetime reopens it truncated, so a re-run rewrites the file instead
-    of appending a duplicate stream.  Single-process form: the ``.part-N``
-    shard of each worker of a multi-process run comes with slice H4."""
+    """An output file handle bound to THIS WORKER's part shard, resolved
+    when the run starts (sink lowering) rather than when the sink is
+    registered at graph-build time: each run lifetime re-resolves the part
+    path (``worker_part_path``) and reopens it truncated, so a resumed run
+    that replays its committed prefix rewrites the file instead of
+    appending a duplicate stream, exactly like a whole-group restart."""
 
     def __init__(self, filename: str, *, newline: str | None = None,
                  on_open: Callable[[Any], None] | None = None):
@@ -663,8 +851,9 @@ class WorkerPartFile:
         self._f: Any = None
 
     def reopen(self) -> None:
-        """(Re)open the file truncated; called at sink lowering, once per
-        run lifetime."""
+        """Resolve the part path for the worker id this process holds now
+        and (re)open it truncated; called at sink lowering, once per run
+        lifetime."""
         if self._f is not None:
             try:
                 self._f.close()
@@ -673,8 +862,10 @@ class WorkerPartFile:
             self._f = None
         import os as _os
 
-        _os.makedirs(_os.path.dirname(_os.path.abspath(self._base)), exist_ok=True)
-        self._f = open(self._base, "w", newline=self._newline)
+        path = worker_part_path(self._base)
+        dirname = _os.path.dirname(_os.path.abspath(path))
+        _os.makedirs(dirname, exist_ok=True)
+        self._f = open(path, "w", newline=self._newline)
         if self._on_open is not None:
             self._on_open(self._f)
 
@@ -751,3 +942,18 @@ def schema_or_default(
     if not cols:
         raise ValueError("provide schema= or value_columns=")
     return schema_mod.schema_from_columns(cols)
+
+
+def _sweep_stale_parts(filename: str, processes: int) -> None:
+    """Best-effort unlink of ``<filename>.part-N`` shards with N outside
+    the current worker topology (see :func:`worker_part_path`)."""
+    import glob as _glob
+    import os as _os
+
+    for path in _glob.glob(f"{_glob.escape(filename)}.part-*"):
+        tail = path.rsplit("-", 1)[-1]
+        if tail.isdigit() and int(tail) >= processes:
+            try:
+                _os.remove(path)
+            except OSError:
+                pass

@@ -9,8 +9,8 @@ delivered when the result row appears.  Generation-backed routes
 decoder through the ``JaxChat`` UDF and the process-wide continuous
 batching scheduler (``serving/generation.py``).
 
-``run_server(with_cache=True)``, the default, needs the persistence layer
-of slice H4 and raises until then.
+``run_server(with_cache=True)``, the default, caches UDF results under a
+persistence root in ``PersistenceMode.UDF_CACHING``.
 """
 
 from __future__ import annotations
@@ -76,16 +76,21 @@ class BaseRestServer:
         """Run the pipeline (parity: servers.py run_server).
 
         ``with_cache`` routes the UDF disk caches through the persistence
-        layer, which the port brings in slice H4: until then it raises
-        ``NotImplementedError``; pass ``with_cache=False``.  A served run
+        layer, matching the reference's engine-persistence-backed DiskCache
+        (udfs/caches.py:35, PersistenceMode::UdfCaching).  A served run
         never ends by itself; :meth:`close` frees the port."""
-        if with_cache:
-            raise NotImplementedError(
-                "run_server(with_cache=True) caches UDF results through "
-                "engine/persistence.py, which the port brings in slice H4; "
-                "pass with_cache=False"
-            )
         persistence_config = None
+        if with_cache:
+            from pathway_tpu_torch import persistence as _persistence
+
+            backend = cache_backend or _persistence.Backend.filesystem(
+                "./Cache"
+            )
+            # UDF-cache-only: input snapshotting stays off, so restarting the
+            # server does not replay old HTTP query rows
+            persistence_config = _persistence.Config(
+                backend, persistence_mode=pw.PersistenceMode.UDF_CACHING
+            )
 
         def _run():
             return pw.run(

@@ -5,8 +5,7 @@ A copy of ``pathway_tpu/xpacks/llm/vector_store.py``.  The legacy
 splitter, REST endpoints /v1/retrieve, /v1/statistics, /v1/inputs.  Built on
 DocumentStore + the brute-force device index; ``from_langchain_components``
 and ``from_llamaindex_components`` adapt third-party splitters/embedders
-when those packages are installed.  ``run_server(with_cache=True)``, the
-default, needs the persistence layer of slice H4 and raises until then.
+when those packages are installed.
 """
 
 from __future__ import annotations

@@ -166,6 +166,39 @@ def test_tensor_values_become_arrays():
     assert got == want and len(got["v"]) == 3
 
 
+def test_bf16_udf_results_keep_their_dtype():
+    """A UDF returning a bf16 ``torch.Tensor`` gives the column JAX's bf16
+    numpy array (``ml_dtypes.bfloat16``, the same bits) for the same values
+    as a JAX bf16 array, on the pure-Python core as on the native one."""
+    import jax.numpy as jnp
+    import torch
+
+    def program(pw, full, dtype):
+        t = pw.debug.table_from_markdown("x\n1\n2\n7")
+
+        @pw.udf
+        def emb(x: int):
+            return full((3,), float(x) + 0.3, dtype=dtype)
+
+        return {"v": t.select(v=emb(pw.this.x))}
+
+    want = P.capture(pj, program(pj, jnp.full, jnp.bfloat16))
+    got = P.capture(pt, program(pt, torch.full, torch.bfloat16))
+    assert got == want and len(got["v"]) == 3
+    assert {row[1][0][1] for _t, _k, _d, row in got["v"]} == {"bfloat16"}
+    script = ("import sys, pickle, torch, pathway_tpu_torch as pw\n"
+              "from tests import torch_dataflow_programs as P\n"
+              "t = pw.debug.table_from_markdown('x\\n1\\n2\\n7')\n"
+              "@pw.udf\ndef emb(x: int):\n    return torch.full((3,), float(x) + 0.3, dtype=torch.bfloat16)\n"
+              "sys.stdout.buffer.write(pickle.dumps(P.capture(pw, {'v': t.select(v=emb(pw.this.x))})))\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, cwd=REPO, timeout=120,
+                          env={**os.environ, "PATHWAY_NATIVE": "0"})
+    assert proc.returncode == 0, proc.stderr.decode()[-2000:]
+    import pickle
+
+    assert pickle.loads(proc.stdout) == want
+
+
 def test_concurrent_first_builds_both_load(build_race):
     """Two processes build the native core into one empty directory at once:
     both load the one build, neither falls back to Python, and no
@@ -184,18 +217,19 @@ def test_run_refuses_what_later_slices_bring(monkeypatch):
     t = pt.debug.table_from_markdown("v\n1")
     t._subscribe_raw(lambda *a: None)
     try:
-        for kwargs, slice_ in ((dict(persistence_config=object()), "H4"), (dict(with_http_server=True), "H5"),
+        for kwargs, slice_ in ((dict(with_http_server=True), "H5"),
                                (dict(monitoring_level=pt.MonitoringLevel.ALL), "H5")):
             with pytest.raises(NotImplementedError, match=slice_):
                 pt.run(**kwargs)
-        monkeypatch.setenv("PATHWAY_PROCESSES", "2")
-        with pytest.raises(NotImplementedError, match="H4"):
-            pt.run()
-        monkeypatch.delenv("PATHWAY_PROCESSES")
+        for env in ("PATHWAY_PROCESSES", "PATHWAY_STANDBY_ID"):
+            monkeypatch.setenv(env, "2")
+            with pytest.raises(NotImplementedError, match="H4b"):
+                pt.run()
+            monkeypatch.delenv(env)
         with pytest.raises(NotImplementedError, match="H6"):
             t.live()
-        with pytest.raises(NotImplementedError, match="H4"):
-            pt.udfs.DiskCache()
+        with pytest.raises(NotImplementedError, match="H6"):
+            pt.run(persistence_config=pt.persistence.Config(pt.persistence.Backend.s3("s3://b/p")))
         assert pt.run(monitoring_level=pt.MonitoringLevel.NONE).epochs == 1
     finally:
         pt.G.clear()

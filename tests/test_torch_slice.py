@@ -318,6 +318,20 @@ def test_port_imports_nothing_of_jax(model_dir):
         pt.run(monitoring_level=pt.MonitoringLevel.NONE)
         assert sorted(r[0] for r in shown.rows.values()) == [1, 1, 2] and seen == [0.0, 1.0, 2.0], (shown.rows, seen)
         pt.G.clear()
+        from pathway_tpu_torch import cli, persistence
+        from pathway_tpu_torch.engine import persistence as pz
+
+        proot = tempfile.mkdtemp()
+        cfg = persistence.Config(persistence.Backend.filesystem(proot),
+                                 persistence_mode=pt.PersistenceMode.OPERATOR_PERSISTING)
+        totals = []
+        for _ in range(2):
+            s = t.reduce(total=pt.reducers.sum(pt.this.v))
+            s._subscribe_raw(lambda key, row, time, diff: totals.append((row[0], diff)))
+            pt.run(persistence_config=cfg, monitoring_level=pt.MonitoringLevel.NONE)
+            pt.G.clear()
+        assert totals == [(23, 1)], totals  # the resumed run re-emits nothing
+        assert pz.scrub_root(pz.FileBackend(proot))["ok"] and cli.main(["scrub", proot]) == 0
         fut = ex.submit(lambda: enc.encode(texts[:3]), name="direct")
         assert fut.result(timeout=60).shape == (3, enc.dimensions)
         ex.close()

@@ -12,8 +12,9 @@ one's Pallas attention in interpret mode) with its documents from
 (``tests/test_attention_kernel.py:119``), distances within 3e-3 (two
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
-raises ``NotImplementedError`` naming its slice (``run_server`` with the
-default ``with_cache=True`` needs the persistence of slice H4).
+raises ``NotImplementedError`` naming its slice (the CLI's ``replay``
+needs the multi-worker runner of slice H4b, the object-store backends the
+clients of slice H6).
 """
 
 from __future__ import annotations
@@ -197,7 +198,9 @@ def deferred(name: str):
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
-        "run_server_with_cache": lambda: llm.servers.BaseRestServer("127.0.0.1", 8000).run_server(),
+        "cli_replay": lambda: __import__("pathway_tpu_torch.cli").cli.main(["replay", "prog.py"]),
+        "persistence_gcs": lambda: __import__("pathway_tpu_torch.engine.persistence").engine.persistence
+        .backend_from_config(tpw.persistence.Backend.gcs("gs://b/p")),
         "io.kafka": lambda: tpw.io.kafka.read,
     }
     with pytest.raises(NotImplementedError) as err:
@@ -206,7 +209,7 @@ def deferred(name: str):
 
 
 @pytest.mark.parametrize("name,later", [
-    ("run_server_with_cache", "slice H4"), ("io.kafka", "slice H6"),
+    ("cli_replay", "slice H4b"), ("persistence_gcs", "slice H6"), ("io.kafka", "slice H6"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later):
     assert later in deferred(name)
