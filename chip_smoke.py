@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,cluster,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -16,7 +16,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    shape (CUDA graphs of many launches, inputs rotated past the L2 cache),
    and the wrapper's host time per call;
 4. main path at full all-MiniLM-L6-v2 width (seeded random weights):
-   encode a synthetic corpus (131,072 texts by default) in length-sorted
+   encode a synthetic corpus (65,536 texts by default) in length-sorted
    batches, time one arrival-order pass over a part of it, fill a cosine
    ``BruteForceKnnIndex`` with it, answer one untimed warm-up and 128 timed
    ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
@@ -45,12 +45,12 @@ Phases, each on a line of its own; any failure exits non-zero:
    batch, classified failure, quarantine or breaker not closed (its
    ``step: executor`` line also gives the run's padding-waste fraction);
 7. executor: all-MiniLM-L6-v2 at full width through the port's
-   ``DeviceExecutor``, launches counted like phase 4: ``overlap`` (64
+   ``DeviceExecutor``, launches counted like phase 4: ``overlap`` (32
    batches of 512 corpus texts tokenized then run by ``run_batch``,
    against ``submit`` with the next batch tokenized while the dispatch
    thread runs the current one: emb/s of each, their ratio, the device's
    idle share from CUDA events around every forward, and the two loops'
-   embeddings held together at cosine > 0.999), ``batcher`` (8,192 texts,
+   embeddings held together at cosine > 0.999), ``batcher`` (4,096 texts,
    one coroutine each, through ``AsyncMicroBatcher`` at max batch 256 and
    flush delay 0.002 s over ``SentenceEncoder.encode``: emb/s, the batch
    sizes formed, every row held to a direct ``encode``), ``faults`` on the
@@ -71,10 +71,10 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``torch.cuda.memory_allocated``);
 7b. dataflow: the Table API and the dataflow core (host engine H1) at
    full all-MiniLM-L6-v2 width, through ``pw.run`` on the shared default
-   executor with the rail on: 65,536 synthetic texts keyed by ``doc_id``
+   executor with the rail on: 16,384 synthetic texts keyed by ``doc_id``
    with 64 source ids, staged by ``pw.debug.table_from_rows`` in 8 epochs
-   of 8,192 at times 2-16, a ninth retracting 4,096 docs and replacing
-   the text of 4,096; an async ``pw.udf`` embeds each row through
+   of 2,048 at times 2-16, a ninth retracting 1,024 docs and replacing
+   the text of 1,024; an async ``pw.udf`` embeds each row through
    ``AsyncMicroBatcher`` (max batch 256) over ``SentenceEncoder.encode``,
    a ``pw.apply`` scores it against a unit query, a join with the
    64-row sources table and ``groupby(source).reduce(count, sum)``; rows/s,
@@ -86,7 +86,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 7c. temporal: the temporal slice (``pw.temporal``'s windows, behaviors and
    time joins) as a live windowed topic monitor at full BAAI/bge-base-en-v1.5
    width (seeded weights, ``SentenceTransformerEmbedder``, an async UDF
-   through ``AsyncMicroBatcher`` at 256): 32,768 texts of 6-60 words at
+   through ``AsyncMicroBatcher`` at 256): 16,384 texts of 6-60 words at
    int event times over one day, 16 topics drawn Zipf-distributed, fed by
    ``pw.io.python.read`` in event-time order in 64 commits (2% held back
    2-6 commits), each commit sent once the run has taken the one before
@@ -142,8 +142,8 @@ Phases, each on a line of its own; any failure exits non-zero:
    bf16 one at B=8;
 11. vision: siglip-base-patch16-224 at full width (a 12-layer ViT, H 768,
    12 heads, 196 patches of 16×16; the bge-base-en-v1.5 text tower;
-   seeded random bf16 weights) through ``MultimodalEncoder``: 4,096 seeded
-   uint8 224×224 images at ``max_batch`` 256 and 4,096 texts of the main
+   seeded random bf16 weights) through ``MultimodalEncoder``: 2,048 seeded
+   uint8 224×224 images at ``max_batch`` 256 and 2,048 texts of the main
    corpus after one untimed batch of each, images/s and texts/s; a batch
    split into host conversion, padding and H2D ms against the forward's
    device ms (CUDA graphs), the device's idle share, and the text tower's
@@ -296,14 +296,14 @@ Phases, each on a line of its own; any failure exits non-zero:
    all-MiniLM-L6-v2 width with seeded weights.  ``resume``, in this
    process: ``[dataflow]``'s program (an async ``pw.udf`` through
    ``AsyncMicroBatcher``, the select, join and groupby) over
-   ``pw.io.jsonlines.read(mode="static", name="docs")`` of 16,384 texts
+   ``pw.io.jsonlines.read(mode="static", name="docs")`` of 8,192 texts
    in 8 files; run 1 reads 6 files to a clean finish on a fresh root, 2
    files are added and run 2 resumes on it, in ``PERSISTING`` (the UDF
    under ``DiskCache``) and in ``OPERATOR_PERSISTING``; one unbroken run
    over the 8 files without persistence is the reference.  Gated on run
    2's net sink state against the unbroken run's (keys, ids, names and
    counts exact, vectors at cosine > 0.999, scores and sums within 1e-2
-   and 1e-3 relative) and on run 2 embedding exactly the 4,096 texts run 1
+   and 1e-3 relative) and on run 2 embedding exactly the 2,048 texts run 1
    did not, counted at the forwards: every replayed row a cache hit
    (input mode), ``replay_into`` 0 and the input taking only the new rows
    (operator mode); run 2's wall s against the unbroken run's, the bytes
@@ -325,6 +325,34 @@ Phases, each on a line of its own; any failure exits non-zero:
    a JSON file each and join the kernel line); child 2's time to its first
    answer and to a full index, the cache hit share, the chunks each child
    embedded and the time from the kill to the answers;
+15e. cluster: more than one worker (``engine/comm.py``'s TCP mesh,
+   ``engine/supervisor.py``, ``engine/standby.py``) at full
+   all-MiniLM-L6-v2 width with seeded weights: part A's program of
+   ``[persistence]`` (the async embedder UDF through ``AsyncMicroBatcher``,
+   the score, a join with the sources and the per-source groupby, into
+   jsonlines sinks, one ``.part-N`` a worker) over 16,384 texts of its
+   generator from a ``pw.io.python`` subject that commits every 256 (64
+   epochs) and ends; the subject is read on worker 0 and the exchange
+   scatters its rows.  Run A is one worker in this process; runs B-D are
+   ``python -m pathway_tpu_torch spawn -n 2`` (fresh interpreters, started
+   together, each loading MiniLM and then running on its go file, one run
+   at a time): B unbroken; C ``--supervise --checkpoint-root`` with input
+   snapshots and ``PATHWAY_FAULT_PLAN`` SIGKILLing worker 1 at its epoch
+   24; D as C with ``--standbys 1``, worker 1 SIGKILLed from here once
+   6,144 texts are embedded (an epoch spec would fire again in the
+   promoted standby, whose epochs count from 0 and whose attempt stays 0).
+   Rows/s of A and B, each worker's texts, forwards, device ms (CUDA
+   events), idle share and peak memory; C's and D's seconds from the kill
+   to the first output after it and to the end, the texts embedded after
+   the restart, the generations under the root.  Gated on each run's net
+   state against A's (keys, ids, names and counts exact, vectors at
+   cosine > 0.999, scores and per-source sums within 1e-4, each sum its
+   docs' scores), B's workers embedding exactly 16,384 texts, C's SIGKILL
+   and group restart (a crash dump of worker 1, the last attempt ending
+   clean), D's promotion with worker 0 one process throughout, a clean
+   ``scrub`` of C's and D's roots, no worker running ``nvcc``, and every
+   worker process launching the kernel once per layer of each forward,
+   each shape it gave held to the plain attention;
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
    package's does): ``VectorStoreServer`` over
@@ -332,13 +360,13 @@ Phases, each on a line of its own; any failure exits non-zero:
    the shared default executor, batches of up to 256),
    ``TokenCountSplitter()``, ``ParseUtf8`` and a cosine ``BruteForceKnn``,
    fed by ``pw.io.fs.read(mode="streaming", format="binary",
-   with_metadata=True)`` over 4,096 files of 100-1,000 words and queried
+   with_metadata=True)`` over 1,024 files of 100-1,000 words and queried
    through ``pw.io.python.read``, its answers, its chunk table and its
    statistics read by ``pw.io.subscribe``: once the corpus is indexed, 16
    batches of 64 queries at k=10 (8-32 word spans of live chunks with a
    quarter of the words swapped), each committed and answered before the
    next; 512 live changes (256 files added, 128 deleted, 128
-   rewritten) in 8 bursts 0.25 s apart; once the statistics show 4,224
+   rewritten) in 8 bursts 0.25 s apart; once the statistics show 1,152
    files and every change has shown in the chunk table, 16 more batches;
    the answers' subscriber ends the run with an exception of the phase's
    own at the last query's first answer.  Ingest chunks/s and docs/s, host
@@ -353,7 +381,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b, 15c and 15d (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b-15e (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -894,7 +922,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "temporal", "generate", "moe", "speculative", "vision", "lora",
-             "train", "parallel", "sharded", "rag", "hybrid", "persistence", "vector_store")
+             "train", "parallel", "sharded", "rag", "hybrid", "persistence", "cluster", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -1256,9 +1284,9 @@ def encoders_phase(device, seed: int, checked: dict, texts, lengths, n_texts: in
 # The shared executor's rail around phases 4-6, and phase 7: the executor.
 # ---------------------------------------------------------------------------
 
-EXEC_BATCHES = 64  # benchmarks/device_executor.py:90-131's overlap pattern
+EXEC_BATCHES = 32  # benchmarks/device_executor.py:90-131's overlap pattern; 64 until [cluster]
 EXEC_BATCH = 512
-BATCHER_TEXTS = 8192
+BATCHER_TEXTS = 4096  # 8,192 until [cluster]
 BATCHER_MAX = 256  # SentenceTransformerEmbedder's max_batch_size (xpacks/llm/embedders.py:49)
 BATCHER_FLUSH_S = 0.002
 OOM_ROWS = 512
@@ -1700,10 +1728,10 @@ def executor_phase(device, seed: int, checked: dict, texts) -> dict:
 # Phase 7b: a Table program that embeds through the encoder kernel.
 # ---------------------------------------------------------------------------
 
-DATAFLOW_DOCS = 65536
+DATAFLOW_DOCS = 16384  # 65,536 until [cluster] (PERF.md section 4)
 DATAFLOW_EPOCHS = 8  # at even times 2-16
 DATAFLOW_SOURCES = 64
-DATAFLOW_CHANGES = 4096  # retracted, and as many replaced, in a ninth epoch
+DATAFLOW_CHANGES = 1024  # retracted, and as many replaced, in a ninth epoch
 DATAFLOW_BATCH = 256  # SentenceTransformerEmbedder's max_batch_size (xpacks/llm/embedders.py:49)
 DATAFLOW_SUM_REL = 1e-3
 
@@ -1762,16 +1790,17 @@ def dataflow_schemas(pw):
     return Doc, Source
 
 
-def dataflow_program(pw, stream: dict, embed, query, docs=None) -> dict:
+def dataflow_program(pw, stream: dict, embed, query, docs=None, sources=None) -> dict:
     """The ``[dataflow]`` Table program, for either package as ``pw``: the
     docs (``stream["rows"]``, or the table ``docs``) embedded by ``embed``,
-    scored against the unit vector ``query``, joined with their source, and
-    each source's count and score sum.  Returns ``{"docs": ...,
-    "per_source": ...}``."""
+    scored against the unit vector ``query``, joined with their source (the
+    table ``sources``, or ``stream["sources"]``), and each source's count
+    and score sum.  Returns ``{"docs": ..., "per_source": ...}``."""
     Doc, Source = dataflow_schemas(pw)
     if docs is None:
         docs = pw.debug.table_from_rows(Doc, stream["rows"], is_stream=True)
-    sources = pw.debug.table_from_rows(Source, stream["sources"])
+    if sources is None:
+        sources = pw.debug.table_from_rows(Source, stream["sources"])
     query = np.asarray(query, np.float32)
     vecs = docs.select(doc_id=pw.this.doc_id, source=pw.this.source, vec=embed(pw.this.text))
     scored = vecs.select(pw.this.doc_id, pw.this.source, pw.this.vec,
@@ -1945,7 +1974,7 @@ def dataflow_phase(device, seed: int, checked: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TEMPORAL_MODEL = BGE_MODEL  # BASELINE.md's streaming-ingest model
-TEMPORAL_EVENTS = 32768
+TEMPORAL_EVENTS = 16384  # 32,768 until [cluster] (PERF.md section 4)
 TEMPORAL_COMMITS = 64  # of about 512 events, in event-time order
 TEMPORAL_TOPICS = 16  # drawn Zipf-distributed, exponent 1.0
 TEMPORAL_DAY = 86400  # event times in seconds
@@ -3309,8 +3338,8 @@ VISION_MODEL = "siglip-base-patch16-224"
 VISION_WIDTHS = dict(image_size=224, patch=16, hidden=768, layers=12, heads=12, intermediate=3072, proj_dim=768)
 TEXT_TOWER_WIDTHS = dict(hidden=768, layers=12, heads=12, intermediate=3072)  # bge-base-en-v1.5
 VISION_BATCH = 256  # MultimodalEncoder's default max_batch
-VISION_IMAGES = 4096
-VISION_TEXTS = 4096
+VISION_IMAGES = 2048  # 4,096 each until [cluster] (PERF.md section 4)
+VISION_TEXTS = 2048
 VISION_CHECK_ROWS = 64
 RESIZE_IMAGES, RESIZE_FROM = 256, 320
 SO400M_MODEL = "siglip-so400m-patch14-384"
@@ -4723,9 +4752,9 @@ def sharded_phase(device, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PERSIST_MODEL = "all-MiniLM-L6-v2"
-PERSIST_DOCS = 16384  # in PERSIST_FILES jsonlines files
+PERSIST_DOCS = 8192  # in PERSIST_FILES jsonlines files; 16,384 until [cluster] (PERF.md section 4)
 PERSIST_FILES = 8
-PERSIST_FIRST = 6  # files of run 1; the other 2 (4,096 texts) come before run 2
+PERSIST_FIRST = 6  # files of run 1; the other 2 (2,048 texts) come before run 2
 PERSIST_SOURCES = 64
 PERSIST_SERVED = 1024  # part B's files, of [vector_store]'s generator
 PERSIST_SERVE_BATCH = 128  # files written at a time while child 1 ingests ...
@@ -4737,15 +4766,15 @@ PERSIST_K = 10
 PERSIST_WAIT_S = 300.0  # the longest any stage of part B may wait
 
 
-def persist_docs(seed: int) -> dict:
-    """Part A's input: ``PERSIST_DOCS`` texts of the main generator keyed by
+def persist_docs(seed: int, n_docs: int = PERSIST_DOCS) -> dict:
+    """Part A's input: ``n_docs`` texts of the main generator keyed by
     ``doc_id`` with one of ``PERSIST_SOURCES`` source ids, split into
     ``PERSIST_FILES`` files of consecutive ids."""
-    texts, _, _, _ = synthetic_corpus(PERSIST_DOCS, seed + 301)
+    texts, _, _, _ = synthetic_corpus(n_docs, seed + 301)
     if len(set(texts)) != len(texts):
         fail("persistence: the seeded corpus repeats a text")
-    sources = np.random.default_rng(seed + 303).integers(0, PERSIST_SOURCES, size=PERSIST_DOCS)
-    per = PERSIST_DOCS // PERSIST_FILES
+    sources = np.random.default_rng(seed + 303).integers(0, PERSIST_SOURCES, size=n_docs)
+    per = n_docs // PERSIST_FILES
     files = [[{"doc_id": i, "text": texts[i], "source": int(sources[i])} for i in range(f * per, (f + 1) * per)]
              for f in range(PERSIST_FILES)]
     names = [(s, f"source-{s:02d}") for s in range(PERSIST_SOURCES)]
@@ -5370,11 +5399,582 @@ def persistence_phase(device, seed: int, checked: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15e: more than one worker (the TCP mesh, the supervisor, standbys).
+# ---------------------------------------------------------------------------
+
+CLUSTER_MODEL = "all-MiniLM-L6-v2"
+CLUSTER_DOCS = 16384  # of persist_docs's generator
+CLUSTER_COMMIT = 256  # texts a commit of the subject: 64 epochs
+CLUSTER_KILL_EPOCH = 24  # worker 1 dies at this epoch (C: the fault plan; D: from outside)
+CLUSTER_SNAPSHOT_MS = 100
+CLUSTER_WAIT_S = 300.0  # the longest a spawned run may take
+CLUSTER_SUM_TOL = 1e-4  # scores and per-source sums (relative to max(|sum|, 1)) against run A's
+
+
+def vec_text(v) -> str:
+    """A vector as the docs sink writes it: its f16 bytes in base64 (1 KB a
+    row where the f32 list would be 7 KB of JSON), rounding each component
+    by 2^-11 at most, well inside the cosine > 0.999 gate."""
+    import base64
+
+    return base64.b64encode(np.asarray(v, np.float16).tobytes()).decode()
+
+
+def cluster_program(pw, texts, sources, embed, query, out_dir: str, root: str | None):
+    """``[persistence]`` part A's Table program over a ``pw.io.python`` subject
+    that commits every ``CLUSTER_COMMIT`` texts (one epoch each) and ends:
+    the async embedder UDF, the score, the join with the sources (a static
+    table each worker keeps its key shard of) and the per-source groupby,
+    into jsonlines sinks (``.part-N`` per worker), persisted with input
+    snapshots on ``root`` when given."""
+    from pathway_tpu_torch.io._utils import make_static_input_table
+
+    Doc, Source = dataflow_schemas(pw)
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for start in range(0, len(texts), CLUSTER_COMMIT):
+                for i in range(start, min(len(texts), start + CLUSTER_COMMIT)):
+                    self.next(doc_id=i, text=texts[i], source=int(sources[i]))
+                self.commit()
+
+    docs = pw.io.python.read(Feed(), schema=Doc, name="docs")
+    names = make_static_input_table(Source, [{"source": s, "name": f"source-{s:02d}"}
+                                             for s in range(PERSIST_SOURCES)])
+    tables = dataflow_program(pw, {}, embed, query, docs=docs, sources=names)
+    out = tables["docs"].select(pw.this.doc_id, pw.this.name, pw.this.score,
+                                vec=pw.apply_with_type(vec_text, str, pw.this.vec))
+    pw.io.jsonlines.write(out, os.path.join(out_dir, "docs.jsonl"))
+    pw.io.jsonlines.write(tables["per_source"], os.path.join(out_dir, "per_source.jsonl"))
+    config = None
+    if root is not None:
+        config = pw.persistence.Config(pw.persistence.Backend.filesystem(root),
+                                       snapshot_interval_ms=CLUSTER_SNAPSHOT_MS)
+    try:
+        pw.run(persistence_config=config, monitoring_level=pw.MonitoringLevel.NONE)
+    finally:
+        pw.G.clear()  # a later phase's pw.run must not run these sinks again
+
+
+def cluster_inputs(seed: int, n_docs: int):
+    """The texts, their source ids and the unit query: ``[persistence]``
+    part A's generator (``persist_docs``) at ``CLUSTER_DOCS``, so every
+    process draws the same."""
+    data = persist_docs(seed, CLUSTER_DOCS)
+    sources = [row["source"] for rows in data["files"] for row in rows]
+    query = np.random.default_rng(seed + 307).normal(size=384).astype(np.float32)
+    return data["texts"][:n_docs], sources[:n_docs], query / np.linalg.norm(query)
+
+
+class ClusterProbe:
+    """What one process's forwards did: texts, forwards, their device ms
+    (CUDA events around each) and end times, the kernel's launches and
+    shapes.  ``write`` puts it, with the process's worker identity read
+    from the environment then (a promoted standby's changes), into
+    ``path``."""
+
+    def __init__(self, enc, path: str | None, device):
+        from pathway_tpu_torch.ops.attention import encoder_attention
+
+        self.kernel = encoder_attention
+        self.enc, self.path, self.device = enc, path, device
+        self.seen: dict = {}
+        self.hook = record_launches(enc, self.seen)
+        self.texts = self.forwards = 0
+        self.device_ms = 0.0
+        self.ends: list = []
+        self.fields: dict = {"pid": os.getpid()}
+
+    def zero(self) -> None:
+        self.kernel.launches = 0
+        self.seen.clear()
+        self.texts = self.forwards = 0
+        self.device_ms = 0.0
+        self.ends.clear()
+
+    def process(self, items):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = self.enc.encode(items)
+        if cuda:
+            stop.record()
+            stop.synchronize()
+            self.device_ms += start.elapsed_time(stop)
+        self.texts += len(items)
+        self.forwards += 1
+        self.ends.append(time.time())
+        self.write()
+        return out
+
+    def write(self, **fields) -> None:
+        self.fields.update(fields)
+        if self.path is None:
+            return
+        standby = os.environ.get("PATHWAY_STANDBY_ID")
+        out = dict(self.fields, process_id=int(os.environ.get("PATHWAY_PROCESS_ID", "0")),
+                   standby=None if standby is None else int(standby),
+                   attempt=int(os.environ.get("PATHWAY_RESTART_ATTEMPT", "0")),
+                   launches=self.kernel.launches, seen=[[list(k), v] for k, v in self.seen.items()],
+                   texts=self.texts, forwards=self.forwards, device_ms=self.device_ms, ends=self.ends)
+        if self.device.type == "cuda":
+            out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        with open(self.path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(self.path + ".tmp", self.path)
+
+
+def cluster_worker(spec_path: str) -> int:
+    """One worker process of runs B-D, started by ``python -m
+    pathway_tpu_torch spawn`` as ``chip_smoke.py --cluster-worker SPEC``:
+    MiniLM with the seeded weights on the card, then ``cluster_program``;
+    after each forward and at its end it writes its ``ClusterProbe`` to
+    ``reports/<pid>.json``, with whether it had to run ``nvcc``."""
+    entered = time.time()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pathway_tpu_torch.ops import _build
+
+    nvcc_runs: list = []
+    build = _build.build
+
+    def counted_build(names=None, **kwargs):
+        nvcc_runs.extend(n for n in (names or _build.sources()) if not _build.library_path(n).exists())
+        return build(names, **kwargs)
+
+    _build.build = counted_build  # load() builds through the module's name
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    device = torch.device(spec["device"])
+    enc = pw.SentenceEncoder(CLUSTER_MODEL, seed=spec["seed"], device=device)
+    enc.set_params(init_params(enc.config, spec["seed"]))
+    texts, sources, query = cluster_inputs(spec["seed"], spec["docs"])
+    probe = ClusterProbe(enc, os.path.join(spec["reports"], f"{os.getpid()}.json"), device)
+    batcher = AsyncMicroBatcher(probe.process, max_batch_size=DATAFLOW_BATCH,
+                                executor=get_default_executor(device), name="cluster:embedder")
+    probe.write(entered=entered, ready=time.time(), nvcc=nvcc_runs, ended=False)
+    while not os.path.exists(spec["go"]):  # the three clusters start together; each runs on its go
+        time.sleep(0.02)
+    probe.zero()
+    run_start = time.time()
+    probe.write(run_start=run_start)
+    cluster_program(pw, texts, sources, embedding_udf(pw, batcher.submit), query, spec["out"], spec["root"])
+    probe.write(run_end=time.time(), nvcc=nvcc_runs, ended=True)
+    probe.hook.remove()
+    return 0
+
+
+def cluster_net(out_dir: str, workers: int = 2) -> dict:
+    """The net state of a run's sinks over every worker's part file:
+    ``{"docs": {doc_id: (name, score, vec)}, "per_source": {name: (count,
+    total)}}``; fails on a key with two live rows."""
+    import base64
+
+    state: dict = {}
+    for table in ("docs", "per_source"):
+        net: dict = {}
+        base = os.path.join(out_dir, f"{table}.jsonl")
+        for path in [base] + [f"{base}.part-{w}" for w in range(1, workers)]:
+            if not os.path.exists(path):
+                continue
+            with open(path) as f:
+                for line in f:
+                    obj = json.loads(line)
+                    diff = obj.pop("diff")
+                    obj.pop("time")
+                    row = json.dumps(obj, sort_keys=True)
+                    net[row] = net.get(row, 0) + diff
+        if any(c < 0 or c > 1 for c in net.values()):
+            fail(f"cluster: {out_dir}: {table} nets to counts outside 0/1")
+        live: dict = {}
+        for row, c in net.items():
+            if c:
+                obj = json.loads(row)
+                key = obj["doc_id"] if table == "docs" else obj["name"]
+                if key in live:
+                    fail(f"cluster: {out_dir}: {table} key {key} has two live rows")
+                live[key] = ((obj["name"], obj["score"], np.frombuffer(base64.b64decode(obj["vec"]), np.float16))
+                             if table == "docs" else (obj["count"], obj["total"]))
+        state[table] = live
+    return state
+
+
+def cluster_state_check(live: dict, ref: dict) -> dict:
+    """A run's net state against run A's: keys, doc ids, names and counts
+    exact; vectors at cosine > ``COS_MIN``; scores and per-source totals
+    within ``CLUSTER_SUM_TOL``; each total the sum of its own live docs'
+    scores (1e-6 relative: no row hides in a sum) and off run A's total by
+    no more than its docs' scores are.  A worker's forwards hold other
+    texts than run A's, so a text shares its batch with others: on the
+    card the rows come out the same (PERF.md), where the CPU's plain path
+    moves scores by up to 6e-4."""
+    docs, ref_docs = live["docs"], ref["docs"]
+    groups, ref_groups = live["per_source"], ref["per_source"]
+    out = {"docs_keys_equal": sorted(docs) == sorted(ref_docs),
+           "per_source_keys_equal": sorted(groups) == sorted(ref_groups)}
+    common = sorted(set(docs) & set(ref_docs))
+    if not common or not out["per_source_keys_equal"]:
+        return dict(out, min_cos_vs_a=0.0, names_equal=False, counts_equal=False, max_score_err=1.0,
+                    max_sum_rel_err=1.0, sums_consistent=False, sums_within_score_errors=False)
+    a = np.stack([docs[k][2] for k in common]).astype(np.float32)
+    b = np.stack([ref_docs[k][2] for k in common]).astype(np.float32)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    score_err = {k: abs(docs[k][1] - ref_docs[k][1]) for k in common}
+    own_sum: dict = {}
+    err_sum: dict = {}
+    for k, (name, score, _vec) in docs.items():
+        own_sum[name] = own_sum.get(name, 0.0) + score
+        err_sum[name] = err_sum.get(name, 0.0) + score_err.get(k, 1.0)
+    sum_err = {k: abs(groups[k][1] - ref_groups[k][1]) for k in groups}
+    scale = {k: max(abs(ref_groups[k][1]), 1.0) for k in groups}
+    out.update(
+        min_cos_vs_a=float(cos.min()),
+        names_equal=all(docs[k][0] == ref_docs[k][0] for k in common),
+        max_score_err=max(score_err.values()),
+        scores_within_1e4=sum(e <= CLUSTER_SUM_TOL for e in score_err.values()) / len(score_err),
+        counts_equal=all(groups[k][0] == ref_groups[k][0] for k in groups),
+        max_sum_rel_err=max(sum_err[k] / scale[k] for k in groups),
+        sums_within_1e4=sum(sum_err[k] <= CLUSTER_SUM_TOL * scale[k] for k in groups) / len(groups),
+        sums_consistent=all(abs(groups[k][1] - own_sum.get(k, 0.0)) <= 1e-6 * scale[k] for k in groups),
+        sums_within_score_errors=all(sum_err[k] <= err_sum.get(k, 0.0) + 1e-6 * scale[k] for k in groups),
+    )
+    return out
+
+
+def cluster_gate(run: str, state: dict) -> None:
+    if not (state["docs_keys_equal"] and state["per_source_keys_equal"] and state["names_equal"]
+            and state["counts_equal"] and state["sums_consistent"]):
+        fail(f"cluster: run {run}'s net state is not run A's: {state}")
+    if state["min_cos_vs_a"] <= COS_MIN or state["max_score_err"] > CLUSTER_SUM_TOL \
+            or state["max_sum_rel_err"] > CLUSTER_SUM_TOL or not state["sums_within_score_errors"]:
+        fail(f"cluster: run {run}'s vectors, scores or sums part from run A's: {state}")
+
+
+def read_reports(reports_dir: str) -> list:
+    out = []
+    for name in sorted(os.listdir(reports_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(reports_dir, name)) as f:
+                rep = json.load(f)
+            rep["seen"] = {tuple(k): v for k, v in rep["seen"]}
+            out.append(rep)
+    return out
+
+
+def cluster_start(run: str, base: str, seed: int, device, n_docs: int, args: list, env_extra: dict,
+                  port: int) -> dict:
+    """Start one run of ``cluster_worker`` through ``python -m
+    pathway_tpu_torch spawn -n 2 <args>`` in a fresh interpreter, in a
+    process group of its own (``cluster_stop`` kills it whole); its workers
+    load the model and wait for the run's go file."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(base, run)
+    out_dir, reports = os.path.join(run_dir, "out"), os.path.join(run_dir, "reports")
+    os.makedirs(out_dir)
+    os.makedirs(reports)
+    root = os.path.join(run_dir, "pstore") if "--checkpoint-root" in args else None
+    spec_path, go = os.path.join(run_dir, "spec.json"), os.path.join(run_dir, "go")
+    with open(spec_path, "w") as f:
+        json.dump({"seed": seed, "device": str(device), "docs": n_docs, "out": out_dir, "root": root,
+                   "reports": reports, "go": go}, f)
+    args = [root if a == "ROOT" else a for a in args]
+    cmd = [sys.executable, "-m", "pathway_tpu_torch", "spawn", "-n", "2", "--first-port", str(port),
+           *args, sys.executable, os.path.abspath(__file__), "--cluster-worker", spec_path]
+    # one CPU thread a process: a worker's host work is the dataflow's Python
+    # and the tokenizer, and eight processes starting at once on the host's
+    # cores would otherwise each spin up a thread a core
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1", **env_extra)
+    log_path = os.path.join(run_dir, "spawn.log")
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return {"run": run, "root": root, "out": out_dir, "reports_dir": reports, "go": go, "log_path": log_path,
+            "proc": proc, "t_start": time.time()}
+
+
+def cluster_stop(run: dict) -> None:
+    """Kill the spawn CLI, its workers and standbys: the whole group."""
+    import signal
+
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+    run["proc"].wait()
+
+
+def cluster_finish(run: dict, watch=None) -> dict:
+    """Open the run's go file and wait for its spawn to end, polling
+    ``watch(reports_dir)`` meanwhile (run D's killer); the run's exit code
+    must be 0.  Adds its stderr, its seconds from go to the end and the
+    processes' reports."""
+    proc = run["proc"]
+    t0 = time.time()
+    open(run["go"], "w").close()
+    while proc.poll() is None:
+        if time.time() - t0 > CLUSTER_WAIT_S:
+            fail(f"cluster: run {run['run']} did not end within {CLUSTER_WAIT_S} s")
+        if watch is not None:
+            watch(run["reports_dir"])
+        time.sleep(0.05)
+    run.update(wall_s=time.time() - t0, t0=t0)
+    with open(run["log_path"]) as f:
+        run["log"] = f.read()
+    if proc.returncode != 0:
+        print(run["log"][-6000:], file=sys.stderr, flush=True)
+        fail(f"cluster: run {run['run']} exited {proc.returncode}")
+    run["reports"] = read_reports(run["reports_dir"])
+    return run
+
+
+def cluster_ready(runs: list, counts: list) -> float:
+    """Wait until every run's processes (``counts``: workers and standbys)
+    have the model on the card; fails if a spawn exits first.  Returns the
+    seconds waited."""
+    t0 = time.time()
+    while True:
+        ready = [len([r for r in read_reports(run["reports_dir"]) if "ready" in r]) for run in runs]
+        if all(n >= c for n, c in zip(ready, counts)):
+            return time.time() - t0
+        for run in runs:
+            if run["proc"].poll() is not None:
+                with open(run["log_path"]) as f:
+                    print(f.read()[-6000:], file=sys.stderr, flush=True)
+                fail(f"cluster: run {run['run']} exited {run['proc'].returncode} before its go")
+        if time.time() - t0 > CLUSTER_WAIT_S:
+            fail(f"cluster: {ready} of {counts} processes ready after {CLUSTER_WAIT_S} s")
+        time.sleep(0.1)
+
+
+def free_port_run(n: int, taken: list) -> int:
+    """The first of ``n`` consecutive free localhost ports, apart from the
+    ranges in ``taken`` (appended to): every run gets ports of its own, so
+    an old run's sockets in TIME_WAIT are never in the way."""
+    import socket
+
+    for _ in range(50):
+        base = free_port()
+        ok = all(abs(base - t) >= n for t in taken)
+        for p in range(base, base + n):
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", p))
+                except OSError:
+                    ok = False
+                    break
+        if ok:
+            taken.append(base)
+            return base
+    fail("cluster: no run of free ports")
+
+
+def worker_stats(reports: list) -> list:
+    """Per process: its identity, texts, forwards, device ms, idle share
+    over its ``pw.run`` (1 - device s / run s), peak memory and nvcc runs."""
+    out = []
+    for r in reports:
+        run_s = (r["run_end"] - r["run_start"]) if r.get("ended") else None
+        out.append({"pid": r["pid"], "process_id": r["process_id"], "standby": r["standby"],
+                    "attempt": r["attempt"], "ended": r.get("ended", False), "texts": r["texts"],
+                    "forwards": r["forwards"], "device_ms": r["device_ms"],
+                    "run_s": run_s, "idle_share": (1.0 - r["device_ms"] / 1000.0 / run_s) if run_s else None,
+                    "peak_mem_bytes": r.get("peak_mem_bytes"), "nvcc": r.get("nvcc"),
+                    "setup_s": r["ready"] - r["entered"], "launches": r["launches"]})
+    return out
+
+
+def generations(root: str) -> dict:
+    mdir = os.path.join(root, "manifests")
+    return {w: len([n for n in os.listdir(os.path.join(mdir, w)) if not n.endswith(".tmp")])
+            for w in sorted(os.listdir(mdir))} if os.path.isdir(mdir) else {}
+
+
+def scrub_ok(root: str) -> bool:
+    """``python -m pathway_tpu_torch.cli scrub ROOT``'s exit code is 0 (its
+    ``main``, called here: the same code without an interpreter's start)."""
+    from pathway_tpu_torch import cli
+
+    with contextlib.redirect_stdout(sys.stderr):
+        return cli.main(["scrub", root]) == 0
+
+
+def first_output_after(reports: list, t: float, exclude_pid: int | None = None) -> float | None:
+    ends = [e for r in reports if r["pid"] != exclude_pid for e in r["ends"] if e > t]
+    return min(ends) - t if ends else None
+
+
+def cluster_phase(device, seed: int, checked: dict, n_docs: int = CLUSTER_DOCS) -> dict:
+    """Phase 15e: ``[persistence]`` part A's program at full all-MiniLM-L6-v2
+    width as one worker in this process (A), then as a 2-worker cluster
+    through ``python -m pathway_tpu_torch spawn`` (B), supervised with
+    worker 1 SIGKILLed at epoch 24 by the fault plan (C), and with a warm
+    standby promoted in its place after a SIGKILL from here (D).
+    ``checked`` gains the attention shapes the runs gave the kernel."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops import _build
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    ex = get_default_executor(device)
+    enc = pw.SentenceEncoder(CLUSTER_MODEL, seed=seed, device=device)
+    enc.set_params(init_params(enc.config, seed))  # the workers' weights
+    texts, sources, query = cluster_inputs(seed, n_docs)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_cluster")
+    os.makedirs(work, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="run_", dir=work)
+    prebuilt = all(_build.library_path(n).exists() for n in _build.sources())
+    probe = ClusterProbe(enc, None, device)
+    batcher = AsyncMicroBatcher(probe.process, max_batch_size=DATAFLOW_BATCH, executor=ex,
+                                name="cluster:embedder")
+    started: list = []
+    try:
+        # ---- run A, the counted run in this process: counts zeroed just before, read just after ----
+        a_out = os.path.join(base, "A")
+        os.makedirs(a_out)
+        probe.zero()
+        t0 = time.perf_counter()
+        cluster_program(pw, texts, sources, embedding_udf(pw, batcher.submit), query, a_out, None)
+        a_s = time.perf_counter() - t0
+        launches_a = probe.kernel.launches
+        # ---- end of run A ----
+        probe.hook.remove()
+        expected = sum(probe.seen.values())
+        if launches_a != expected or not expected:
+            fail(f"cluster: run A: attention launches {launches_a} != {expected} ({probe.seen})")
+        shapes = dict(probe.seen)
+        ref = cluster_net(a_out, 1)
+        a = {"rows_per_s": n_docs / a_s, "wall_s": a_s, "texts": probe.texts, "forwards": probe.forwards,
+             "device_ms": probe.device_ms, "idle_share": 1.0 - probe.device_ms / 1000.0 / a_s}
+        log("cluster", run="A", **a)
+        if probe.texts != n_docs or len(ref["docs"]) != n_docs:
+            fail(f"cluster: run A embedded {probe.texts} texts and left {len(ref['docs'])} docs, not {n_docs}")
+
+        # ---- runs B-D start together (each a fresh `spawn`); each runs on its go, one at a time ----
+        plan = {"seed": 7, "faults": [{"kind": "crash", "worker": 1, "at_epoch": CLUSTER_KILL_EPOCH, "attempt": 0}]}
+        taken: list = []
+        for name, args, extra in (
+                ("B", [], {}),  # -n 2, unbroken
+                ("C", ["--supervise", "--checkpoint-root", "ROOT"],  # worker 1 SIGKILLed at its epoch 24 by the plan
+                 {"PATHWAY_FAULT_PLAN": json.dumps(plan)}),
+                ("D", ["--supervise", "--standbys", "1", "--checkpoint-root", "ROOT"], {})):  # killed from here
+            started.append(cluster_start(name, base, seed, device, n_docs, args, extra, free_port_run(4, taken)))
+        ready_s = cluster_ready(started, [2, 2, 3])
+        killed: dict = {}
+
+        def killer(reports_dir):
+            if killed:
+                return
+            reps = read_reports(reports_dir)
+            primaries = [r for r in reps if r["standby"] is None]
+            if sum(r["texts"] for r in primaries) < CLUSTER_KILL_EPOCH * CLUSTER_COMMIT:
+                return
+            victim = [r for r in primaries if r["process_id"] == 1]
+            if victim:
+                os.kill(victim[0]["pid"], signal.SIGKILL)
+                killed.update(pid=victim[0]["pid"], t=time.time(),
+                              texts=sum(r["texts"] for r in primaries))
+
+        runs = {run["run"]: cluster_finish(run, killer if run["run"] == "D" else None) for run in started}
+        if not killed:
+            fail("cluster: run D ended before worker 1 could be killed")
+        results = {"A": a}
+        for name, run in runs.items():
+            state = cluster_state_check(cluster_net(run["out"]), ref)
+            reps = run["reports"]
+            stats = worker_stats(reps)
+            rep = {"wall_s": run["wall_s"], "state": state, "workers": stats,
+                   "texts": sum(r["texts"] for r in reps), "nvcc_runs": sum(len(r.get("nvcc") or []) for r in reps)}
+            if name == "B":
+                starts = [r["run_start"] for r in reps]
+                ends = [r["run_end"] for r in reps]
+                rep["run_s"] = max(ends) - max(starts)
+                rep["rows_per_s"] = n_docs / rep["run_s"]
+                rep["rows_per_s_over_a"] = rep["rows_per_s"] / a["rows_per_s"]
+                rep["spawn_to_go_s"] = run["t0"] - run["t_start"]
+                if len(reps) != 2 or rep["texts"] != n_docs:
+                    fail(f"cluster: run B: {len(reps)} workers embedded {rep['texts']} texts, not {n_docs}")
+            else:
+                rep["generations"] = generations(run["root"])
+                rep["scrub_clean"] = scrub_ok(run["root"])
+                if not rep["scrub_clean"]:
+                    fail(f"cluster: run {name}: scrub of its root failed")
+            if name == "C":
+                dump = os.path.join(run["root"], "blackbox", "worker-1.attempt-0.json")
+                if not os.path.exists(dump):
+                    fail("cluster: run C: worker 1 left no flight-recorder dump of its crash")
+                with open(dump) as f:
+                    crash = json.load(f)
+                t_kill = crash["dumped_at"]
+                later = [r for r in reps if r["attempt"] >= 1]
+                first = [r for r in reps if r["attempt"] == 0]
+                if "recovered after" not in run["log"] or "exited -9" not in run["log"] \
+                        or crash["reason"] != f"injected crash (worker 1, epoch {CLUSTER_KILL_EPOCH})":
+                    fail(f"cluster: run C: no SIGKILL of worker 1 and group restart in the log: {crash['reason']}")
+                if len(later) != 2 or not all(r.get("ended") for r in later) \
+                        or any(r.get("ended") for r in first if r["process_id"] == 1):
+                    fail(f"cluster: run C: attempts {[(r['attempt'], r['process_id'], r.get('ended')) for r in reps]}")
+                rep["restarts"] = int(run["log"].split("recovered after ")[1].split(" ")[0])
+                rep["kill_to_first_output_s"] = first_output_after(later, t_kill)
+                rep["kill_to_end_s"] = max(r["run_end"] for r in later) - t_kill
+                rep["texts_after_restart"] = sum(r["texts"] for r in later)
+                rep["texts_before_kill"] = sum(r["texts"] for r in first)
+            if name == "D":
+                workers0 = {r["pid"] for r in reps if r["process_id"] == 0 and r["standby"] is None}
+                promoted = [r for r in reps if r["pid"] != killed["pid"] and r["process_id"] == 1
+                            and r.get("ended") and r["standby"] is None]
+                if "standby promotion:" not in run["log"] or "recovered after" in run["log"]:
+                    fail("cluster: run D: no promotion in the log, or a group restart")
+                if len(workers0) != 1 or len(promoted) != 1 or not all(
+                        r.get("ended") for r in reps if r["pid"] != killed["pid"] and r["standby"] is None):
+                    fail(f"cluster: run D: worker 0 pids {workers0}, promoted {[r['pid'] for r in promoted]}")
+                rep["killed_at_texts"] = killed["texts"]
+                rep["kill_to_first_output_s"] = first_output_after(reps, killed["t"], killed["pid"])
+                rep["kill_to_end_s"] = max(r["run_end"] for r in reps if r.get("ended")) - killed["t"]
+                rep["promoted_standby_texts"] = promoted[0]["texts"]
+                rep["kill_to_promoted_first_output_s"] = first_output_after(promoted, killed["t"])
+                rep["promotion_line"] = run["log"].split("standby promotion:")[1].splitlines()[0].strip()
+            log("cluster", run=name, **rep)
+            cluster_gate(name, state)
+            if rep["nvcc_runs"]:
+                fail(f"cluster: run {name}: a worker ran nvcc ({rep['nvcc_runs']} builds)")
+            for r in reps:  # every process launched the kernel once per layer of each forward
+                if r["launches"] != sum(r["seen"].values()) or (r["texts"] and not r["launches"]):
+                    fail(f"cluster: run {name}: pid {r['pid']} launched the kernel {r['launches']} times ({r['seen']})")
+                for shape, n in r["seen"].items():
+                    shapes[shape] = shapes.get(shape, 0) + n
+            results[name] = rep
+    finally:
+        for run in started:
+            cluster_stop(run)
+        threading.Thread(target=shutil.rmtree, args=(base, True), daemon=True).start()
+    launches = {"encoder_attention": launches_a + sum(r["launches"] for run in runs.values() for r in run["reports"])}
+    gen = torch.Generator(device=device).manual_seed(seed + 331)
+    for shape in sorted(set(shapes) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("cluster", step="shapes", launches={str(list(sh)): n for sh, n in sorted(shapes.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(shapes)})
+    log("cluster", step="summary", prebuilt=prebuilt, kernel_launches=launches, b_to_d_ready_s=ready_s,
+        c_vs_d_kill_to_first_output_s=[results["C"]["kill_to_first_output_s"],
+                                       results["D"]["kill_to_first_output_s"]])
+    return {"launches": launches, "attention_launches": shapes, "runs": results}
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: the connectors and the retrieval half of the LLM xpack.
 # ---------------------------------------------------------------------------
 
 VS_MODEL = "all-MiniLM-L6-v2"
-VS_FILES = 4096  # 16,384, then 8,192 passed the script's time limit with the later phases (PERF.md section 4)
+VS_FILES = 1024  # 16,384, 8,192, then 4,096 passed the script's time limit with the later phases (PERF.md section 4)
 VS_WORDS = (100, 1000)
 VS_BATCHES = 16  # per traffic stage, one commit each
 VS_QUERIES = 64
@@ -7287,10 +7887,13 @@ def hybrid_phase(device, seed: int, checked: dict, card: str, sizes: HybridSizes
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--docs", type=int, default=131072)
+    parser.add_argument("--docs", type=int, default=65536)  # 131,072 until [cluster] (PERF.md section 4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--skip", default="", help="comma-separated phases to leave out: " + ", ".join(SKIPPABLE))
+    parser.add_argument("--cluster-worker", metavar="SPEC", help=argparse.SUPPRESS)  # [cluster]'s workers
     args = parser.parse_args(argv)
+    if args.cluster_worker:
+        return cluster_worker(args.cluster_worker)
     skip = {name for name in args.skip.split(",") if name}
     if skip - set(SKIPPABLE):
         parser.error(f"--skip takes {', '.join(SKIPPABLE)}; got {args.skip!r}")
@@ -7404,6 +8007,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["persistence"] = persistence_phase(device, args.seed, checked)
         seconds["persistence"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "cluster" not in skip:
+        t_phase = time.perf_counter()
+        phases["cluster"] = cluster_phase(device, args.seed, checked)
+        seconds["cluster"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

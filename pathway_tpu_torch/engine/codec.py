@@ -10,6 +10,11 @@ C++ runtime (``native/``) behind the same interface.
 
 Events (the snapshot log unit, input_snapshot.rs Event enum):
   Insert(key, values) / Delete(key, values) / AdvanceTime(t) / Finished.
+
+One departure from ``pathway_tpu/engine/codec.py``: an array of an
+``ml_dtypes`` dtype (a bf16 UDF result) is written under the dtype's name,
+so it crosses the mesh and a snapshot as ``bfloat16`` with its bits; the
+JAX package writes its void ``str`` and reads back raw ``|V2`` bytes.
 """
 
 from __future__ import annotations
@@ -340,7 +345,11 @@ def encode_value(v: Any, out: _io.BytesIO) -> None:
             encode_value(item, out)
     elif isinstance(v, np.ndarray):
         arr = np.ascontiguousarray(v)
-        dts = arr.dtype.str.encode()
+        dt = arr.dtype
+        # an ml_dtypes dtype (bfloat16, the float8s) has a void ``str``
+        # (``<V2``) that would decode as raw bytes: its name keeps it
+        named = dt.kind == "V" and dt.names is None and dt.type.__module__ == "ml_dtypes"
+        dts = (dt.name if named else dt.str).encode()
         shape = arr.shape
         out.write(bytes([_T_NDARRAY]))
         _w_len(out, len(dts))
@@ -452,6 +461,9 @@ def decode_value(
             pos += 8
         n, pos = _r_len(buf, pos)
         b, pos = _take(buf, pos, n)
+        if dts[:1] not in "<>|=":  # a dtype by name: ml_dtypes registers it
+            import ml_dtypes  # noqa: F401
+
         arr = np.frombuffer(b, dtype=np.dtype(dts)).reshape(shape)
         return as_hashable(arr.copy()), pos
     if tag == _T_JSON:

@@ -2641,8 +2641,23 @@ class Scope:
         self.current_time = time
         worker = self.worker
         if self.parent is None:
-            # the worker fault kinds (epoch-boundary crash and hang
-            # injection) arrive with the supervisor in slice H4b
+            # epoch-boundary crash injection (chaos tests / soak runs):
+            # SIGKILLs the process here when the active fault plan says so —
+            # the boundary is where the supervisor's recovery guarantee
+            # (resume from the last committed checkpoint) must hold
+            from pathway_tpu_torch.engine import faults as _faults
+
+            if _faults.active_plan() is not None:
+                _faults.maybe_crash(
+                    worker=worker.worker_id if worker is not None else 0,
+                    epoch=self.epochs_run,
+                )
+                # hang injection shares the boundary: a wedged loop is the
+                # watchdog's problem, a SIGKILL is the supervisor's
+                _faults.maybe_hang(
+                    worker=worker.worker_id if worker is not None else 0,
+                    epoch=self.epochs_run,
+                )
             self.epochs_run += 1
         for node in self.nodes:
             try:

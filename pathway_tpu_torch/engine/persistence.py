@@ -42,8 +42,9 @@ stores ``S3Backend``, ``GcsBackend`` and ``AzureBackend`` reach clients the
 port brings in slice H6, so ``backend_from_config`` raises
 ``NotImplementedError`` for those kinds until then.  Their shared retry
 logic (``_PrefixedObjectStore``) is here.  The lease, handoff, promote and
-repartition functions are host code that only the supervisor and the
-multi-worker runner of slice H4b call.
+repartition functions are host code that the supervisor
+(``engine/supervisor.py``), the warm standby (``engine/standby.py``) and
+the multi-worker runner call.
 """
 
 from __future__ import annotations

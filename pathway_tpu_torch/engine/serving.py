@@ -26,10 +26,12 @@ ingress (``io/http/_server.py``):
   bounded quarantine); :func:`ready_for_handoff` stops accepting (``503``)
   and drains in-flight requests within ``PATHWAY_SERVE_DRAIN_S``.
 
-The promotion hooks (:func:`fail_inflight_for_promotion`,
-:func:`resume_after_promotion`) and :func:`ready_for_handoff` are copied
-but have no caller until the supervisor and live handoff of slice H4b; the
-freshness sensor behind :func:`set_pressure_supplier` comes with H5.
+The runner calls the promotion hooks (:func:`fail_inflight_for_promotion`
+when a standby promotion poisons the mesh, :func:`resume_after_promotion`
+on the in-process rejoin) and :func:`ready_for_handoff` before a live
+handoff fences the frontier; the flight recorder's dump carries
+:func:`snapshot_or_none`.  The freshness sensor behind
+:func:`set_pressure_supplier` comes with H5.
 """
 
 from __future__ import annotations

@@ -136,6 +136,104 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
     EnvKnob("PATHWAY_PERSISTENT_STORAGE", "str", None,
             "filesystem root for the UDF DiskCache when no persistence config "
             "is active"),
+    EnvKnob("PATHWAY_PERSISTENCE_MODE", "str", None,
+            "persistence/replay pacing mode (`batch` | `speedrun`)"),
+    EnvKnob("PATHWAY_REPLAY_MODE", "str", None,
+            "legacy alias of PATHWAY_PERSISTENCE_MODE written by `python -m "
+            "pathway_tpu_torch replay --mode`"),
+    EnvKnob("PATHWAY_THREADS", "int", 1,
+            "worker threads per spawned process (accepted for parity; the "
+            "device mesh is what scales compute)"),
+    EnvKnob("PATHWAY_RUN_ID", "str", None,
+            "cluster run id minted by `python -m pathway_tpu_torch spawn` "
+            "(one per run, kept across supervised restarts)"),
+    EnvKnob("PATHWAY_COMM_SECRET", "str", '',
+            "shared mesh handshake secret (`spawn` mints one per run); empty "
+            "disables authentication and pickled frame values"),
+    EnvKnob("PATHWAY_COMM_MAX_FRAME_MB", "int", 256,
+            "frame-size cap in MiB — a corrupt or hostile length field must not "
+            "OOM the worker"),
+    EnvKnob("PATHWAY_COMM_RECV_TIMEOUT_S", "float", 300.0,
+            "deadline for `recv()` waiting on a tagged frame"),
+    EnvKnob("PATHWAY_COMM_HEARTBEAT_S", "float", 2.0,
+            "heartbeat send interval per link"),
+    EnvKnob("PATHWAY_COMM_HEARTBEAT_TIMEOUT_S", "float", 30.0,
+            "force-fail a link whose peer was silent (or stopped acking) for "
+            "this long"),
+    EnvKnob("PATHWAY_COMM_RECONNECT_WINDOW_S", "float", 15.0,
+            "window a failed link may reconnect + resync before the peer is "
+            "declared dead and its inbox purged"),
+    EnvKnob("PATHWAY_COMM_SEND_DEADLINE_S", "float", None,
+            "SO_SNDTIMEO deadline on any single blocking socket write (default: "
+            "the heartbeat timeout; 0 disables)"),
+    EnvKnob("PATHWAY_COMM_SEND_BUFFER_MB", "float", 64.0,
+            "per-link retransmit buffer in MiB (unacked frames kept for "
+            "reconnect resync)"),
+    EnvKnob("PATHWAY_FAULT_PLAN", "str", None,
+            "seeded fault-injection plan (JSON) for chaos/soak runs"),
+    EnvKnob("PATHWAY_EPOCH_DEADLINE_S", "float", None,
+            "hung-worker watchdog: no epoch progress for this long → SIGUSR1 "
+            "(flight-recorder dump) → SIGTERM → SIGKILL into a supervised "
+            "restart (unset or <= 0 disables)"),
+    EnvKnob("PATHWAY_DEGRADED_SHRINK", "bool", False,
+            "degraded-mode shrink (opt-in): when the same worker fails every "
+            "attempt of a spent restart budget, rescale the supervised cluster "
+            "to the surviving count instead of failing — checkpointed state re- "
+            "partitions by shard range on resume"),
+    EnvKnob("PATHWAY_STANDBY_COUNT", "int", 0,
+            "warm-standby pool size (opt-in, `spawn --supervise --standbys`): K "
+            "extra processes tail the persistence root so unplanned worker loss "
+            "promotes a standby instead of restarting the group"),
+    EnvKnob("PATHWAY_STANDBY_ID", "int", None,
+            "exported by the supervisor into each standby process; its presence "
+            "is what routes a spawned worker into standby-tailer mode instead "
+            "of the event loop"),
+    EnvKnob("PATHWAY_STANDBY_POLL_S", "float", 0.2,
+            "standby tail cadence: how often a standby re-lists manifests, "
+            "verifies newly committed generations, and refreshes its apply- "
+            "cursor beacon"),
+    EnvKnob("PATHWAY_STANDBY_PROMOTE_DEADLINE_S", "float", 20.0,
+            "promotion deadline: if the standby + every survivor have not acked "
+            "the PROMOTE request within this budget, the supervisor aborts the "
+            "promotion and falls back to whole-group restart"),
+    EnvKnob("PATHWAY_STANDBY_PROMOTIONS", "int", 8,
+            "per-run promotion budget (separate from the restart budget): once "
+            "spent, further worker deaths fall back to whole-group restart"),
+    EnvKnob("PATHWAY_AUTOSCALE", "bool", False,
+            "load-adaptive autoscaling (opt-in): the supervisor polls worker "
+            "load beacons and grows/shrinks the cluster via live shard handoff "
+            "under the PATHWAY_AUTOSCALE_* budgets below"),
+    EnvKnob("PATHWAY_AUTOSCALE_MIN_WORKERS", "int", 1,
+            "shrink floor: the controller never targets fewer workers than this "
+            "(and never below 1 regardless)"),
+    EnvKnob("PATHWAY_AUTOSCALE_MAX_WORKERS", "int", 8,
+            "grow ceiling: the controller never targets more workers than this"),
+    EnvKnob("PATHWAY_AUTOSCALE_STALENESS_S", "float", 5.0,
+            "grow trigger: worst per-worker output staleness above this for a "
+            "full dwell window means the cluster is falling behind"),
+    EnvKnob("PATHWAY_AUTOSCALE_DWELL_S", "float", 10.0,
+            "hysteresis dwell: the grow trigger must hold CONTINUOUSLY for this "
+            "long before a rescale fires (one dip below threshold resets the "
+            "clock) — oscillating load never flaps"),
+    EnvKnob("PATHWAY_AUTOSCALE_COOLDOWN_S", "float", 60.0,
+            "post-rescale cooldown: no further scaling decision (either "
+            "direction) for this long after a rescale fires"),
+    EnvKnob("PATHWAY_AUTOSCALE_IDLE_S", "float", 30.0,
+            "shrink trigger: staleness comfortably low AND backlog ~empty "
+            "continuously for this long shrinks the cluster one step"),
+    EnvKnob("PATHWAY_AUTOSCALE_BUDGET", "int", 4,
+            "rescale budget: total grow/shrink decisions this supervisor run "
+            "may fire; exhaustion logs loudly and pins the topology"),
+    EnvKnob("PATHWAY_AUTOSCALE_HANDOFF_DEADLINE_S", "float", 30.0,
+            "live-handoff deadline: a posted handoff the workers have not fully "
+            "acked within this window falls back to the restart-based rescale"),
+    EnvKnob("PATHWAY_SPAWN_ARGS", "str", None,
+            "arguments for `python -m pathway_tpu_torch spawn-from-env` "
+            "(the k8s-operator hook)"),
+    EnvKnob("PATHWAY_TORCH_DISTRIBUTED", "bool", False,
+            "the host workers also join one torch.distributed world "
+            "(`spawn --torch-distributed`), the port's counterpart of "
+            "PATHWAY_JAX_DISTRIBUTED"),
 )
 
 ENV_REGISTRY: dict[str, EnvKnob] = {k.name: k for k in ENV_KNOBS}
@@ -149,6 +247,13 @@ def _knob(name: str) -> EnvKnob:
     if knob is None:
         raise KeyError(f"{name} is not a declared environment knob of the port")
     return knob
+
+
+def env_raw(name: str) -> str | None:
+    """The raw environment value of a declared knob (None when unset), for
+    knobs whose parse is deliberately custom."""
+    _knob(name)
+    return os.environ.get(name)
 
 
 def env_str(name: str, default: Any = ...) -> Any:
@@ -221,8 +326,8 @@ def worker_topology() -> WorkerTopology:
 @dataclasses.dataclass
 class PathwayConfig:
     """The fields of the JAX package's ``PathwayConfig`` that the port's
-    dataflow and its storage path read; the rest arrive with the slices
-    that read them."""
+    dataflow, its storage path and its multi-worker runner read; the rest
+    arrive with the slices that read them."""
 
     terminate_on_error: bool = dataclasses.field(
         default_factory=lambda: env_bool("PATHWAY_TERMINATE_ON_ERROR")
@@ -242,6 +347,22 @@ class PathwayConfig:
     process_id: int = dataclasses.field(
         default_factory=lambda: env_int("PATHWAY_PROCESS_ID")
     )
+    threads: int = dataclasses.field(default_factory=lambda: env_int("PATHWAY_THREADS"))
+    first_port: int = dataclasses.field(
+        default_factory=lambda: env_int("PATHWAY_FIRST_PORT")
+    )
+    # multi-host clusters: comma-separated hostname per worker id
+    # (PATHWAY_PEER_HOSTS=pod-0.svc,pod-1.svc,...); empty = localhost mesh
+    peer_hosts: list | None = dataclasses.field(
+        default_factory=lambda: worker_topology().peer_hosts
+    )
+    run_id: str | None = dataclasses.field(
+        default_factory=lambda: env_str("PATHWAY_RUN_ID")
+    )
+
+    @property
+    def worker_count(self) -> int:
+        return self.threads * self.processes
 
 
 _config_var: ContextVar[PathwayConfig | None] = ContextVar("pathway_config", default=None)

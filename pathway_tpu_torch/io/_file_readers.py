@@ -9,7 +9,9 @@ mode polls for new files and appended rows.
 
 The persisted frontier is the JAX package's ``{path: [mtime, units]}``
 (``seek`` and ``Offset``).  A file resumed from it is read on from its
-consumed units in either mode, as in the JAX package.
+consumed units in either mode, as in the JAX package.  Under several
+workers each file belongs to one worker, by a stable hash of its path
+(``partition``).
 
 In streaming mode the port also takes back what a file no longer holds,
 as the reference's scanner does: a deleted file retracts its rows, and a
@@ -56,6 +58,12 @@ def _list_files(path: str, object_pattern: str = "*") -> list[str]:
     ):
         return [path]
     return []
+
+
+def _path_owner(path: str, worker_count: int) -> int:
+    """Stable worker assignment for a file (survives new files appearing)."""
+    digest = hashlib.blake2b(path.encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little") % worker_count
 
 
 def _metadata(path: str) -> Json:
@@ -119,6 +127,21 @@ class FileReader(Reader):
         # their digest nor take them back; they are read on from their
         # consumed units, as the JAX package's reader reads every file
         self._resumed: set[str] = set()
+        # multi-worker file split: ownership is a stable hash of the file
+        # path — NOT the listing index, which would reassign existing files
+        # (and re-emit them) whenever a new file sorts in front of them
+        self._stripe: tuple[int, int] | None = None
+
+    def partition(self, worker_id: int, worker_count: int) -> "FileReader":
+        self._stripe = (worker_id, worker_count)
+        return self
+
+    def _my_files(self) -> list[str]:
+        files = _list_files(self.path, self.object_pattern)
+        if self._stripe is None:
+            return files
+        wid, n = self._stripe
+        return [f for f in files if _path_owner(f, n) == wid]
 
     def _emit_file(self, path: str, emit) -> bool:
         try:
@@ -205,7 +228,7 @@ class FileReader(Reader):
     def run(self, emit) -> None:
         while True:
             emitted = False
-            files = _list_files(self.path, self.object_pattern)
+            files = self._my_files()
             for path in files:
                 if self._emit_file(path, emit):
                     emitted = True

@@ -15,10 +15,12 @@ seeks its reader past the committed offset and logs what it stages
 snapshots).  REST rows carry ``DEADLINE_TS``/``TRACE_STAMP``: a row whose
 deadline lapsed in the queue is never staged (``serving.shed_staged``
 answers its client 504), and a staged one records a ``serve.stage`` span
-on its request's trace.  The connector fault kinds (``connector_read``,
-``connector_stall``, ``load_spike``) and the multi-worker split of a
-source come with slice H4b: until then ``engine/faults.py`` rejects a
-plan that names them.
+on its request's trace.  Under several workers a source
+is split by ``Reader.partition``: file scanners stride the sorted file
+list, and other sources are read on worker 0 and scattered by the
+exchange; auto-generated keys are salted by worker, and snapshot ids carry
+``-w{id}``.  The connector fault kinds (``connector_read``,
+``connector_stall``, ``load_spike``) fire in the reader's supervision loop.
 
 One addition to the JAX package: a row that carries ``FILE_ROW`` (a file
 reader's ``(path, index)``) can later be retracted by a ``DELETE`` row
@@ -118,6 +120,28 @@ class Reader:
 
     def seek(self, offset: Any) -> None:  # persistence hook
         pass
+
+    def partition(self, worker_id: int, worker_count: int) -> "Reader | None":
+        """Multi-worker split of this source.  Partitionable readers (file
+        scanners stride the sorted file list, Kafka takes partitions by
+        ``partition % worker_count``) override this; the default is the
+        reference's rule for non-partitioned sources — read everything on
+        one worker, the post-ingest exchange scatters the rows
+        (docs/.../10.worker-architecture.md:40-42, dataflow.rs:1414-1437).
+        Returning ``None`` means this worker reads nothing.
+
+        Contract (pinned by ``tests/test_rescale_repartition.py``): the
+        call must be IDEMPOTENT under re-partitioning — calling it again
+        with a different ``(worker_id, worker_count)`` (an elastic rescale
+        re-striping the source) must leave exactly the new stripe active,
+        never a union or intersection with the old one, so rescaled
+        readers neither drop nor double-read paths/partitions.  Progress
+        state (``seek`` frontiers) must be stripe-independent: a rescaled
+        reader may be seeked to a frontier MERGED from several old
+        workers, and must resume each path/partition it now owns from the
+        recorded position while simply ignoring entries outside its
+        stripe."""
+        return self if worker_id == 0 else None
 
 
 class ReaderFailed:
@@ -289,9 +313,11 @@ class _QueuePoller:
         self.dtypes = [schema.__columns__[n].dtype for n in self.names]
         self.pk = schema.primary_key_columns()
         self.autocommit = (autocommit_duration_ms or 1500) / 1000.0
-        # the running auto-key count persists per source so resumed runs
-        # continue the sequence (fresh rows must never reuse keys already
-        # inside replayed snapshots / restored operator state)
+        # auto-key counter: base salts multi-worker streams apart; the
+        # running count persists per source so resumed runs continue the
+        # sequence (fresh rows must never reuse keys already inside
+        # replayed snapshots / restored operator state)
+        self._seq_base = 0
         self._auto_seq = 0
         self._time = 2
         self._staged = False
@@ -328,7 +354,7 @@ class _QueuePoller:
         )
         if pk_idx is None:
             n = self._auto_seq
-            keys = sequential_keys(n, len(rows))
+            keys = sequential_keys(self._seq_base + n, len(rows))
             self._auto_seq = n + len(rows)
             if self.persist_state is not None:
                 self.persist_state.key_seq = self._auto_seq
@@ -356,7 +382,7 @@ class _QueuePoller:
         self._auto_seq = n + 1
         if self.persist_state is not None:
             self.persist_state.key_seq = self._auto_seq
-        return sequential_key(n)
+        return sequential_key(self._seq_base + n)
 
     def poll(self) -> bool:
         if self.finished:
@@ -559,33 +585,66 @@ def make_input_table(
         # operator variants downstream and rejects deletions at the input
         node.declared_append_only = schema_mod.is_append_only(schema)
         poller = _QueuePoller(node, schema, autocommit_duration_ms)
+        worker = getattr(lowerer.scope, "worker", None)
         reader = reader_factory()
         # per-connector monitoring identity (connectors/monitoring.rs)
         poller.name = name or type(reader).__name__.lstrip("_")
-        poller.reader = reader
 
-        # persistence identity: a source counter that advances for every
-        # source, so unnamed sources keep the same id across runs
+        # persistence identity FIRST: the source counter advances for
+        # every source on every worker — workers whose reader partitions
+        # to nothing included — so unnamed sources keep the same base id
+        # across workers and across topology rescales (the repartition
+        # resume matches old and new logs by this BASE name)
         storage = getattr(lowerer, "persistence_storage", None)
         if storage is not None and not storage.input_snapshots_enabled:
             storage = None  # UDF-caching-only mode: no input snapshots
         sid = None
+        base_sid = None
         if storage is not None:
             counter = getattr(lowerer, "_source_counter", 0)
             lowerer._source_counter = counter + 1
-            sid = name or f"source_{counter}"
+            base_sid = sid = name or f"source_{counter}"
+            if worker is not None and worker.worker_count > 1:
+                # worker-sharded snapshot files (tracker.rs worker sharding)
+                sid = f"{sid}-w{worker.worker_id}"
+        if worker is not None and worker.worker_count > 1:
+            reader = reader.partition(worker.worker_id, worker.worker_count)
+            # salt autogenerated row keys by worker so striped partitions
+            # never collide in the shared 128-bit key space
+            poller._seq_base = worker.worker_id << 64
+        if reader is None and (
+            sid is None or not storage.has_repartition_state(sid, base_sid)
+        ):
+            node.close()  # this worker owns no slice of the source
+            return node
+        poller.reader = reader
+
 
         # persistence: replay committed snapshot, seek reader past it
         skip_rows = 0
         if storage is not None:
             state = storage.register_source(
-                sid, schema_digest=schema_digest(schema), base=sid
+                sid, schema_digest=schema_digest(schema), base=base_sid
             )
             access = getattr(storage, "snapshot_access", None)
             if access != "record":
                 storage.replay_into(
                     state, lambda k, r, d: node.insert(k, r, 0, d)
                 )
+            if reader is None:
+                # refs-only worker (elastic rescale): this worker owns no
+                # reader slice, but it DOES own a shard of the replayed
+                # state — the rows just staged above — and its registration
+                # keeps the refs committed in every future manifest.  No
+                # reader thread, no poller: the staged epoch drains like a
+                # static source's.  The merged offset frontier belongs to
+                # whichever worker actually READS the source; committing it
+                # here too would hand a later rescale duplicate frontiers
+                # for one base source.
+                state.offset = None
+                state.pending_offset = None
+                node.close()
+                return node
             if access == "replay" and not getattr(
                 storage, "continue_after_replay", True
             ):
@@ -658,11 +717,81 @@ def make_input_table(
             resets the count, like the reference's per-read() reset."""
             import logging
 
+            from pathway_tpu_torch.engine import faults as _faults
+
             log = logging.getLogger("pathway_tpu_torch.io")
+            # connector-read fault injection (PATHWAY_FAULT_PLAN): the Nth
+            # emitted item raises before enqueue, exercising this very
+            # supervision loop's budget + restart/reseek path
+            emit_fn = tracker
+            # load_spike buffering state: while "until" is set, emitted
+            # items accumulate in "buf" and flush as one burst when the
+            # window lapses — downstream sees silence, then a wall
+            spike_state: dict = {"until": None, "buf": []}
+
+            def _flush_spike(wait: bool = False) -> None:
+                until = spike_state["until"]
+                if until is None:
+                    return
+                if wait:
+                    # the source drained mid-window: honor the declared
+                    # silence before the burst, or the spike would shrink
+                    # to however much input happened to remain
+                    while _time.monotonic() < until:
+                        _time.sleep(0.02)  # interruptible pacing
+                spike_state["until"] = None
+                buffered, spike_state["buf"] = spike_state["buf"], []
+                for held in buffered:
+                    tracker(held)
+
+            fault_plan = _faults.active_plan()
+            if fault_plan is not None and fault_plan.has(
+                "connector_read", "connector_stall", "load_spike"
+            ):
+                source_name = type(reader).__name__
+
+                def emit_fn(item, _tracker=tracker):
+                    if spike_state["until"] is not None:
+                        if _time.monotonic() < spike_state["until"]:
+                            spike_state["buf"].append(item)
+                            return
+                        _flush_spike()  # window over: burst, then continue
+                    if fault_plan.check("connector_read", source=source_name):
+                        raise _faults.InjectedFault(
+                            f"injected connector_read failure in {source_name}"
+                        )
+                    stall = fault_plan.check(
+                        "connector_stall", source=source_name
+                    )
+                    if stall is not None:
+                        # a stuck upstream: the item arrives LATE, nothing
+                        # errors, no epoch slows — only output.staleness.s
+                        # (engine/freshness.py) can see this happen.  The
+                        # delay is honored exactly as declared (a spec
+                        # without delay_ms stalls 0 ms, i.e. not at all)
+                        deadline = _time.monotonic() + stall.delay_ms / 1000.0
+                        while _time.monotonic() < deadline:
+                            _time.sleep(0.02)  # interruptible pacing
+                    spike = fault_plan.check("load_spike", source=source_name)
+                    if spike is not None:
+                        # deterministic load wave: buffer this and every
+                        # following item for delay_ms, then flush them as
+                        # one instantaneous burst.  No error, no reorder —
+                        # delivered rows stay byte-identical; only
+                        # staleness/backlog (and the autoscaler watching
+                        # them) can tell it happened
+                        spike_state["until"] = (
+                            _time.monotonic() + spike.delay_ms / 1000.0
+                        )
+                        spike_state["buf"].append(item)
+                        return
+                    _tracker(item)
+
             consecutive = 0
             while True:
                 try:
-                    reader.run(tracker)
+                    reader.run(emit_fn)
+                    _flush_spike(wait=True)  # never swallow a buffered tail
                     return True
                 except Exception as exc:
                     if tracker.progressed:

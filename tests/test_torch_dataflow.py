@@ -213,7 +213,20 @@ def test_concurrent_first_builds_both_load(build_race):
     assert not [f for f in built if f.endswith(".tmp")], built
 
 
-def test_run_refuses_what_later_slices_bring(monkeypatch):
+def test_run_refuses_what_later_slices_bring(monkeypatch, tmp_path):
+    """H5 and H6 features raise naming their slice.  Several processes and
+    warm standbys came with slice H4b: ``PATHWAY_PROCESSES=2`` runs a
+    2-worker mesh to the JAX package's net output, and
+    ``PATHWAY_STANDBY_ID`` on a run with no root to tail refuses as the JAX
+    package does."""
+    from tests import torch_cluster_programs as cluster
+
+    nets = []
+    for pkg in cluster.PACKAGES:
+        (tmp_path / pkg).mkdir()
+        cluster.run_cluster(pkg, "wordcount", tmp_path / pkg, n=2)
+        nets.append(cluster.canonical_bytes(tmp_path / pkg, "out.jsonl"))
+    assert nets[0] == nets[1] != b"[]"
     t = pt.debug.table_from_markdown("v\n1")
     t._subscribe_raw(lambda *a: None)
     try:
@@ -221,11 +234,11 @@ def test_run_refuses_what_later_slices_bring(monkeypatch):
                                (dict(monitoring_level=pt.MonitoringLevel.ALL), "H5")):
             with pytest.raises(NotImplementedError, match=slice_):
                 pt.run(**kwargs)
-        for env in ("PATHWAY_PROCESSES", "PATHWAY_STANDBY_ID"):
-            monkeypatch.setenv(env, "2")
-            with pytest.raises(NotImplementedError, match="H4b"):
-                pt.run()
-            monkeypatch.delenv(env)
+        monkeypatch.setenv("PATHWAY_STANDBY_ID", "2")
+        for pw in (pj, pt):
+            with pytest.raises(RuntimeError, match="requires a filesystem persistence root"):
+                pw.run()
+        monkeypatch.delenv("PATHWAY_STANDBY_ID")
         with pytest.raises(NotImplementedError, match="H6"):
             t.live()
         with pytest.raises(NotImplementedError, match="H6"):

@@ -175,7 +175,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     it too; then the stdlib's small modules import and ``Table.diff``
     runs, and a sliding ``windowby``, ``pw.graphs.pagerank``,
     ``pw.viz``'s ``show`` and a ``pw.demo.range_stream`` run in one
-    ``pw.run``."""
+    ``pw.run``; last, the multi-worker layer (``comm``, ``supervisor``,
+    ``standby``, ``autoscaler``, ``telemetry``, ``__main__``) imports and a
+    supervised 2-worker cluster of forked children, which inherit the
+    block, recovers from a seeded crash."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -386,6 +389,16 @@ def test_port_imports_nothing_of_jax(model_dir):
             lambda key, row, time, diff: got.append((row, diff)))
         assert pt.run(monitoring_level=pt.MonitoringLevel.NONE).epochs == 1
         assert sorted(got) == [(("a", 4), 1), (("b", 2), 1)], got
+        import json
+        from pathway_tpu_torch import __main__  # noqa: F401
+        from pathway_tpu_torch.engine import autoscaler, comm, standby, supervisor, telemetry  # noqa: F401
+        from tests import torch_cluster_programs as cluster
+
+        croot = tempfile.mkdtemp()
+        plan = json.dumps({{"seed": 7, "faults": [{{"kind": "crash", "worker": 1, "at_epoch": 3, "attempt": 0}}]}})
+        res = cluster.run_supervised("pathway_tpu_torch", croot, plan)
+        assert res.restarts == 1 and res.exit_codes == [0, 0], res.history
+        assert cluster.counts_of(cluster.canonical_bytes(croot)) == cluster.EXPECTED_COUNTS
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -12,9 +12,9 @@ one's Pallas attention in interpret mode) with its documents from
 (``tests/test_attention_kernel.py:119``), distances within 3e-3 (two
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
-raises ``NotImplementedError`` naming its slice (the CLI's ``replay``
-needs the multi-worker runner of slice H4b, the object-store backends the
-clients of slice H6).
+raises ``NotImplementedError`` naming its slice (the object-store
+backends need the clients of slice H6); the CLI's ``replay``, which slice
+H4b brought, runs its program under the replay env.
 """
 
 from __future__ import annotations
@@ -198,7 +198,6 @@ def deferred(name: str):
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
-        "cli_replay": lambda: __import__("pathway_tpu_torch.cli").cli.main(["replay", "prog.py"]),
         "persistence_gcs": lambda: __import__("pathway_tpu_torch.engine.persistence").engine.persistence
         .backend_from_config(tpw.persistence.Backend.gcs("gs://b/p")),
         "io.kafka": lambda: tpw.io.kafka.read,
@@ -208,8 +207,32 @@ def deferred(name: str):
     return str(err.value)
 
 
+def replays(tmp_path, monkeypatch) -> int:
+    """``replay`` (slice H4b) runs its program under the replay env: the
+    program checks the env it was given and exits 0."""
+    import sys
+
+    from pathway_tpu_torch import cli
+
+    for name in ("PATHWAY_SNAPSHOT_ACCESS", "PATHWAY_REPLAY_STORAGE", "PATHWAY_PERSISTENCE_MODE"):
+        monkeypatch.delenv(name, raising=False)
+    check = (
+        "import os; e = os.environ; "
+        f"assert e['PATHWAY_SNAPSHOT_ACCESS'] == 'replay' and e['PATHWAY_REPLAY_STORAGE'] == {str(tmp_path)!r}; "
+        "assert e['PATHWAY_PERSISTENCE_MODE'] == e['PATHWAY_REPLAY_MODE'] == 'batch'; "
+        "assert e['PATHWAY_PROCESSES'] == '1' and e['PATHWAY_PROCESS_ID'] == '0'"
+    )
+    with pytest.raises(SystemExit) as done:
+        cli.main(["replay", "--record-path", str(tmp_path), "--mode", "batch",
+                  sys.executable, "-c", check])
+    return done.value.code
+
+
 @pytest.mark.parametrize("name,later", [
-    ("cli_replay", "slice H4b"), ("persistence_gcs", "slice H6"), ("io.kafka", "slice H6"),
+    ("cli_replay", None), ("persistence_gcs", "slice H6"), ("io.kafka", "slice H6"),
 ])
-def test_deferred_entry_points_raise_naming_their_slice(name, later):
+def test_deferred_entry_points_raise_naming_their_slice(name, later, tmp_path, monkeypatch):
+    if later is None:  # brought by slice H4b: runs now
+        assert replays(tmp_path, monkeypatch) == 0
+        return
     assert later in deferred(name)
