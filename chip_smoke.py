@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,cluster,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,cluster,observability,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -16,7 +16,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    shape (CUDA graphs of many launches, inputs rotated past the L2 cache),
    and the wrapper's host time per call;
 4. main path at full all-MiniLM-L6-v2 width (seeded random weights):
-   encode a synthetic corpus (65,536 texts by default) in length-sorted
+   encode a synthetic corpus (32,768 texts by default) in length-sorted
    batches, time one arrival-order pass over a part of it, fill a cosine
    ``BruteForceKnnIndex`` with it, answer one untimed warm-up and 128 timed
    ``search_many`` batches of 64 re-encoded corpus texts at k=10, and check
@@ -24,7 +24,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    just after, every attention shape the run gave the kernel is held
    against the plain version, and the launches are counted per shape;
 5. rerank: the retrieve-then-rerank step of the RAG path at full width:
-   16,384 chunks of 50-500 words embedded by all-MiniLM-L6-v2 into a
+   8,192 chunks of 50-500 words embedded by all-MiniLM-L6-v2 into a
    cosine ``BruteForceKnnIndex``, then one untimed warm-up and 8 timed
    batches of 64 queries (6-20 word perturbed spans of chunks): top-32
    retrieval, the 2,048 (query, chunk) pairs scored by the
@@ -71,9 +71,9 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``torch.cuda.memory_allocated``);
 7b. dataflow: the Table API and the dataflow core (host engine H1) at
    full all-MiniLM-L6-v2 width, through ``pw.run`` on the shared default
-   executor with the rail on: 16,384 synthetic texts keyed by ``doc_id``
+   executor with the rail on: 8,192 synthetic texts keyed by ``doc_id``
    with 64 source ids, staged by ``pw.debug.table_from_rows`` in 8 epochs
-   of 2,048 at times 2-16, a ninth retracting 1,024 docs and replacing
+   of 1,024 at times 2-16, a ninth retracting 1,024 docs and replacing
    the text of 1,024; an async ``pw.udf`` embeds each row through
    ``AsyncMicroBatcher`` (max batch 256) over ``SentenceEncoder.encode``,
    a ``pw.apply`` scores it against a unit query, a join with the
@@ -86,7 +86,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 7c. temporal: the temporal slice (``pw.temporal``'s windows, behaviors and
    time joins) as a live windowed topic monitor at full BAAI/bge-base-en-v1.5
    width (seeded weights, ``SentenceTransformerEmbedder``, an async UDF
-   through ``AsyncMicroBatcher`` at 256): 16,384 texts of 6-60 words at
+   through ``AsyncMicroBatcher`` at 256): 8,192 texts of 6-60 words at
    int event times over one day, 16 topics drawn Zipf-distributed, fed by
    ``pw.io.python.read`` in event-time order in 64 commits (2% held back
    2-6 commits), each commit sent once the run has taken the one before
@@ -142,8 +142,8 @@ Phases, each on a line of its own; any failure exits non-zero:
    bf16 one at B=8;
 11. vision: siglip-base-patch16-224 at full width (a 12-layer ViT, H 768,
    12 heads, 196 patches of 16×16; the bge-base-en-v1.5 text tower;
-   seeded random bf16 weights) through ``MultimodalEncoder``: 2,048 seeded
-   uint8 224×224 images at ``max_batch`` 256 and 2,048 texts of the main
+   seeded random bf16 weights) through ``MultimodalEncoder``: 1,024 seeded
+   uint8 224×224 images at ``max_batch`` 256 and 1,024 texts of the main
    corpus after one untimed batch of each, images/s and texts/s; a batch
    split into host conversion, padding and H2D ms against the forward's
    device ms (CUDA graphs), the device's idle share, and the text tower's
@@ -353,6 +353,33 @@ Phases, each on a line of its own; any failure exits non-zero:
    ``scrub`` of C's and D's roots, no worker running ``nvcc``, and every
    worker process launching the kernel once per layer of each forward,
    each shape it gave held to the plain attention;
+15f. observability: slice H5 (``engine/http_server.py``, ``freshness.py``,
+   ``profiler.py``, ``telemetry.py``, ``slo.py``, ``internals/top.py``,
+   the flight recorder's sections) on ``[dataflow]``'s program at full
+   all-MiniLM-L6-v2 width (the async ``pw.udf`` through
+   ``AsyncMicroBatcher``, the score, the join with 64 sources, the
+   per-source groupby) over 32,768 texts from a ``pw.io.python`` subject
+   in 128 commits, four runs in this process: off, on, off, on.  Off:
+   ``monitoring_level=NONE``, ``PATHWAY_FRESHNESS=0``, no server, no
+   profiler.  On: ``with_http_server=True``, ``monitoring_level=ALL``,
+   ``PATHWAY_PROFILE=1`` with an output file, transfer accounting, an SLO
+   on the output's freshness, ``PATHWAY_DEVICE_TRACE_DIR`` and the OTLP
+   exporter pointed at a collector in this process.  Gated on every run's
+   net state against run 0's (as ``[cluster]`` holds it); on each on
+   run's mid-run ``/metrics`` scrapes (at least 3, each ending in ``#
+   EOF`` with ``OBS_FAMILIES``, the epoch count growing,
+   ``freshness.e2e.ms{output=}`` counted); its ``/status`` (device FLOPs,
+   utilization in (0, 1], the card's allocator bytes, the freshness,
+   backlog and SLO sections); a mid-run ``/trace?seconds=1`` (200, a
+   Chrome trace with ``encoder_attention_kernel`` launches and no library
+   attention kernel, a second capture during it answered 409); ``python
+   -m pathway_tpu_torch top --once --json`` (the output and the device
+   panel); ``profile`` on the profiler's file; a flight-recorder dump at
+   the run's end with the profiler, freshness and device sections (the
+   card's allocator bytes) that ``blackbox --json`` renders; and the
+   collector's metrics and ``pathway.epoch`` spans.  Rows/s, device ms
+   and idle share of each run, the on runs' overhead (reported, not
+   gated), the kernel-build counters, launches by shape;
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
    package's does): ``VectorStoreServer`` over
@@ -381,7 +408,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b-15e (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b-15f (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -922,11 +949,12 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 # ---------------------------------------------------------------------------
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "temporal", "generate", "moe", "speculative", "vision", "lora",
-             "train", "parallel", "sharded", "rag", "hybrid", "persistence", "cluster", "vector_store")
+             "train", "parallel", "sharded", "rag", "hybrid", "persistence", "cluster", "observability",
+             "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
-RERANK_CHUNKS = 16384
+RERANK_CHUNKS = 8192  # 16,384 until [observability] (PERF.md section 4)
 CHUNK_WORDS = (50, 500)  # TokenCountSplitter's min/max tokens (xpacks/llm/splitters.py:74-75)
 QUERY_WORDS = (6, 20)
 QUERY_SWAP = 0.25  # share of a query's words swapped for random ones
@@ -1728,7 +1756,7 @@ def executor_phase(device, seed: int, checked: dict, texts) -> dict:
 # Phase 7b: a Table program that embeds through the encoder kernel.
 # ---------------------------------------------------------------------------
 
-DATAFLOW_DOCS = 16384  # 65,536 until [cluster] (PERF.md section 4)
+DATAFLOW_DOCS = 8192  # 16,384 until [observability] (PERF.md section 4)
 DATAFLOW_EPOCHS = 8  # at even times 2-16
 DATAFLOW_SOURCES = 64
 DATAFLOW_CHANGES = 1024  # retracted, and as many replaced, in a ninth epoch
@@ -1974,7 +2002,7 @@ def dataflow_phase(device, seed: int, checked: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TEMPORAL_MODEL = BGE_MODEL  # BASELINE.md's streaming-ingest model
-TEMPORAL_EVENTS = 16384  # 32,768 until [cluster] (PERF.md section 4)
+TEMPORAL_EVENTS = 8192  # 16,384 until [observability] (PERF.md section 4)
 TEMPORAL_COMMITS = 64  # of about 512 events, in event-time order
 TEMPORAL_TOPICS = 16  # drawn Zipf-distributed, exponent 1.0
 TEMPORAL_DAY = 86400  # event times in seconds
@@ -3338,8 +3366,8 @@ VISION_MODEL = "siglip-base-patch16-224"
 VISION_WIDTHS = dict(image_size=224, patch=16, hidden=768, layers=12, heads=12, intermediate=3072, proj_dim=768)
 TEXT_TOWER_WIDTHS = dict(hidden=768, layers=12, heads=12, intermediate=3072)  # bge-base-en-v1.5
 VISION_BATCH = 256  # MultimodalEncoder's default max_batch
-VISION_IMAGES = 2048  # 4,096 each until [cluster] (PERF.md section 4)
-VISION_TEXTS = 2048
+VISION_IMAGES = 1024  # 2,048 each until [observability] (PERF.md section 4)
+VISION_TEXTS = 1024
 VISION_CHECK_ROWS = 64
 RESIZE_IMAGES, RESIZE_FROM = 256, 320
 SO400M_MODEL = "siglip-so400m-patch14-384"
@@ -5420,6 +5448,31 @@ def vec_text(v) -> str:
     return base64.b64encode(np.asarray(v, np.float16).tobytes()).decode()
 
 
+def streamed_docs(pw, texts, sources, commit: int, n_sources: int, hold=None):
+    """``[dataflow]``'s input tables: the docs from a ``pw.io.python``
+    subject that commits every ``commit`` texts (one epoch each) and ends,
+    and the ``n_sources`` source names as a static table each worker keeps
+    its key shard of.  ``hold``, ``(text index, threading.Event)``: the
+    subject waits (at most ``OBS_WAIT_S``) for the event before it sends
+    that text."""
+    from pathway_tpu_torch.io._utils import make_static_input_table
+
+    Doc, Source = dataflow_schemas(pw)
+
+    class Feed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for start in range(0, len(texts), commit):
+                if hold is not None and start == hold[0]:
+                    hold[1].wait(OBS_WAIT_S)
+                for i in range(start, min(len(texts), start + commit)):
+                    self.next(doc_id=i, text=texts[i], source=int(sources[i]))
+                self.commit()
+
+    docs = pw.io.python.read(Feed(), schema=Doc, name="docs")
+    names = make_static_input_table(Source, [{"source": s, "name": f"source-{s:02d}"} for s in range(n_sources)])
+    return docs, names
+
+
 def cluster_program(pw, texts, sources, embed, query, out_dir: str, root: str | None):
     """``[persistence]`` part A's Table program over a ``pw.io.python`` subject
     that commits every ``CLUSTER_COMMIT`` texts (one epoch each) and ends:
@@ -5427,20 +5480,7 @@ def cluster_program(pw, texts, sources, embed, query, out_dir: str, root: str | 
     table each worker keeps its key shard of) and the per-source groupby,
     into jsonlines sinks (``.part-N`` per worker), persisted with input
     snapshots on ``root`` when given."""
-    from pathway_tpu_torch.io._utils import make_static_input_table
-
-    Doc, Source = dataflow_schemas(pw)
-
-    class Feed(pw.io.python.ConnectorSubject):
-        def run(self):
-            for start in range(0, len(texts), CLUSTER_COMMIT):
-                for i in range(start, min(len(texts), start + CLUSTER_COMMIT)):
-                    self.next(doc_id=i, text=texts[i], source=int(sources[i]))
-                self.commit()
-
-    docs = pw.io.python.read(Feed(), schema=Doc, name="docs")
-    names = make_static_input_table(Source, [{"source": s, "name": f"source-{s:02d}"}
-                                             for s in range(PERSIST_SOURCES)])
+    docs, names = streamed_docs(pw, texts, sources, CLUSTER_COMMIT, PERSIST_SOURCES)
     tables = dataflow_program(pw, {}, embed, query, docs=docs, sources=names)
     out = tables["docs"].select(pw.this.doc_id, pw.this.name, pw.this.score,
                                 vec=pw.apply_with_type(vec_text, str, pw.this.vec))
@@ -5967,6 +6007,432 @@ def cluster_phase(device, seed: int, checked: dict, n_docs: int = CLUSTER_DOCS) 
         c_vs_d_kill_to_first_output_s=[results["C"]["kill_to_first_output_s"],
                                        results["D"]["kill_to_first_output_s"]])
     return {"launches": launches, "attention_launches": shapes, "runs": results}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15f: observability (H5) on a monitored MiniLM pipeline.
+# ---------------------------------------------------------------------------
+
+OBS_DOCS = 32768
+OBS_COMMIT = 256  # texts a commit of the subject: 128 epochs
+OBS_SOURCES = 64
+OBS_SCRAPE_S = 0.4  # /metrics scrape spacing while a run is on
+OBS_TRACE_S = 1.0
+OBS_WAIT_S = 300.0  # the longest a run may take
+# the families every mid-run /metrics scrape of an instrumented run holds
+# (tests/test_torch_observability.py holds a CPU run's scrape to the same list)
+OBS_FAMILIES = (
+    "pathway_epoch_duration_ms",
+    "pathway_freshness_e2e_ms",
+    "pathway_backlog_connector_queue",
+    "pathway_backlog_epochs_pending",
+    "pathway_dataflow_epochs",
+    "pathway_dataflow_input_rows",
+    "pathway_profiler_operator_seconds",
+    "pathway_slo_budget_remaining",
+    "pathway_device_dispatch_batches",
+    "pathway_device_flops_total",
+    "pathway_device_hbm_bytes_in_use",
+    "pathway_backlog_device_queue",
+)
+OBS_SLO = "freshness: freshness.e2e.ms p95 < 5000ms over 1m"
+OBS_LIBRARY_ATTENTION = ("flash", "fmha", "sdpa", "cudnn", "efficient_attention", "mem_eff")
+DEMO_LICENSE = "demo-license-key-with-telemetry-observability"
+
+
+def observability_program(pw, texts, sources, embed, query, on_end=None, probe=None):
+    """``[dataflow]``'s Table program over ``streamed_docs`` in commits of
+    ``OBS_COMMIT``.  With an ``ObsProbe``, the docs' first row sets its
+    ``delivered`` and the second half of the texts waits for its
+    ``capturing``, so the mid-run trace overlaps the forwards.  Returns
+    its tables and the change streams their subscribers capture
+    (``on_end`` runs when the last one ends)."""
+    hold = None if probe is None else (len(texts) // 2 // OBS_COMMIT * OBS_COMMIT, probe.capturing)
+    docs, names = streamed_docs(pw, texts, sources, OBS_COMMIT, OBS_SOURCES, hold=hold)
+    tables = dataflow_program(pw, {}, embed, query, docs=docs, sources=names)
+    captured = {name: [] for name in tables}
+
+    def capture(out, delivered):
+        def on_data(k, r, t, d):
+            out.append((k, r, t, d))
+            if delivered is not None:
+                delivered.set()
+        return on_data
+
+    for name, table in tables.items():
+        delivered = probe.delivered if probe is not None and name == "docs" else None
+        table._subscribe_raw(capture(captured[name], delivered), name=name,
+                             on_end=on_end if name == "per_source" else None)
+    return tables, captured
+
+
+def obs_state(captured: dict) -> dict:
+    """A run's net sink state in ``cluster_state_check``'s form."""
+    docs = {row[0]: (row[1], row[3], np.asarray(row[2], np.float32))
+            for row in final_rows(captured["docs"]).values()}
+    per_source = {row[0]: (row[1], row[2]) for row in final_rows(captured["per_source"]).values()}
+    return {"docs": docs, "per_source": per_source}
+
+
+def prom_samples(text: str, family: str) -> dict:
+    """``{labels: value}`` of one family's samples in a /metrics body."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family) and not line.startswith("#"):
+            name_labels, _, value = line.rpartition(" ")
+            rest = name_labels[len(family):]
+            if rest[:1] in ("", "{"):
+                out[rest] = float(value)
+    return out
+
+
+class OtlpCollector:
+    """A small OTLP/HTTP collector: keeps every JSON body POSTed to
+    ``/v1/metrics`` and ``/v1/traces``."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.bodies: dict[str, list] = {"metrics": [], "traces": []}
+        collector = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 (http.server API)
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                kind = self.path.rstrip("/").rsplit("/", 1)[-1]
+                collector.bodies.setdefault(kind, []).append(json.loads(body))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def span_names(self) -> list:
+        return [span["name"] for body in self.bodies["traces"] for rs in body["resourceSpans"]
+                for ss in rs["scopeSpans"] for span in ss["spans"]]
+
+    def metric_names(self) -> set:
+        return {m["name"] for body in self.bodies["metrics"] for rm in body["resourceMetrics"]
+                for sm in rm["scopeMetrics"] for m in sm["metrics"]}
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class ObsProbe:
+    """The instrumented run's surfaces, read from a thread once its first
+    output is delivered: one ``/trace?seconds=1`` with a second capture
+    asked for during it, ``/status``, ``top --once --json`` through a
+    ``python -m pathway_tpu_torch`` started ahead (it imports the package
+    first, then reads the URL) and ``/metrics`` every ``OBS_SCRAPE_S``."""
+
+    def __init__(self, port: int, device, top_proc):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.device = device
+        self.top_proc = top_proc
+        self.done = threading.Event()
+        self.delivered = threading.Event()  # the first output row
+        self.capturing = threading.Event()  # the trace capture is on (or over)
+        self.scrapes: list = []
+        self.status = None
+        self.hbm_source = None
+        self.trace = None
+        self.second_trace_status = None
+        self.errors: list = []
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _get(self, path: str, timeout: float = 30.0):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.base + path, timeout=timeout) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read().decode()
+
+    def _second_trace(self) -> None:
+        time.sleep(OBS_TRACE_S / 4)  # the first capture is running by now
+        try:
+            self.second_trace_status = self._get("/trace?seconds=1")[0]
+        finally:
+            self.capturing.set()
+
+    def _trace(self) -> None:
+        import threading
+
+        second = threading.Thread(target=self._second_trace)
+        second.start()
+        try:
+            self.trace = self._get(f"/trace?seconds={OBS_TRACE_S}")
+        finally:
+            self.capturing.set()
+            second.join()
+
+    def _run(self) -> None:
+        import threading
+
+        from pathway_tpu_torch.device import get_default_executor
+
+        tracer = None
+        try:
+            if not self.delivered.wait(OBS_WAIT_S):
+                raise TimeoutError("no output delivered")
+            tracer = threading.Thread(target=self._trace)
+            tracer.start()
+            self.status = json.loads(self._get("/status")[1])
+            self.hbm_source = get_default_executor(self.device).device_snapshot()["hbm"]["source"]
+            self.top_proc.stdin.write(self.base + "/status\n")
+            self.top_proc.stdin.flush()
+            while not self.done.is_set():
+                try:
+                    code, body = self._get("/metrics")
+                except OSError:
+                    break  # the run ended and closed the server
+                self.scrapes.append((time.perf_counter(), code, body))
+                self.done.wait(OBS_SCRAPE_S)
+        except Exception as exc:  # noqa: BLE001 - reported by the phase's gates
+            self.errors.append(repr(exc))
+        finally:
+            self.capturing.set()  # never leave the subject waiting
+            if tracer is not None:
+                tracer.join()
+
+
+def observability_phase(device, seed: int, checked: dict) -> dict:
+    """Phase 15f: the port's observability surface (slice H5) on
+    ``[dataflow]``'s MiniLM program at full width, four runs in this
+    process: off, on, off, on.  ``checked`` gains the attention shapes the
+    runs gave the kernel."""
+    import asyncio
+    import io
+    import shutil
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import cli
+    from pathway_tpu_torch.device import get_default_executor
+    from pathway_tpu_torch.engine import flight_recorder, metrics
+    from pathway_tpu_torch.engine import profiler as _profiler
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.utils.batching import AsyncMicroBatcher
+
+    ex = get_default_executor(device)
+    enc = pw.SentenceEncoder(CLUSTER_MODEL, seed=seed)
+    texts, _, _, _ = synthetic_corpus(OBS_DOCS, seed + 601)
+    sources = np.random.default_rng(seed + 603).integers(0, OBS_SOURCES, size=OBS_DOCS)
+    query = np.random.default_rng(seed + 607).normal(size=enc.dimensions).astype(np.float32)
+    query /= np.linalg.norm(query)
+    batcher = AsyncMicroBatcher(enc.encode, max_batch_size=DATAFLOW_BATCH, executor=ex, name="observability:embedder")
+
+    async def warm_up():
+        return await asyncio.gather(*(batcher.submit(t) for t in texts[:1024]))
+
+    asyncio.run(warm_up())
+    base = tempfile.mkdtemp(prefix="pathway-observability-")
+    collector = OtlpCollector()
+    recorder = flight_recorder.get_recorder()
+    reg = metrics.get_registry()
+    seen: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen)]
+    runs: list[dict] = []
+    launches = 0
+    # one `python -m pathway_tpu_torch top` per instrumented run, started
+    # now: each imports the package (seconds on a busy host) and says
+    # "ready", then takes the /status URL on stdin mid-run
+    top_procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import runpy, sys, pathway_tpu_torch\n"
+         "print('ready', flush=True)\n"
+         "url = sys.stdin.readline().strip()\n"
+         "sys.argv = ['pathway_tpu_torch', 'top', '--once', '--json', '--url', url]\n"
+         "runpy.run_module('pathway_tpu_torch', run_name='__main__', alter_sys=True)\n"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for _ in range(2)]
+    for i, on in enumerate((False, True, False, True)):
+        run_dir = os.path.join(base, f"run-{i}")
+        os.makedirs(run_dir)
+        port = free_port()
+        dump_root = os.path.join(run_dir, "root")
+        dumped: list = []
+        top_proc = top_procs.pop(0) if on else None
+        if top_proc is not None and top_proc.stdout.readline().strip() != "ready":
+            fail(f"observability: the top process did not start: {top_proc.communicate()[1][-2000:]}")
+
+        def on_end(on=on, dumped=dumped, dump_root=dump_root):
+            if on:  # a dump at the end of the run, its suppliers still set
+                recorder.configure(root=dump_root)
+                dumped.append(flight_recorder.dump("observability: end of run"))
+
+        probe = ObsProbe(port, device, top_proc) if on else None
+        _tables, captured = observability_program(pw, texts, sources, embedding_udf(pw, batcher.submit), query,
+                                                  on_end=on_end, probe=probe)
+        knobs = dict(PATHWAY_FRESHNESS=int(on), PATHWAY_PROFILE=int(on), PATHWAY_PROFILE_TRANSFERS=int(on),
+                     PATHWAY_PROFILE_SAMPLE_EVERY=1, PATHWAY_PROFILE_OUTPUT=os.path.join(run_dir, "profile.json"),
+                     PATHWAY_DEVICE_TRACE_DIR=os.path.join(run_dir, "traces"))
+        config = dict(monitoring_http_port=port, monitoring_server=collector.url, license_key=DEMO_LICENSE) if on \
+            else dict(monitoring_server=None)
+        events, remove_events = forward_events(enc)
+        bodies_before = {k: len(v) for k, v in collector.bodies.items()}
+        # ---- the counted run: counts zeroed just before, read just after ----
+        encoder_attention.launches = 0
+        before = rail_state(device)
+        try:
+            with env_knobs(**knobs), pw.local_pathway_config(**config):
+                if probe is not None:
+                    probe.thread.start()
+                t0 = time.perf_counter()
+                result = pw.run(with_http_server=on,
+                                monitoring_level=pw.MonitoringLevel.ALL if on else pw.MonitoringLevel.NONE)
+                wall_s = time.perf_counter() - t0
+        finally:
+            if probe is not None:
+                probe.done.set()
+                probe.thread.join()
+            pw.G.clear()
+            recorder.root = None
+            _profiler.uninstall_transfer_accounting()
+        run_launches = encoder_attention.launches
+        # ---- end of the counted run ----
+        launches += run_launches
+        device_ms = events_ms(events)
+        remove_events()
+        rail_gate("observability", device, before)
+        run = {"on": on, "epochs": result.epochs, "rows": OBS_DOCS, "wall_s": wall_s, "rows_per_s": OBS_DOCS / wall_s,
+               "device_ms": device_ms, "idle_share": 1.0 - device_ms / (wall_s * 1e3), "launches": run_launches,
+               "state": obs_state(captured)}
+        if on:
+            top_out, top_err = top_proc.communicate(timeout=120)
+            run.update(probe=probe, top=(top_proc.returncode, top_out, top_err), dumped=dumped, run_dir=run_dir,
+                       dump_root=dump_root, otlp={k: len(v) - bodies_before.get(k, 0)
+                                                  for k, v in collector.bodies.items()})
+        runs.append(run)
+        log("observability", run=i, on=on, epochs=run["epochs"], wall_s=wall_s, rows_per_s=run["rows_per_s"],
+            device_ms=device_ms, idle_share=run["idle_share"], launches=run_launches)
+    for h in hooks:
+        h.remove()
+
+    # 1. outputs: each instrumented run's net state is the uninstrumented one's
+    ref = runs[0]["state"]
+    for i, run in enumerate(runs[1:], start=1):
+        state = cluster_state_check(run["state"], ref)
+        if not (state["docs_keys_equal"] and state["per_source_keys_equal"] and state["names_equal"]
+                and state["counts_equal"] and state["sums_consistent"]) or state["min_cos_vs_a"] <= COS_MIN \
+                or state["max_score_err"] > CLUSTER_SUM_TOL or state["max_sum_rel_err"] > CLUSTER_SUM_TOL:
+            fail(f"observability: run {i}'s net state is not run 0's: {state}")
+        if len(run["state"]["docs"]) != OBS_DOCS:
+            fail(f"observability: run {i} holds {len(run['state']['docs'])} docs, not {OBS_DOCS}")
+    gates: dict = {}
+    for i, run in ((i, r) for i, r in enumerate(runs) if r["on"]):
+        probe = run["probe"]
+        if probe.errors:
+            fail(f"observability: run {i}'s probe failed: {probe.errors}")
+        # 2. /metrics: mid-run scrapes in the exposition format, growing
+        scrapes = [(t, body) for t, status, body in probe.scrapes if status == 200]
+        if len(scrapes) < 3:
+            fail(f"observability: run {i} took {len(scrapes)} /metrics scrapes mid-run, not 3")
+        counts = []
+        for _t, body in scrapes:
+            if not body.endswith("# EOF\n"):
+                fail(f"observability: run {i}: a /metrics body does not end in # EOF")
+            missing = [f for f in OBS_FAMILIES if f"# TYPE {f} " not in body]
+            if missing:
+                fail(f"observability: run {i}: /metrics lacks {missing}")
+            counts.append(sum(prom_samples(body, "pathway_epoch_duration_ms_count").values()))
+        e2e = prom_samples(scrapes[-1][1], "pathway_freshness_e2e_ms_count")
+        if not counts[-1] > counts[0] or not any(v > 0 for k, v in e2e.items() if "output=" in k):
+            fail(f"observability: run {i}: epoch counts {counts}, freshness.e2e.ms counts {e2e}")
+        # 3. /status: the device, freshness, backlog and SLO sections
+        status = probe.status or {}
+        dev = status.get("device") or {}
+        if not dev.get("device.flops.total", 0) > 0 or not 0 < dev.get("device.utilization", 0) <= 1:
+            fail(f"observability: run {i}: /status device flops {dev.get('device.flops.total')}, "
+                 f"utilization {dev.get('device.utilization')}")
+        if not dev.get("device.hbm.bytes_in_use", 0) > 0 or probe.hbm_source != "memory_stats":
+            fail(f"observability: run {i}: device.hbm.bytes_in_use {dev.get('device.hbm.bytes_in_use')} "
+                 f"from {probe.hbm_source}")
+        for section in ("freshness", "backlog", "slo"):
+            if not status.get(section):
+                fail(f"observability: run {i}: /status has no {section} section")
+        # 4. /trace: 200 with a Chrome trace holding the hand-written kernel
+        # and no library attention kernel; a second capture during it, 409
+        code, body = probe.trace or (None, "{}")
+        if code != 200:
+            fail(f"observability: run {i}: /trace answered {code}: {body}")
+        with open(os.path.join(json.loads(body)["trace_dir"], "trace.json")) as f:
+            trace_events = json.load(f).get("traceEvents", [])
+        kernels = [ev.get("name", "") for ev in trace_events if ev.get("cat") == "kernel"]
+        ours = sum("encoder_attention_kernel" in k for k in kernels)
+        library = sorted({k for k in kernels if any(t in k.lower() for t in OBS_LIBRARY_ATTENTION)})
+        if not ours or library or probe.second_trace_status != 409:
+            cats = {}
+            for ev in trace_events:
+                cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+            fail(f"observability: run {i}: the trace holds {ours} encoder_attention_kernel events of "
+                 f"{len(kernels)} kernels ({len(trace_events)} events by category: {cats}), library "
+                 f"attention {library[:5]}, a second capture answered {probe.second_trace_status}")
+        # 5. top: the output and the device panel
+        rc, out, err = run["top"]
+        top_status = json.loads(out) if rc == 0 and out.strip() else {}
+        if rc != 0 or not top_status.get("output") or not top_status.get("device"):
+            fail(f"observability: run {i}: top exited {rc}: {err[-2000:]}")
+        # 6. the profile and the flight-recorder dump
+        rendered = io.StringIO()
+        with contextlib.redirect_stdout(rendered):
+            profile_rc = cli.main(["profile", os.path.join(run["run_dir"], "profile.json")])
+        dump = run["dumped"][0] if run["dumped"] and run["dumped"][0] else None
+        payload = json.load(open(dump)) if dump else {}
+        hbm = [snap.get("hbm", {}) for snap in (payload.get("device") or {}).values()]
+        with contextlib.redirect_stdout(io.StringIO()):
+            blackbox_rc = cli.main(["blackbox", "--json", run["dump_root"]])
+        if profile_rc != 0 or "operators" not in rendered.getvalue() or not payload.get("profiler") \
+                or not payload.get("freshness") or not any(h.get("source") == "memory_stats"
+                                                           and h.get("bytes_in_use", 0) > 0 for h in hbm) \
+                or blackbox_rc != 0:
+            fail(f"observability: run {i}: profile exited {profile_rc}, dump {dump} sections "
+                 f"{sorted(payload)}, hbm {hbm}, blackbox exited {blackbox_rc}")
+        # 7. OTLP: the collector got metrics and pathway.epoch spans
+        if not run["otlp"].get("metrics") or "pathway.epoch" not in collector.span_names():
+            fail(f"observability: run {i}: the collector got {run['otlp']} bodies, "
+                 f"spans {sorted(set(collector.span_names()))}")
+        gates[i] = {"scrapes": len(scrapes), "epoch_counts": [counts[0], counts[-1]], "trace_kernels": len(kernels),
+                    "trace_encoder_attention": ours, "second_trace": probe.second_trace_status,
+                    "status_device": {k: dev[k] for k in ("device.flops.total", "device.utilization",
+                                                         "device.hbm.bytes_in_use")},
+                    "freshness": status.get("freshness"), "slo": status.get("slo"),
+                    "otlp_bodies": run["otlp"], "dump_sections": sorted(payload)}
+    collector.close()
+    shutil.rmtree(base, ignore_errors=True)
+    off = [r["rows_per_s"] for r in runs if not r["on"]]
+    on_ = [r["rows_per_s"] for r in runs if r["on"]]
+    kernel_counters = {k: v for k, v in reg.scalar_metrics().items() if k.startswith("device.kernel.")}
+    res = {"docs": OBS_DOCS, "commits": OBS_DOCS // OBS_COMMIT,
+           "runs": [{k: v for k, v in r.items() if k in ("on", "epochs", "wall_s", "rows_per_s", "device_ms",
+                                                          "idle_share", "launches")} for r in runs],
+           "overhead": 1.0 - sum(on_) / sum(off), "kernel_counters": kernel_counters,
+           "otlp_metric_names": len(collector.metric_names()), "gates": gates}
+    log("observability", **{k: v for k, v in res.items() if k != "gates"})
+    log("observability", step="gates", **{str(k): v for k, v in gates.items()})
+    # 8. every attention shape of the phase held to the plain attention
+    expected = sum(seen.values())
+    if launches != expected or not expected:
+        fail(f"observability: attention launches {launches} != {expected} (layers x forwards per shape {seen})")
+    gen = torch.Generator(device=device).manual_seed(seed + 611)
+    for shape in sorted(set(seen) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("observability", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
+    return {"launches": {"encoder_attention": launches}, "attention_launches": dict(seen), **res}
 
 
 # ---------------------------------------------------------------------------
@@ -7887,7 +8353,7 @@ def hybrid_phase(device, seed: int, checked: dict, card: str, sizes: HybridSizes
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--docs", type=int, default=65536)  # 131,072 until [cluster] (PERF.md section 4)
+    parser.add_argument("--docs", type=int, default=32768)  # 65,536 until [observability] (PERF.md section 4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--skip", default="", help="comma-separated phases to leave out: " + ", ".join(SKIPPABLE))
     parser.add_argument("--cluster-worker", metavar="SPEC", help=argparse.SUPPRESS)  # [cluster]'s workers
@@ -7901,6 +8367,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # [observability]'s SLO on the output's freshness: declared before the
+    # first pw.run makes the process's SLO evaluator, which reads it once
+    os.environ["PATHWAY_SLOS"] = OBS_SLO
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pathway_tpu_torch.ops import _build
 
@@ -8013,6 +8482,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["cluster"] = cluster_phase(device, args.seed, checked)
         seconds["cluster"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "observability" not in skip:
+        t_phase = time.perf_counter()
+        phases["observability"] = observability_phase(device, args.seed, checked)
+        seconds["observability"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

@@ -41,6 +41,8 @@ rerankers and the question answerers).
 
 from __future__ import annotations
 
+__version__ = "0.1.0"
+
 import enum as _enum
 import datetime as _datetime
 
@@ -53,7 +55,11 @@ from pathway_tpu_torch.engine.types import (
 )
 from pathway_tpu_torch.internals import dtype as _dt
 from pathway_tpu_torch.internals import reducers
-from pathway_tpu_torch.internals.config import local_pathway_config
+from pathway_tpu_torch.internals.config import (
+    local_pathway_config,
+    set_license_key,
+    set_monitoring_config,
+)
 from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
     ColumnReference,
@@ -188,6 +194,7 @@ from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
 )
 
 __all__ = [
+    "__version__",
     "ERROR",
     "BaseCustomAccumulator",
     "ColumnDefinition",
@@ -257,6 +264,8 @@ __all__ = [
     "run",
     "run_all",
     "schema_builder",
+    "set_license_key",
+    "set_monitoring_config",
     "schema_from_csv",
     "schema_from_dict",
     "schema_from_types",

@@ -1,15 +1,26 @@
 """Command-line tools of the port: ``python -m pathway_tpu_torch``.
 
-A copy of the ``spawn``, ``replay``, ``spawn-from-env`` and ``scrub``
-commands of ``pathway_tpu/cli.py``, on ``argparse`` instead of ``click``
-(the card's machine has no ``click``), with the same options, output and
-exit codes::
+A copy of the ``spawn``, ``replay``, ``spawn-from-env``, ``scrub``,
+``blackbox``, ``profile``, ``top``, ``requests``, ``trace`` and
+``buckets`` commands of ``pathway_tpu/cli.py``, on ``argparse`` instead of
+``click`` (the card's machine has no ``click``), with the same options,
+output and exit codes::
 
     python -m pathway_tpu_torch spawn [-n N] [--supervise] [--standbys K] \
         [--checkpoint-root ROOT] PROGRAM [ARGUMENTS...]
     python -m pathway_tpu_torch replay [--record-path PATH] PROGRAM [ARGUMENTS...]
     python -m pathway_tpu_torch spawn-from-env
     python -m pathway_tpu_torch scrub [--worker N] [--json] [--repair] ROOT
+    python -m pathway_tpu_torch blackbox [--worker N] [--tail N] [--json] ROOT
+    python -m pathway_tpu_torch profile [--top N] [--json] SOURCE
+    python -m pathway_tpu_torch top [--url URL | --port P] [--once] [--json]
+    python -m pathway_tpu_torch requests [DUMP] [--url URL | --port P] [-n N]
+    python -m pathway_tpu_torch trace [--url URL | --port P] [--seconds S]
+    python -m pathway_tpu_torch buckets [--url URL | --port P] [ROOT]
+
+The observability commands print ``[pathway_tpu_torch]`` where the JAX
+package prints ``[pathway_tpu]``; ``trace`` names the Chrome trace file
+that ``torch.profiler`` writes instead of a TensorBoard directory.
 
 ``spawn`` starts N identical processes of the user's program with
 ``PATHWAY_THREADS/PROCESSES/FIRST_PORT/PROCESS_ID/RUN_ID`` set (every
@@ -510,6 +521,506 @@ def _spawn_from_env() -> int:
     )
 
 
+# ---------------------------------------------------------------------------
+# Observability commands: blackbox, profile, top, requests, trace, buckets
+# ---------------------------------------------------------------------------
+
+
+def _blackbox(worker: int | None, tail: int, as_json: bool, root: str) -> int:
+    """Pretty-print crash flight-recorder dumps under a persistence ROOT.
+
+    Workers dump their bounded event ring (epoch transitions, commit
+    publishes, comm reconnects, injected faults) to ``<ROOT>/blackbox/``
+    when they crash or a fault fires; the supervisor summarizes them on
+    ``SupervisorResult.post_mortem``.  This command renders the full
+    dumps for post-mortem analysis.  Exits non-zero when no dump exists.
+    """
+    import datetime
+    import json as _json
+
+    from pathway_tpu_torch.engine.flight_recorder import gather_dumps
+
+    dumps = gather_dumps(root)
+    if worker is not None:
+        dumps = {w: d for w, d in dumps.items() if w == worker}
+    if not dumps:
+        # missing or empty blackbox/: a clear non-zero exit, whatever the
+        # output mode — an operator piping --json must still see why
+        _echo(
+            f"[pathway_tpu_torch] no flight-recorder dumps under {root}/blackbox "
+            "— nothing crashed there, or this is not a persistence root",
+            err=True,
+        )
+        if as_json:
+            _echo(_json.dumps({}))
+        return 1
+    if as_json:
+        _echo(_json.dumps(dumps, indent=2, sort_keys=True))
+        return 0
+
+    def when(ts):
+        # a parseable-but-partial dump (hand-edited, older format) must
+        # render, not traceback
+        if not isinstance(ts, (int, float)):
+            return "--:--:--.---"
+        return datetime.datetime.fromtimestamp(ts).strftime("%H:%M:%S.%f")[:-3]
+
+    for wid, payloads in sorted(dumps.items()):
+        for payload in payloads:
+            events = payload.get("events") or []
+            _echo(
+                f"worker {wid} · attempt {payload.get('attempt')} · "
+                f"pid {payload.get('pid')} · run {payload.get('run_id')}"
+            )
+            _echo(f"  reason: {payload.get('reason')}")
+            if payload.get("trace_parent"):
+                _echo(f"  trace:  {payload['trace_parent']}")
+            _echo(f"  events: {len(events)} recorded, last {min(tail, len(events))}:")
+            for ev in events[-tail:]:
+                detail = ", ".join(
+                    f"{k}={v}" for k, v in ev.items() if k not in ("ts", "mono", "seq", "kind")
+                )
+                _echo(
+                    f"    {when(ev.get('ts'))}  #{str(ev.get('seq', '?')):>5}  "
+                    f"{str(ev.get('kind', '?')):<22}{detail}"
+                )
+            profile = payload.get("profiler")
+            if profile:
+                # where the time went: the final profiler snapshot
+                from pathway_tpu_torch.engine.profiler import render_snapshot
+
+                for line in render_snapshot(profile).splitlines():
+                    _echo(f"  {line}")
+            freshness = payload.get("freshness")
+            if freshness:
+                # what was STUCK: the final watermark/backlog snapshot
+                from pathway_tpu_torch.engine.freshness import render_freshness
+
+                for line in render_freshness(freshness).splitlines():
+                    _echo(f"  {line}")
+            device = payload.get("device")
+            if device:
+                # what the DEVICE was doing: the final executor snapshot
+                from pathway_tpu_torch.device import render_device_snapshot
+
+                for line in _render_device_section(device, render_device_snapshot).splitlines():
+                    _echo(f"  {line}")
+            else:
+                _echo("  device: (no snapshot in this dump)")
+            autoscaler = payload.get("autoscaler")
+            if autoscaler:
+                # what the scale controller was deciding, with the tail of
+                # the decision log
+                _echo(
+                    "  autoscaler: target "
+                    f"{autoscaler.get('target_workers')} worker(s) · "
+                    f"budget left {autoscaler.get('budget_left')} · "
+                    f"handoff state "
+                    f"{autoscaler.get('handoff_state') or 'idle'}"
+                )
+                for entry in (autoscaler.get("decisions") or [])[-5:]:
+                    _echo(
+                        f"    {entry.get('action', '?'):<18}"
+                        + ", ".join(
+                            f"{k}={v}" for k, v in entry.items() if k not in ("action", "at")
+                        )
+                    )
+            serving = payload.get("serving")
+            if serving:
+                # what the SERVING edge was refusing, with the quarantine tail
+                limits = serving.get("limits") or {}
+                flags = [
+                    flag
+                    for flag, on in (
+                        ("degraded", serving.get("degraded")),
+                        ("draining", serving.get("draining")),
+                        ("admission off", not serving.get("enabled", True)),
+                    )
+                    if on
+                ]
+                _echo(
+                    f"  serving: {serving.get('inflight')}"
+                    f"/{limits.get('inflight')} in flight · queue "
+                    f"{serving.get('queue_depth')}/{limits.get('queue')}"
+                    + (" · " + ", ".join(flags) if flags else "")
+                )
+                if serving.get("quarantined_total"):
+                    _echo(f"    quarantined {serving['quarantined_total']} request(s), last:")
+                    for entry in serving.get("quarantine") or []:
+                        _echo(f"      key={entry.get('key')} {entry.get('error')}")
+    return 0
+
+
+def _render_device_section(device: dict, render) -> str:
+    """A dump's ``device`` section: the JAX package's is one executor
+    snapshot; the port's (``device.default_executor_snapshot``) is one per
+    device, keyed by the device's name, and renders each under its name."""
+    if "cost" in device or "queue" in device:
+        return render(device)
+    return "\n".join(
+        f"{name}:\n" + "\n".join(f"  {line}" for line in render(snap).splitlines())
+        for name, snap in device.items()
+    )
+
+
+def _profile(top: int | None, as_json: bool, source: str) -> int:
+    """Render a per-operator attribution tree from profiler output.
+
+    SOURCE is either a profiler snapshot JSON (written at run end when
+    ``PATHWAY_PROFILE=1`` and ``PATHWAY_PROFILE_OUTPUT=<path>`` are set)
+    or a filesystem persistence root, whose flight-recorder dumps under
+    ``blackbox/`` carry final profiler snapshots.  Exits non-zero when
+    SOURCE holds no profile.
+    """
+    import json as _json
+
+    from pathway_tpu_torch.engine.profiler import render_snapshot
+    from pathway_tpu_torch.internals.config import env_int
+
+    top = top or env_int("PATHWAY_PROFILE_TOP")
+    # (label, profiler snapshot, device snapshot or None), positionally
+    # paired: one worker/attempt can leave several dumps whose labels
+    # collide.  ABSENT marks a bare PATHWAY_PROFILE_OUTPUT snapshot with
+    # no dump context, None a dump without a device section
+    ABSENT = object()
+    snapshots: list[tuple[str, dict, object]] = []
+    if os.path.isdir(source):
+        from pathway_tpu_torch.engine.flight_recorder import gather_dumps
+
+        for wid, payloads in sorted(gather_dumps(source).items()):
+            for payload in payloads:
+                label = f"worker {wid} · attempt {payload.get('attempt')}"
+                prof = payload.get("profiler")
+                if prof:
+                    snapshots.append((label, prof, payload.get("device")))
+    else:
+        try:
+            with open(source, encoding="utf-8") as f:
+                payload = _json.load(f)
+        except (OSError, ValueError) as exc:
+            _echo(f"[pathway_tpu_torch] unreadable snapshot: {exc}", err=True)
+            return 2
+        prof = payload.get("profiler", payload) if isinstance(payload, dict) else None
+        if isinstance(prof, dict) and "operators" in prof:
+            device = (
+                payload.get("device")
+                if isinstance(payload, dict) and "profiler" in payload
+                else ABSENT
+            )
+            snapshots.append((source, prof, device))
+    if not snapshots:
+        _echo(
+            f"[pathway_tpu_torch] no profiler snapshot in {source} — run with "
+            "PATHWAY_PROFILE=1 (and PATHWAY_PROFILE_OUTPUT=<path>, or read "
+            "a persistence root with flight-recorder dumps)",
+            err=True,
+        )
+        return 1
+    if as_json:
+        entries = []
+        for label, snap, device in snapshots:
+            entry: dict = {"label": label, "snapshot": snap}
+            if device is not ABSENT:
+                entry["device"] = device
+            entries.append(entry)
+        _echo(_json.dumps(entries, indent=2, sort_keys=True))
+        return 0
+    for label, snap, device in snapshots:
+        if len(snapshots) > 1:
+            _echo(label)
+        _echo(render_snapshot(snap, top=top))
+        if device is ABSENT:
+            continue
+        if device:
+            from pathway_tpu_torch.device import render_device_snapshot
+
+            _echo(_render_device_section(device, render_device_snapshot))
+        else:
+            _echo("device: (no snapshot in this dump)")
+    return 0
+
+
+def _monitoring_url(url: str | None, port: int | None, process_id: int, endpoint: str) -> str:
+    """Resolve a monitoring-server URL the way ``top`` does: explicit
+    ``--url`` wins, else ``--port``/``PATHWAY_MONITORING_HTTP_PORT``/the
+    20000 + process-id default, with ``endpoint`` as the path."""
+    if url is not None:
+        return url
+    from pathway_tpu_torch.engine.http_server import monitoring_port
+    from pathway_tpu_torch.internals.config import env_int
+
+    if port is None:
+        port = env_int("PATHWAY_MONITORING_HTTP_PORT")
+    return f"http://127.0.0.1:{monitoring_port(process_id, port)}/{endpoint}"
+
+
+def _top(url, port, process_id, interval, once: bool, as_json: bool) -> int:
+    """Live per-operator backlog + freshness view of a running pipeline.
+
+    Polls ``GET /status`` on the monitoring HTTP server (enable it with
+    ``pw.run(with_http_server=True)`` or ``PATHWAY_MONITORING_HTTP_PORT``)
+    and renders epoch rate, per-output staleness and end-to-end latency
+    quantiles (``freshness.*``), the ranked ``backlog.*`` wait points, the
+    device panel and the per-operator progress table.  Exits non-zero
+    with a clear message when the endpoint is unreachable.
+    """
+    import json as _json
+    import time as _time_mod
+
+    from pathway_tpu_torch.internals.config import env_float
+    from pathway_tpu_torch.internals.top import StatusUnavailable, fetch_status, render_top
+
+    url = _monitoring_url(url, port, process_id, "status")
+    if interval is None:
+        interval = env_float("PATHWAY_STATUS_REFRESH_S")
+    # 0.1 s is the floor, so a typo cannot hot-spin the server
+    interval = max(0.1, float(interval))
+    prev = None
+    prev_t = None
+    while True:
+        try:
+            status = fetch_status(url)
+        except StatusUnavailable as exc:
+            _echo(f"[pathway_tpu_torch] {exc}", err=True)
+            return 1
+        now = _time_mod.monotonic()
+        if as_json:
+            _echo(_json.dumps(status, indent=2, sort_keys=True))
+        else:
+            if not once and sys.stdout.isatty():
+                print("\033[2J\033[H", end="")  # clear the screen
+            # epoch rate derives from the measured time between polls
+            _echo(render_top(status, prev, interval_s=(now - prev_t) if prev_t else None))
+        if once:
+            return 0
+        prev, prev_t = status, now
+        _time_mod.sleep(interval)
+
+
+def _requests(dump, url, port, process_id, limit: int, recent: bool, as_json: bool) -> int:
+    """Slowest-request waterfalls from the live span buffer or a dump.
+
+    Reads the finished-request trace ring (``engine/tracing.py``) either
+    from a running pipeline's ``GET /status`` ``requests`` section or —
+    with a DUMP argument — from a flight-recorder dump file's
+    ``requests`` payload, and renders each trace as a span waterfall.
+    """
+    import json as _json
+
+    from pathway_tpu_torch.internals.top import StatusUnavailable, fetch_status, render_requests
+
+    if dump is not None:
+        try:
+            with open(dump) as f:
+                payload = _json.load(f)
+        except (OSError, ValueError) as exc:
+            _echo(f"[pathway_tpu_torch] cannot read dump {dump}: {exc}", err=True)
+            return 1
+        section = payload.get("requests") or {}
+    else:
+        try:
+            status = fetch_status(_monitoring_url(url, port, process_id, "status"))
+        except StatusUnavailable as exc:
+            _echo(f"[pathway_tpu_torch] {exc}", err=True)
+            return 1
+        section = status.get("requests") or {}
+    traces = section.get("recent" if recent else "slowest") or []
+    if as_json:
+        _echo(_json.dumps(traces[:limit], indent=2, sort_keys=True))
+        return 0
+    _echo(render_requests(traces, limit=limit))
+    return 0
+
+
+def _trace(url, port, process_id, seconds: float) -> int:
+    """Capture an on-demand torch.profiler trace from a running worker.
+
+    Asks the worker's monitoring HTTP server (``GET /trace?seconds=N``)
+    to run ``torch.profiler`` IN the worker process and write a Chrome
+    trace (``trace.json``, viewable in Perfetto or ``chrome://tracing``)
+    under the worker's ``PATHWAY_DEVICE_TRACE_DIR``.  Exits non-zero with
+    the server's reason when capture is unavailable (no trace dir
+    configured, capture already running, endpoint unreachable).
+    """
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    target = _monitoring_url(url, port, process_id, "trace")
+    sep = "&" if "?" in target else "?"
+    target = f"{target}{sep}seconds={float(seconds)}"
+    _echo(f"[pathway_tpu_torch] capturing {seconds:g} s of device trace via {target} ...", err=True)
+    try:
+        # the server blocks for the capture duration; pad the timeout
+        with urllib.request.urlopen(target, timeout=seconds + 30.0) as r:
+            payload = _json.loads(r.read().decode())
+    except urllib.error.HTTPError as exc:
+        try:
+            reason = _json.loads(exc.read().decode()).get("error", str(exc))
+        except Exception:  # noqa: BLE001 - error body is best-effort
+            reason = str(exc)
+        _echo(f"[pathway_tpu_torch] trace capture failed: {reason}", err=True)
+        return 1
+    except (OSError, ValueError) as exc:
+        _echo(
+            f"[pathway_tpu_torch] cannot reach {target} ({exc}) — is the pipeline "
+            "running with with_http_server=True (or "
+            "PATHWAY_MONITORING_HTTP_PORT set)?",
+            err=True,
+        )
+        return 1
+    trace_dir = payload.get("trace_dir")
+    _echo(f"[pathway_tpu_torch] trace written to {trace_dir}")
+    _echo(f"[pathway_tpu_torch] view with: perfetto or chrome://tracing on {trace_dir}/trace.json",
+          err=True)
+    return 0
+
+
+def _buckets(url, port, process_id, max_buckets: int, as_json: bool, root) -> int:
+    """Replay the observed batch-size distribution; suggest better buckets.
+
+    Reads the ragged batch sizes the DeviceExecutor actually saw — live
+    from a running worker's ``GET /status`` device section, or post-hoc
+    from the flight-recorder dumps under a persistence ROOT — replays
+    them against the default power-of-two policy, and reports the bucket
+    set of at most ``--max-buckets`` sizes that minimizes padding waste
+    (``device/bucketing.py:suggest_buckets``).  Exits non-zero when no
+    batch distribution is available.
+    """
+    import json as _json
+
+    from pathway_tpu_torch.device.bucketing import (
+        BucketPolicy,
+        next_pow2,
+        replay_waste,
+        suggest_buckets,
+    )
+
+    size_counts: dict[int, int] = {}
+    truncated = False
+    observed_max_batch: int | None = None
+    if root is not None:
+        from pathway_tpu_torch.engine.flight_recorder import gather_dumps
+
+        for _wid, payloads in sorted(gather_dumps(root).items()):
+            # the accountant's ledger is cumulative per process: count only
+            # the newest dump of each attempt, summing across attempts
+            newest_per_attempt: dict = {}
+            for payload in payloads:
+                key = payload.get("attempt")
+                prev = newest_per_attempt.get(key)
+                if prev is None or (payload.get("dumped_at") or 0) >= (prev.get("dumped_at") or 0):
+                    newest_per_attempt[key] = payload
+            for payload in newest_per_attempt.values():
+                for device_snap in _executor_snapshots(payload.get("device") or {}):
+                    try:
+                        observed_max_batch = int(device_snap["default_max_batch"])
+                    except (KeyError, TypeError, ValueError):
+                        pass
+                    sizes = (device_snap.get("cost") or {}).get("batch_sizes") or {}
+                    for size, count in sizes.items():
+                        try:
+                            size_counts[int(size)] = size_counts.get(int(size), 0) + int(count)
+                        except (TypeError, ValueError):
+                            continue
+        source = f"flight-recorder dumps under {root}"
+    else:
+        from pathway_tpu_torch.device.telemetry import BATCH_SIZE_EXPORT_TOP
+        from pathway_tpu_torch.engine.metrics import split_labeled_name
+        from pathway_tpu_torch.internals.top import StatusUnavailable, fetch_status
+
+        target = _monitoring_url(url, port, process_id, "status")
+        try:
+            status = fetch_status(target)
+        except StatusUnavailable as exc:
+            _echo(f"[pathway_tpu_torch] {exc}", err=True)
+            return 1
+        device_section = status.get("device") or {}
+        if device_section.get("device.batch.max"):
+            observed_max_batch = int(device_section["device.batch.max"])
+        for key, value in device_section.items():
+            base, labels = split_labeled_name(key)
+            if base != "device.batch.rows" or "rows" not in labels:
+                continue
+            try:
+                size_counts[int(labels["rows"])] = int(value)
+            except (TypeError, ValueError):
+                continue
+        source = target
+        # the live feed exports only the most frequent sizes: at the cap
+        # the tail was dropped and the report says so
+        truncated = len(size_counts) >= BATCH_SIZE_EXPORT_TOP
+    if not size_counts:
+        _echo(
+            f"[pathway_tpu_torch] no batch-size distribution in {source} — the "
+            "DeviceExecutor has not dispatched yet (or the dump predates "
+            "device observability)",
+            err=True,
+        )
+        return 1
+    largest = max(size_counts)
+    # the baseline is the analyzed run's default policy (its
+    # PATHWAY_DEVICE_MAX_BATCH); the analyst's env is the last resort
+    if observed_max_batch is None:
+        from pathway_tpu_torch.internals.config import env_int
+
+        observed_max_batch = env_int("PATHWAY_DEVICE_MAX_BATCH")
+    current = BucketPolicy(max_bucket=min(next_pow2(largest), int(observed_max_batch))).buckets()
+    current_pad, real = replay_waste(size_counts, current)
+    suggested = suggest_buckets(size_counts, max_buckets=max_buckets)
+    suggested_pad, _ = replay_waste(size_counts, suggested)
+
+    def frac(pad: int) -> float:
+        return pad / (pad + real) if (pad + real) else 0.0
+
+    report = {
+        "source": source,
+        "batches": sum(size_counts.values()),
+        "distinct_sizes": len(size_counts),
+        "truncated": truncated,
+        "largest": largest,
+        "real_rows": real,
+        "current": {"buckets": list(current), "pad_rows": current_pad,
+                    "waste_fraction": frac(current_pad)},
+        "suggested": {"buckets": list(suggested), "pad_rows": suggested_pad,
+                      "waste_fraction": frac(suggested_pad)},
+    }
+    if as_json:
+        _echo(_json.dumps(report, indent=2, sort_keys=True))
+        return 0
+    _echo(
+        f"batch distribution: {report['batches']} batch(es), "
+        f"{report['distinct_sizes']} distinct size(s), largest {largest} ({source})"
+    )
+    if truncated:
+        _echo(
+            "  note: the live /status feed exports only the most-frequent "
+            "sizes — the tail of the distribution was dropped; read a "
+            "flight-recorder root for the full ledger"
+        )
+    _echo(f"  power-of-two policy {current}: {current_pad} pad row(s) ({frac(current_pad):.1%} waste)")
+    _echo(
+        f"  suggested buckets   {suggested}: {suggested_pad} pad row(s) "
+        f"({frac(suggested_pad):.1%} waste) — {len(suggested)} compile(s) per callable"
+    )
+    if suggested_pad < current_pad:
+        _echo(
+            f"  apply with DeviceExecutor.register(..., policy=BucketPolicy("
+            f"sizes={suggested})) for the hot callables"
+        )
+    else:
+        _echo("  the power-of-two policy is already near-optimal here")
+    return 0
+
+
+def _executor_snapshots(device: dict) -> list[dict]:
+    """The executor snapshots of a dump's ``device`` section: one, as the
+    JAX package writes it, or one per device, as the port writes it."""
+    if "cost" in device or "queue" in device or "default_max_batch" in device:
+        return [device]
+    return [snap for snap in device.values() if isinstance(snap, dict)]
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="python -m pathway_tpu_torch")
     commands = parser.add_subparsers(dest="command", required=True)
@@ -552,8 +1063,7 @@ def main(argv: list[str] | None = None) -> int:
         "--autoscale", action="store_true", default=None,
         help="supervised mode: arm the load-adaptive scale controller "
         "(PATHWAY_AUTOSCALE_* knobs; requires --checkpoint-root); its load "
-        "reading comes from the freshness tracker of slice H5, and reads "
-        "calm until then",
+        "reading comes from each worker's freshness tracker",
     )
     spawn.add_argument(
         "--standbys", metavar="K", type=int, default=None,
@@ -605,6 +1115,73 @@ def main(argv: list[str] | None = None) -> int:
         "refuse to fall back silently",
     )
     scrub.add_argument("root")
+
+    blackbox = commands.add_parser(
+        "blackbox", help="pretty-print flight-recorder dumps under a persistence ROOT",
+        description=_blackbox.__doc__,
+    )
+    blackbox.add_argument("--worker", metavar="N", type=int, default=None,
+                          help="show only this worker's dumps")
+    blackbox.add_argument("--tail", metavar="N", type=_positive_int, default=20,
+                          help="events to show from the end of each dump's ring")
+    blackbox.add_argument("--json", dest="as_json", action="store_true",
+                          help="emit the raw dumps as JSON")
+    blackbox.add_argument("root")
+
+    profile = commands.add_parser(
+        "profile", help="render a per-operator attribution tree from profiler output",
+        description=_profile.__doc__,
+    )
+    profile.add_argument("--top", metavar="N", type=_positive_int, default=None,
+                         help="operators to show (default: the PATHWAY_PROFILE_TOP knob)")
+    profile.add_argument("--json", dest="as_json", action="store_true",
+                         help="emit the raw snapshot(s) as JSON")
+    profile.add_argument("source")
+
+    top = commands.add_parser(
+        "top", help="live backlog, freshness and device view of a running pipeline",
+        description=_top.__doc__,
+    )
+    _add_monitoring_options(top, "status")
+    top.add_argument("--interval", metavar="SECONDS", type=float, default=None,
+                     help="refresh interval (default: the PATHWAY_STATUS_REFRESH_S knob)")
+    top.add_argument("--once", action="store_true",
+                     help="render a single frame and exit (no loop)")
+    top.add_argument("--json", dest="as_json", action="store_true",
+                     help="emit the raw /status JSON")
+
+    requests = commands.add_parser(
+        "requests", help="slowest-request waterfalls from the live span buffer or a dump",
+        description=_requests.__doc__,
+    )
+    requests.add_argument("dump", nargs="?", default=None)
+    _add_monitoring_options(requests, "status")
+    requests.add_argument("-n", "--limit", metavar="N", type=int, default=10,
+                          help="waterfalls to render (default 10)")
+    requests.add_argument("--recent", action="store_true",
+                          help="newest-first instead of slowest-first")
+    requests.add_argument("--json", dest="as_json", action="store_true",
+                          help="emit the raw trace JSON")
+
+    trace = commands.add_parser(
+        "trace", help="capture an on-demand torch.profiler trace from a running worker",
+        description=_trace.__doc__,
+    )
+    _add_monitoring_options(trace, "trace")
+    trace.add_argument("--seconds", metavar="S", type=float, default=3.0,
+                       help="capture duration (default 3.0)")
+
+    buckets = commands.add_parser(
+        "buckets", help="replay the observed batch-size distribution; suggest buckets",
+        description=_buckets.__doc__,
+    )
+    _add_monitoring_options(buckets, "status")
+    buckets.add_argument("--max-buckets", metavar="K", type=_positive_int, default=8,
+                         help="bucket-set size budget (default 8)")
+    buckets.add_argument("--json", dest="as_json", action="store_true",
+                         help="emit the report as JSON")
+    buckets.add_argument("root", nargs="?", default=None)
+
     args = parser.parse_args(argv)
     if args.command == "spawn":
         _spawn(args)
@@ -612,9 +1189,48 @@ def main(argv: list[str] | None = None) -> int:
         _replay(args)
     if args.command == "spawn-from-env":
         return _spawn_from_env()
+    if args.command == "profile":
+        if not os.path.exists(args.source):
+            parser.error(f"SOURCE {args.source!r} does not exist")
+        return _profile(args.top, args.as_json, args.source)
+    if args.command == "top":
+        return _top(args.url, args.port, args.process_id, args.interval, args.once, args.as_json)
+    if args.command == "requests":
+        if args.dump is not None and not os.path.isfile(args.dump):
+            parser.error(f"DUMP {args.dump!r} is not a file")
+        return _requests(args.dump, args.url, args.port, args.process_id, args.limit,
+                         args.recent, args.as_json)
+    if args.command == "trace":
+        return _trace(args.url, args.port, args.process_id, args.seconds)
+    if args.command == "buckets":
+        if args.root is not None and not os.path.isdir(args.root):
+            parser.error(f"ROOT {args.root!r} is not a directory")
+        return _buckets(args.url, args.port, args.process_id, args.max_buckets,
+                        args.as_json, args.root)
     if not os.path.isdir(args.root):
         parser.error(f"ROOT {args.root!r} is not a directory")
+    if args.command == "blackbox":
+        return _blackbox(args.worker, args.tail, args.as_json, args.root)
     return _scrub(args.worker, args.as_json, args.repair, args.root)
+
+
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"{value} is smaller than 1")
+    return value
+
+
+def _add_monitoring_options(parser: argparse.ArgumentParser, endpoint: str) -> None:
+    """``--url``, ``--port`` and ``--process-id``, resolved by
+    :func:`_monitoring_url`."""
+    parser.add_argument("--url", metavar="URL", default=None,
+                        help=f"full /{endpoint} URL (overrides --port/--process-id)")
+    parser.add_argument("--port", metavar="PORT", type=int, default=None,
+                        help="monitoring HTTP port (default: PATHWAY_MONITORING_HTTP_PORT, "
+                        "else 20000 + process id)")
+    parser.add_argument("--process-id", metavar="N", type=int, default=0,
+                        help="worker whose endpoint to use (port defaults to 20000 + N)")
 
 
 if __name__ == "__main__":

@@ -140,6 +140,102 @@ def pad_batch_dim(
     return padded, mask
 
 
+def replay_waste(
+    size_counts: dict[int, int], buckets: Sequence[int]
+) -> tuple[int, int]:
+    """Replay an observed batch-size distribution against a bucket set.
+
+    Returns ``(pad_rows, real_rows)``: how many padding rows the set
+    would add over how many real rows, using the executor's planning
+    semantics — batches above the largest bucket split into full
+    largest-bucket chunks (zero waste) plus one bucketed remainder.
+    The analysis behind ``device.padding.waste.fraction`` and the
+    ``python -m pathway_tpu_torch buckets`` suggestion report."""
+    if not buckets:
+        raise ValueError("cannot replay against an empty bucket set")
+    ordered = sorted(set(int(b) for b in buckets))
+    if ordered[0] < 1:
+        raise ValueError("buckets must be >= 1")
+    largest = ordered[-1]
+    pad = 0
+    real = 0
+    for size, count in size_counts.items():
+        size, count = int(size), int(count)
+        if size < 1 or count < 1:
+            continue
+        real += size * count
+        rest = size % largest if size > largest else size
+        if rest == 0:
+            continue  # exact multiples of the largest bucket: no waste
+        bucket = next((b for b in ordered if b >= rest), largest)
+        pad += (bucket - rest) * count
+    return pad, real
+
+
+def suggest_buckets(
+    size_counts: dict[int, int], *, max_buckets: int = 8
+) -> tuple[int, ...]:
+    """The bucket set of at most ``max_buckets`` sizes minimizing padded
+    rows over an observed batch-size distribution.
+
+    Exact dynamic program over the distinct observed sizes (an optimal
+    bucket boundary always sits on an observed size): ``cost(i..j)`` is
+    the padding added by covering sizes ``i..j`` with one bucket at size
+    ``j``.  Distinct sizes are bounded by the accountant's cap
+    (``device/telemetry.py``), so the O(S²·K) DP stays trivial.  The
+    largest observed size is always a bucket (larger batches split
+    against it at zero marginal waste, matching :meth:`BucketPolicy.plan`
+    semantics).  Each extra bucket is one more compile per callable —
+    the suggestion trades padding against compile count, and the CLI
+    reports both sides."""
+    sizes = sorted(
+        int(s) for s, c in size_counts.items() if int(s) >= 1 and int(c) >= 1
+    )
+    if not sizes:
+        raise ValueError("cannot suggest buckets for an empty distribution")
+    counts = [int(size_counts[s]) for s in sizes]
+    m = len(sizes)
+    k_max = max(1, min(int(max_buckets), m))
+    # cost[i][j]: padding rows when sizes[i..j] all round up to sizes[j]
+    prefix_rows = [0]
+    prefix_count = [0]
+    for s, c in zip(sizes, counts):
+        prefix_rows.append(prefix_rows[-1] + s * c)
+        prefix_count.append(prefix_count[-1] + c)
+
+    def cost(i: int, j: int) -> int:
+        n = prefix_count[j + 1] - prefix_count[i]
+        rows = prefix_rows[j + 1] - prefix_rows[i]
+        return sizes[j] * n - rows
+
+    INF = float("inf")
+    # dp[k][j]: min padding covering sizes[0..j] with k buckets, the last
+    # at sizes[j]; choice[k][j] remembers the split for reconstruction
+    dp = [[INF] * m for _ in range(k_max + 1)]
+    choice = [[-1] * m for _ in range(k_max + 1)]
+    for j in range(m):
+        dp[1][j] = cost(0, j)
+    for k in range(2, k_max + 1):
+        for j in range(k - 1, m):
+            for i in range(k - 2, j):
+                c = dp[k - 1][i] + cost(i + 1, j)
+                if c < dp[k][j]:
+                    dp[k][j] = c
+                    choice[k][j] = i
+    # fewer buckets can tie; prefer the smallest set that reaches the
+    # optimum (every bucket is a compile)
+    best_k = min(
+        range(1, k_max + 1), key=lambda k: (dp[k][m - 1], k)
+    )
+    buckets = []
+    j, k = m - 1, best_k
+    while k >= 1:
+        buckets.append(sizes[j])
+        j = choice[k][j]
+        k -= 1
+    return tuple(sorted(buckets))
+
+
 def stack_rows(rows: Sequence[np.ndarray]) -> tuple[np.ndarray, int]:
     """Stack per-row arrays into one ``[n, ...]`` batch, refusing mixes.
 

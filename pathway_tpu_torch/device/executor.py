@@ -79,6 +79,7 @@ import threading
 import time
 import traceback
 import weakref
+from contextvars import ContextVar
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -90,8 +91,30 @@ from pathway_tpu_torch.device.bucketing import BucketPolicy, pad_batch_dim
 from pathway_tpu_torch.engine import faults as _faults
 from pathway_tpu_torch.engine import flight_recorder as _blackbox
 from pathway_tpu_torch.engine import metrics as _metrics
+from pathway_tpu_torch.engine import profiler as _profiler
 from pathway_tpu_torch.engine import serving as _serving
 from pathway_tpu_torch.internals.config import env_bool, env_float, env_int
+
+# request traces of the job running on the dispatch thread, set by
+# ``_run_job`` so ``run_batch`` / ``_run_chunk`` (inline, same thread)
+# attribute their device spans to every coalesced waiter's trace
+_JOB_TRACES: ContextVar[tuple] = ContextVar("pathway_device_job_traces", default=())
+# the attributes of the traced chunk being dispatched on this thread
+# (cache cold/warm, retries, fallback), filled by the layers below
+# ``_run_chunk`` while a request trace is in scope
+_SPAN_NOTE: ContextVar[dict | None] = ContextVar("pathway_device_span_note", default=None)
+
+
+def _current_traces() -> tuple:
+    """Traces device spans attach to: the running job's (the batched submit
+    path) or the ambient request trace (an inline ``run_batch``)."""
+    traces = _JOB_TRACES.get()
+    if traces:
+        return traces
+    from pathway_tpu_torch.engine import tracing as _tracing
+
+    trace = _tracing.current_trace()
+    return (trace,) if trace is not None else ()
 
 __all__ = ["DeviceExecutor", "DeviceFuture"]
 
@@ -208,14 +231,17 @@ class _Job:
 
     __slots__ = (
         "name", "fn", "future", "nbytes", "stream", "enqueued_at",
-        "started_at", "abandoned", "finalized",
+        "started_at", "abandoned", "finalized", "traces",
     )
 
-    def __init__(self, name: str, fn: Callable[[], Any], nbytes: int, stream):
+    def __init__(self, name: str, fn: Callable[[], Any], nbytes: int, stream, traces: tuple = ()):
         self.name = name
         self.fn = fn
         self.future = DeviceFuture()
         self.nbytes = max(0, int(nbytes))
+        # request traces this job serves (engine/tracing.py), carried
+        # explicitly across the submit-to-dispatch thread hop
+        self.traces = traces
         # the CUDA stream current on the submitting thread: the job's
         # launches go where the caller's tensors were made
         self.stream = stream
@@ -271,8 +297,10 @@ def _nbytes(x: Any) -> int:
 
 def _to_host(out: Any) -> Any:
     """The callable's output (a tensor, or a tuple or list of them) as
-    numpy: the copy back that waits for the device."""
+    numpy: the copy back that waits for the device (counted under
+    ``device.transfer.d2h.bytes`` with ``PATHWAY_PROFILE_TRANSFERS``)."""
     if isinstance(out, torch.Tensor):
+        _profiler.note_d2h(out.numel() * out.element_size())
         return out.cpu().numpy()
     if isinstance(out, list):
         return [_to_host(o) for o in out]
@@ -487,6 +515,9 @@ class DeviceExecutor:
             if not warmup:
                 entry.dispatches += 1
             cost = entry.costs.get(key)
+        note = _SPAN_NOTE.get()
+        if note is not None:
+            note["cache"] = "cold" if fresh else "warm"
         if fresh:
             (self._m_warm if warmup else self._m_cold).inc()
         counting = cost is None and env_bool("PATHWAY_DEVICE_COST_ANALYSIS")
@@ -507,6 +538,7 @@ class DeviceExecutor:
             self._maybe_inject_failure(entry.name)
             with torch.inference_mode():
                 tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
+                _profiler.note_h2d(sum(a.nbytes for a in arrays))
 
                 def call():
                     return _to_host(entry.fn(*operands, *tensors, **static))
@@ -589,6 +621,9 @@ class DeviceExecutor:
                     delays = retry.delays()
                     deadline = time.monotonic() + retry.deadline_s
                 attempt += 1
+                note = _SPAN_NOTE.get()
+                if note is not None:
+                    note["retries"] = attempt
                 remaining = deadline - time.monotonic()
                 if attempt > retry.retries or remaining <= 0:
                     raise typed from exc
@@ -661,6 +696,38 @@ class DeviceExecutor:
         bucket: int,
         static: dict[str, Any] | None,
     ) -> list[Any]:
+        """Dispatch one planned chunk; when request traces are in scope (a
+        traced job on the dispatch thread, or an ambient trace around an
+        inline ``run_batch``), the chunk records a ``device.dispatch`` span
+        per trace: callable, bucket and rows, and the cache, retries and
+        fallback attributes the layers below note."""
+        traces = _current_traces()
+        if not traces:
+            return self._run_chunk_inner(entry, operands, rows, count, bucket, static)
+        note: dict[str, Any] = {}
+        token = _SPAN_NOTE.set(note)
+        started = time.time()
+        t0 = time.monotonic()
+        try:
+            return self._run_chunk_inner(entry, operands, rows, count, bucket, static)
+        finally:
+            _SPAN_NOTE.reset(token)
+            duration_s = time.monotonic() - t0
+            for trace in traces:
+                trace.add_span(
+                    "device.dispatch", started, duration_s,
+                    callable=entry.name, bucket=bucket, rows=count, **note,
+                )
+
+    def _run_chunk_inner(
+        self,
+        entry: _Registered,
+        operands: tuple,
+        rows: tuple,
+        count: int,
+        bucket: int,
+        static: dict[str, Any] | None,
+    ) -> list[Any]:
         """Dispatch one planned chunk under the resilience contract; returns
         its unpadded outputs, possibly from several smaller dispatches after
         an OOM ratchet."""
@@ -715,6 +782,10 @@ class DeviceExecutor:
                 # planned again only now, after the handler let the error
                 # (and the failed call's tensors) go
                 return self._run_rows(entry, operands, rows, count, static)
+        # degraded mode: the host fallback serves this batch
+        note = _SPAN_NOTE.get()
+        if note is not None:
+            note["fallback"] = True
         try:
             out = self._run_host_fallback(entry, operands, padded, static)
         except Exception as exc:  # noqa: BLE001 - the poisoned-batch terminus
@@ -841,6 +912,7 @@ class DeviceExecutor:
         name: str = "host",
         nbytes: int = 0,
         timeout_s: float | None = None,
+        traces: tuple = (),
     ) -> DeviceFuture:
         """Queue ``fn()`` onto the dispatch thread; returns its future.
 
@@ -859,7 +931,11 @@ class DeviceExecutor:
             raise _res.ExecutorClosedError("submit() on a closed device executor")
         _serving.shed_if_expired("device")
         stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
-        job = _Job(name, fn, nbytes, stream)
+        if not traces:
+            # a direct submit (no batcher in front) carries the ambient
+            # request trace of the submitting context
+            traces = _current_traces()
+        job = _Job(name, fn, nbytes, stream, traces)
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
         stalled = 0.0
         try:
@@ -948,6 +1024,8 @@ class DeviceExecutor:
         if job.abandoned:
             return  # the injected hang outlived the deadline: its waiters were failed
         t0 = time.monotonic()
+        started = time.time()
+        token = _JOB_TRACES.set(job.traces) if job.traces else None
         try:
             if job.stream is not None:
                 with torch.cuda.stream(job.stream):
@@ -957,6 +1035,20 @@ class DeviceExecutor:
         except BaseException as exc:  # noqa: BLE001 - delivered to the waiter
             job.future.set_exception(exc)
             return
+        finally:
+            if token is not None:
+                _JOB_TRACES.reset(token)
+            if job.traces:
+                duration_s = time.monotonic() - t0
+                queue_wait_s = max(0.0, t0 - job.enqueued_at)
+                for trace in job.traces:
+                    trace.add_span(
+                        "device.job",
+                        started,
+                        duration_s,
+                        job=job.name,
+                        queue_wait_s=round(queue_wait_s, 6),
+                    )
         if job.abandoned:
             return  # its waiters already got the hang error
         self._m_job_ms.observe((time.monotonic() - t0) * 1000.0)
@@ -1114,7 +1206,12 @@ class DeviceExecutor:
             if cap is not None:
                 out[f"device.bucket.cap{{callable={name}}}"] = float(cap)
         out["device.quarantine.records"] = float(len(self._quarantine))
-        return out
+        if self.device.type != "cpu" or not torch.cuda.is_available():
+            return out
+        # a host twin's executor beside a card: its gauges carry
+        # ``device=cpu``, so they do not shadow the card's unlabelled ones
+        # in the registry's flat namespace
+        return {(f"{k[:-1]},device=cpu}}" if k.endswith("}") else f"{k}{{device=cpu}}"): v for k, v in out.items()}
 
     def resilience_stats(self, name: str) -> dict[str, Any]:
         """One callable's fault-tolerance ledger."""

@@ -37,6 +37,7 @@ table, else a CPU default that only exercises the arithmetic).
 
 from __future__ import annotations
 
+import atexit
 import os
 import threading
 import time
@@ -366,6 +367,13 @@ class TraceBusy(TraceUnavailable):
 _MAX_TRACE_SECONDS = 120.0
 _trace_lock = threading.Lock()
 _trace_seq = 0
+# A profiler session still open when the interpreter exits crashes it (a
+# segfault in the profiler's teardown, reproduced by a capture that
+# outlives its run): a capture ends early on ``_trace_stop``, which
+# :func:`stop_trace` sets where the monitoring server closes and at exit.
+_trace_stop = threading.Event()
+_trace_closed = False
+_trace_atexit = False
 
 
 def capture_trace(seconds: float, trace_dir: str | None = None) -> str:
@@ -374,7 +382,9 @@ def capture_trace(seconds: float, trace_dir: str | None = None) -> str:
     under ``trace_dir`` (default ``PATHWAY_DEVICE_TRACE_DIR``) and return
     its path; the trace is a Chrome trace file (``trace.json``).  One
     capture at a time (:class:`TraceBusy`); ``seconds`` is clamped to
-    [0, 120]; captures count under ``device.trace.captures``."""
+    [0, 120], and :func:`stop_trace` ends a capture sooner; captures count
+    under ``device.trace.captures``."""
+    global _trace_atexit, _trace_seq
     base = trace_dir or env_str("PATHWAY_DEVICE_TRACE_DIR")
     if not base:
         raise TraceUnavailable(
@@ -385,7 +395,14 @@ def capture_trace(seconds: float, trace_dir: str | None = None) -> str:
     if not _trace_lock.acquire(blocking=False):
         raise TraceBusy("a trace capture is already running in this process")
     try:
-        global _trace_seq
+        # a closing stop_trace sets _trace_closed before _trace_stop, so a
+        # capture starting beside it sees the one or the other
+        _trace_stop.clear()
+        if _trace_closed:
+            raise TraceUnavailable("the process is exiting")
+        if not _trace_atexit:
+            atexit.register(stop_trace, closing=True)
+            _trace_atexit = True
         _trace_seq += 1
         path = os.path.join(
             base, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-pid{os.getpid()}-{_trace_seq:03d}"
@@ -395,18 +412,25 @@ def capture_trace(seconds: float, trace_dir: str | None = None) -> str:
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         with torch.profiler.profile(activities=activities) as prof:
-            deadline = time.monotonic() + seconds
-            while True:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                time.sleep(min(0.05, remaining))
+            _trace_stop.wait(seconds)
         prof.export_chrome_trace(os.path.join(path, "trace.json"))
         _metrics.get_registry().counter(
             "device.trace.captures", "on-demand torch.profiler traces captured"
         ).inc()
         return path
     finally:
+        _trace_lock.release()
+
+
+def stop_trace(closing: bool = False) -> None:
+    """End a running capture now and wait until its session has stopped
+    and its trace is written; with ``closing`` (at exit) refuse any later
+    capture too.  No-op when no capture runs."""
+    global _trace_closed
+    if closing:
+        _trace_closed = True
+    _trace_stop.set()
+    if _trace_lock.acquire(timeout=60.0):  # the export of a long capture
         _trace_lock.release()
 
 

@@ -1,23 +1,22 @@
 """Crash flight recorder: a bounded ring of structured runtime events.
 
-A copy of ``pathway_tpu/engine/flight_recorder.py`` without the H5
-sections.  Every notable state transition (epoch starts, commit-barrier
+A copy of ``pathway_tpu/engine/flight_recorder.py``.  Every notable state transition (epoch starts, commit-barrier
 publishes, comm link drops and reconnects, injected faults, restart
 attempts, device failures) is appended to a bounded in-memory ring.  When
 a worker crashes or a fault fires, the ring is dumped as JSON to
 ``<persistence root>/blackbox/``, so the supervisor
 (``engine/supervisor.py``) can gather every worker's last seconds into
 ``SupervisorResult.post_mortem`` (:func:`gather_dumps`,
-:func:`summarize_dumps`).
+:func:`summarize_dumps`) and ``python -m pathway_tpu_torch blackbox`` can
+pretty-print them long after the processes are gone.
 
 The recorder is process-global and always records in memory; dumping
 requires a configured filesystem root (the runner wires it when the run
 persists to a ``FileBackend``).  SIGKILL-style injected crashes dump
 before the kill (``engine/faults.py``); real uncaught failures dump from
-the runner's failure path.  A dump carries the autoscaler, serving and
-generation suppliers' snapshots.  The profiler, freshness, device,
-tracing and SLO sections of a dump, and the ``blackbox`` command that
-renders one, come with slice H5.
+the runner's failure path.  A dump carries the profiler, freshness,
+device, autoscaler, serving, generation, request-trace and SLO
+suppliers' snapshots.
 """
 
 from __future__ import annotations
@@ -58,6 +57,17 @@ class FlightRecorder:
         # (the supervisor's post-mortem gather would misattribute it)
         self.incarnation = 0
         self._dumped: str | None = None  # path of the last dump, if any
+        # optional profiler supplier (engine/profiler.py): every dump
+        # carries a final top-N operator attribution snapshot, so a
+        # post-mortem says where the time went, not just what happened
+        self._profile_supplier: Any = None
+        # optional freshness supplier (engine/freshness.py): final
+        # watermark/backlog snapshot — what was STUCK, not just slow
+        self._freshness_supplier: Any = None
+        # optional device supplier (device/__init__.py
+        # default_executor_snapshot): the final DeviceExecutor snapshot
+        # (cost/utilization/padding/HBM/queue) — what the DEVICE was doing
+        self._device_supplier: Any = None
         # optional autoscaler supplier (engine/autoscaler.py): the scale
         # controller's decision log + panel state — post-mortems say WHY
         # a rescale fired (or why one was suppressed)
@@ -72,6 +82,13 @@ class FlightRecorder:
         # post-mortems say what the GENERATION loop was holding when
         # the process died
         self._generation_supplier: Any = None
+        # optional tracing supplier (engine/tracing.py): the finished-
+        # request ring (trace ids, durations, span trees), which
+        # `python -m pathway_tpu_torch requests` re-renders from a dump
+        self._tracing_supplier: Any = None
+        # optional SLO supplier (engine/slo.py): declared objectives with
+        # their burn rates and remaining budgets
+        self._slo_supplier: Any = None
 
     # -- recording ---------------------------------------------------------
     def record(self, kind: str, **fields: Any) -> None:
@@ -114,6 +131,36 @@ class FlightRecorder:
                 self.attempt = attempt
             if incarnation is not None:
                 self.incarnation = incarnation
+
+    def set_profile_supplier(self, fn: Any) -> None:
+        """Attach (or clear, with ``None``) the callable whose snapshot
+        dict rides every subsequent dump under the ``profiler`` key.  The
+        runner sets it for the run's lifetime and clears it on exit, so
+        the global recorder never outlives a run's node arena."""
+        self._profile_supplier = fn
+
+    def set_freshness_supplier(self, fn: Any) -> None:
+        """Attach (or clear) the callable whose watermark/backlog snapshot
+        rides every subsequent dump under the ``freshness`` key (same
+        lifetime contract as :meth:`set_profile_supplier`)."""
+        self._freshness_supplier = fn
+
+    def set_device_supplier(self, fn: Any) -> None:
+        """Attach (or clear) the callable whose DeviceExecutor snapshot
+        rides every subsequent dump under the ``device`` key (same
+        lifetime contract as :meth:`set_profile_supplier`)."""
+        self._device_supplier = fn
+
+    def set_tracing_supplier(self, fn: Any) -> None:
+        """Attach (or clear) the callable whose finished-request ring
+        rides every subsequent dump under the ``requests`` key."""
+        self._tracing_supplier = fn
+
+    def set_slo_supplier(self, fn: Any) -> None:
+        """Attach (or clear) the callable whose SLO snapshot (objectives,
+        burn rates, remaining budgets) rides every subsequent dump under
+        the ``slo`` key."""
+        self._slo_supplier = fn
 
     def set_autoscaler_supplier(self, fn: Any) -> None:
         """Attach (or clear) the callable whose autoscaler state (decision
@@ -174,16 +221,19 @@ class FlightRecorder:
                 "dumped_at": time.time(),
                 "events": list(self._ring),
             }
-            autoscaler_supplier = self._autoscaler_supplier
-            serving_supplier = self._serving_supplier
-            generation_supplier = self._generation_supplier
-        # outside the lock and never fatal: a dump without a section beats
-        # no dump (each supplier's snapshot is best-effort)
-        for key, fn in (
-            ("autoscaler", autoscaler_supplier),
-            ("serving", serving_supplier),
-            ("generation", generation_supplier),
-        ):
+            suppliers = (
+                ("profiler", self._profile_supplier),
+                ("freshness", self._freshness_supplier),
+                ("device", self._device_supplier),
+                ("autoscaler", self._autoscaler_supplier),
+                ("serving", self._serving_supplier),
+                ("generation", self._generation_supplier),
+                ("requests", self._tracing_supplier),
+                ("slo", self._slo_supplier),
+            )
+        # outside the lock (a supplier may scan the node arena) and never
+        # fatal: a dump without a section beats no dump
+        for key, fn in suppliers:
             if fn is None:
                 continue
             try:
@@ -288,7 +338,7 @@ def summarize_dumps(
     """Compact ``SupervisorResult.post_mortem`` form of gathered dumps:
     per-worker dump files, reasons, and the last few events of the most
     recent dump — enough to read the crash story without reopening the
-    files (the full rings stay on disk for ``blackbox` command (slice H5)`)."""
+    files (the full rings stay on disk for ``python -m pathway_tpu_torch blackbox``)."""
     workers: dict[int, dict[str, Any]] = {}
     for worker, payloads in sorted(dumps.items()):
         last = payloads[-1]

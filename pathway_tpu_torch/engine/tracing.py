@@ -5,10 +5,13 @@ W3C ``traceparent`` accepted on ingress, minted otherwise — is created by
 the admission controller (``engine/serving.py``) and propagated through
 the REST handler (``io/http/_server.py``), the connector row stamp
 (``_pw_trace`` next to ``_pw_deadline_ts``), the dataflow's async-UDF node
-(:func:`bind_key`) and the continuous-batching ``GenerationScheduler``
-(``serving/generation.py``).  Every stage records a child span with ids
-minted at creation, so a slow request decomposes into admission, staging,
-pipeline, queue, prefill and decode.  Finished traces land in a bounded
+(:func:`bind_key`), the coalescing ``AsyncMicroBatcher``
+(``utils/batching.py``), ``DeviceExecutor`` submit and dispatch
+(``device/executor.py``) and the continuous-batching
+``GenerationScheduler`` (``serving/generation.py``).  Every stage records
+a child span with ids minted at creation, so a slow request decomposes
+into admission, staging, pipeline, coalesce, device job and dispatch,
+queue, prefill and decode.  Finished traces land in a bounded
 in-process ring (:func:`recent_requests`, :func:`slowest_requests`,
 :func:`snapshot`).
 
@@ -16,9 +19,10 @@ Propagation is ambient (a contextvar scope, :func:`trace_scope`) for
 same-thread stages and explicit (the trace rides the row stamp, the key
 binding or the generation request) across thread hops.
 
-``PATHWAY_TRACE_REQUESTS=0`` turns the whole layer off.  The telemetry
-exporter that :func:`set_exporter` wires arrives with slice H5; until then
-nothing calls it and spans stay in the ring.
+``PATHWAY_TRACE_REQUESTS=0`` turns the whole layer off.  The runner wires
+the run's telemetry exporter (``engine/telemetry.py``) with
+:func:`set_exporter`, so spans ride its bounded export queue as well as
+the ring.
 """
 
 from __future__ import annotations

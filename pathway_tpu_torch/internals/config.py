@@ -82,6 +82,41 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
             "directory of the native core's build (default: native/build)"),
     EnvKnob("PATHWAY_COLUMNAR", "bool", True,
             "`0` forces every operator onto the row-wise reference evaluator"),
+    # -- observability (engine/metrics.py, telemetry.py, slo.py, profiler.py,
+    # freshness.py, http_server.py, internals/license.py) -------------------
+    EnvKnob("PATHWAY_METRICS_DISABLED", "bool", False,
+            "kill switch: turn every metric update into an immediate return"),
+    EnvKnob("PATHWAY_MONITORING_SERVER", "str", None,
+            "OTLP/HTTP collector endpoint for telemetry export (zero egress when unset)"),
+    EnvKnob("PATHWAY_MONITORING_HTTP_PORT", "int", None,
+            "serve `GET /metrics`, `/status` and `/trace` on this port (worker i uses port + i)"),
+    EnvKnob("PATHWAY_LICENSE_KEY", "str", None,
+            "license key for entitlement checks (internals/license.py)"),
+    EnvKnob("PATHWAY_TELEMETRY_PROTOCOL", "str", "otlp-json",
+            "telemetry wire format: `otlp-json` | `pathway-json` (legacy line JSON)"),
+    EnvKnob("PATHWAY_SERVICE_INSTANCE_ID", "str", None,
+            "OTel `service.instance.id` resource attribute (default: random per process)"),
+    EnvKnob("PATHWAY_SERVICE_NAMESPACE", "str", "local-dev",
+            "OTel `service.namespace` resource attribute"),
+    EnvKnob("PATHWAY_SLOS", "str", None,
+            "extra SLO declarations (`name: metric pNN < threshold over window`; "
+            "semicolon-separated) merged over the built-in registry"),
+    EnvKnob("PATHWAY_PROFILE", "bool", False,
+            "the per-operator epoch profiler (top-N `profiler.operator.*` snapshots)"),
+    EnvKnob("PATHWAY_PROFILE_SAMPLE_EVERY", "int", 16,
+            "profiler cadence: aggregate operator totals every N processed epochs"),
+    EnvKnob("PATHWAY_PROFILE_TOP", "int", 20,
+            "operators kept per profiler snapshot"),
+    EnvKnob("PATHWAY_PROFILE_OUTPUT", "str", None,
+            "write the run's final profiler snapshot to this JSON path "
+            "(render it with `python -m pathway_tpu_torch profile <path>`)"),
+    EnvKnob("PATHWAY_PROFILE_TRANSFERS", "bool", False,
+            "count the executor's host<->device staging bytes (`device.transfer.*`)"),
+    EnvKnob("PATHWAY_FRESHNESS", "bool", True,
+            "ingest-time freshness (`freshness.e2e.ms`, `output.staleness.s`) and "
+            "`backlog.*` gauges; `0` removes the per-epoch watermark pass"),
+    EnvKnob("PATHWAY_STATUS_REFRESH_S", "float", 1.0,
+            "default poll interval of `python -m pathway_tpu_torch top` (`GET /status`)"),
     EnvKnob("PATHWAY_TRACE_REQUESTS", "bool", True,
             "request-scoped tracing of the serving path; `0` removes the span layer"),
     EnvKnob("PATHWAY_TRACE_BUFFER", "int", 256,
@@ -359,6 +394,15 @@ class PathwayConfig:
     run_id: str | None = dataclasses.field(
         default_factory=lambda: env_str("PATHWAY_RUN_ID")
     )
+    license_key: str | None = dataclasses.field(
+        default_factory=lambda: env_str("PATHWAY_LICENSE_KEY")
+    )
+    monitoring_server: str | None = dataclasses.field(
+        default_factory=lambda: env_str("PATHWAY_MONITORING_SERVER")
+    )
+    monitoring_http_port: int | None = dataclasses.field(
+        default_factory=lambda: env_int("PATHWAY_MONITORING_HTTP_PORT")
+    )
 
     @property
     def worker_count(self) -> int:
@@ -393,3 +437,17 @@ def refresh_config() -> None:
     """Re-read the process-wide config from the environment."""
     global _global_config
     _global_config = PathwayConfig()
+
+
+def set_license_key(key: str | None) -> None:
+    get_config().license_key = key
+
+
+def set_monitoring_config(*, server_endpoint: str | None = None) -> None:
+    """Point this process's telemetry at an OTLP/HTTP collector (``None``
+    turns export off); read when the next ``pw.run`` starts."""
+    get_config().monitoring_server = server_endpoint
+
+
+def pathway_config() -> PathwayConfig:
+    return get_config()

@@ -7,19 +7,21 @@ flushers → pollers → step).  The epoch loop polls connector queues, picks
 the next commit timestamp across all input sessions, and runs one
 consolidated pass of the operator DAG per epoch.
 
-A copy of ``pathway_tpu/internals/runner.py`` without its H5 half: ``run``
-with the warm-standby branch and the promotion rejoin, ``_run_once`` with
-the TCP mesh of several processes (``PATHWAY_PROCESSES`` > 1), the run's
+A copy of ``pathway_tpu/internals/runner.py``: ``run`` with the
+warm-standby branch and the promotion rejoin, ``_run_once`` with the TCP
+mesh of several processes (``PATHWAY_PROCESSES`` > 1), the run's
 traceparent broadcast over it and, under ``PATHWAY_TORCH_DISTRIBUTED``,
 one ``torch.distributed`` world of the workers (the counterpart of
 ``PATHWAY_JAX_DISTRIBUTED``); the topology handshake against the lease,
 the progress and load beacons, the live-handoff sentinel, the promote
 watcher, the flight recorder's dump context and SIGUSR1 dump, the solo and
 the coordinated (BSP) epoch loops, and the storage path with its async
-commit and acks.  The monitoring HTTP server and console dashboard raise
-``NotImplementedError`` naming slice H5; telemetry, the prober, the
-profiler, the freshness tracker (so the load beacon reads calm: no
-staleness, no backlog), SLOs and the license check come with H5 as well.
+commit and acks.  Its observability half: the license check, telemetry
+(run and epoch spans, the OTLP exporter), the prober behind the console
+dashboard and the monitoring HTTP server, the epoch profiler, the
+freshness tracker (which feeds the load beacon and the coordinated loop's
+mesh-wide staleness), SLOs, and the flight recorder's profiler,
+freshness, device, request and SLO sections.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from __future__ import annotations
 import os
 import time as _time
 from collections import deque
+from contextlib import nullcontext as _nullcontext
 from typing import Any, Callable
 
 from pathway_tpu_torch.engine import dataflow as df
-from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.table import Lowerer, Table
 
@@ -46,6 +48,10 @@ def add_debug_sink(name: str, table: Table) -> None:
 class RunResult:
     def __init__(self):
         self.epochs = 0
+        self.prober = None  # engine.probes.Prober when monitoring ran
+        self.telemetry = None  # engine.telemetry.Telemetry for this run
+        self.profiler = None  # engine.profiler.EpochProfiler for this run
+        self.freshness = None  # engine.freshness.FreshnessTracker for this run
         self.last_time: int | None = None  # last processed epoch
         self.clean_finish = False
         # set when the run exited through a LIVE HANDOFF: the worker
@@ -119,20 +125,6 @@ def _wire_operator_persistence(scope: df.Scope, storage: Any) -> None:
     storage.confirm_operator_commit = confirm
 
 
-def _refuse_later_slices(*, with_http_server: bool, monitoring_level: Any) -> None:
-    """Raise for every ``pw.run`` feature whose slice the port lacks."""
-    if with_http_server:
-        raise NotImplementedError(
-            "with_http_server=True needs engine/http_server.py, which the "
-            "port brings in slice H5"
-        )
-    if monitoring_level not in (None, MonitoringLevel.NONE, MonitoringLevel.AUTO):
-        raise NotImplementedError(
-            f"monitoring_level={monitoring_level!r} needs the console "
-            "dashboard, which the port brings in slice H5; pass NONE or AUTO"
-        )
-
-
 def run(**kwargs: Any) -> RunResult:
     """``pw.run`` — execute every registered sink to completion.
 
@@ -159,10 +151,6 @@ def run(**kwargs: Any) -> RunResult:
       fresh graph, zero process-spawn cost, surviving workers never
       restart.
     """
-    _refuse_later_slices(
-        with_http_server=kwargs.get("with_http_server", False),
-        monitoring_level=kwargs.get("monitoring_level"),
-    )
     from pathway_tpu_torch.engine import standby as _standby
 
     sid = _standby.standby_id()
@@ -249,8 +237,8 @@ def _run_once(
         scope.worker = worker_ctx
         # cross-worker trace correlation: worker 0 mints the run's
         # traceparent (unless the deployment already exported one — `spawn`
-        # does) and broadcasts it over the fresh mesh, so every worker of
-        # the run carries one trace id
+        # does) and broadcasts it over the fresh mesh, so epoch/commit/
+        # recovery spans from EVERY worker land in one trace
         from pathway_tpu_torch.engine.telemetry import mint_traceparent
 
         if _cfg.process_id == 0 and not trace_parent:
@@ -267,9 +255,24 @@ def _run_once(
         lowerer.persistence_storage = storage
 
     # lower all sinks (tree-shaking is implicit: only sink cones are built)
-    for _name, table, attach in (list(G.sinks) if _sinks is None else _sinks):
+    sink_labels: set[str] = set()
+    for name, table, attach in (list(G.sinks) if _sinks is None else _sinks):
         node = lowerer.node(table)
-        attach(lowerer, node)
+        sink_node = attach(lowerer, node)
+        # per-output identity for the freshness/staleness metrics: the
+        # registration name is the label operators and dashboards rank
+        # by.  Colliding names (two default-named subscribes, or distinct
+        # raw names that sanitize to the same label value) get a node id
+        # suffix — sharing one label would let a stalled output hide
+        # behind a healthy one refreshing the same staleness gauge.
+        if isinstance(sink_node, df.OutputNode) and sink_node.sink_name is None:
+            from pathway_tpu_torch.engine.freshness import safe_label
+
+            label = safe_label(name)
+            if label in sink_labels:
+                label = f"{label}#{sink_node.id}"
+            sink_node.sink_name = label
+            sink_labels.add(label)
 
     # append-only analysis must run before any state is restored or stepped:
     # GroupByNode picks its accumulator variant off the inferred flags
@@ -279,6 +282,7 @@ def _run_once(
     if storage is not None and storage.operator_persistence:
         _wire_operator_persistence(scope, storage)
     root_token = None
+    http_server = None
     persist_root = None  # filesystem persistence root, when there is one
     prev_usr1 = None
     usr1_installed = False
@@ -298,13 +302,38 @@ def _run_once(
                 # releases it in the finally
                 root_token = pz.acquire_active_root(persist_root)
 
-        from pathway_tpu_torch.engine import flight_recorder as _blackbox
-        from pathway_tpu_torch.engine import metrics as _registry
-        from pathway_tpu_torch.engine import serving as _serving
+        from pathway_tpu_torch.engine.probes import Prober
         from pathway_tpu_torch.internals.config import get_config
+        from pathway_tpu_torch.internals.monitoring import MonitoringLevel, monitor_stats
 
         config = get_config()
+        if monitoring_level is None:
+            monitoring_level = MonitoringLevel.AUTO
+
+        from pathway_tpu_torch.engine.telemetry import Telemetry, TelemetryConfig
+        from pathway_tpu_torch.internals.license import License
+
+        from pathway_tpu_torch.engine import flight_recorder as _blackbox
+        from pathway_tpu_torch.engine import metrics as _registry
+
+        license = License.new(config.license_key)
         registry = _registry.get_registry()
+        telemetry = Telemetry(
+            TelemetryConfig.create(
+                license=license,
+                run_id=config.run_id,
+                monitoring_server=config.monitoring_server,
+                trace_parent=trace_parent,
+            ),
+            lambda: result.prober.stats if result.prober is not None else None,
+            # the unified registry (comm/persistence/supervisor/runner
+            # instrumentation): scalars merge into every sample, histograms
+            # export as OTLP histogram datapoints.  The commit-pipeline
+            # gauges ride it too, through the collector PersistentStorage
+            # registers — no extra_metrics wiring needed
+            registry=registry,
+        ).start()
+        result.telemetry = telemetry
 
         # crash flight recorder: dump context for this worker — the ring
         # lands under <root>/blackbox/ on crash/fault, where the supervisor
@@ -314,7 +343,7 @@ def _run_once(
 
         _blackbox.configure(
             worker=config.process_id,
-            run_id=config.run_id,
+            run_id=telemetry.config.run_id,
             trace_parent=trace_parent,
             attempt=_attempt(),
             # the dump path is fenced like every persistence-root write:
@@ -327,8 +356,9 @@ def _run_once(
         # process BEFORE the SIGTERM/SIGKILL escalation destroys it.  The
         # distinct dump suffix keeps the hang story from clobbering (or
         # being clobbered by) this attempt's crash dump.  Main thread only
-        # (signal.signal refuses elsewhere); restored in the finally so
-        # embedding processes keep their own handler after the run.
+        # (signal.signal refuses elsewhere — e.g. Table.live() runs);
+        # restored in the finally so embedding processes keep their own
+        # handler after the run.
         import signal as _signal
         import threading as _threading
 
@@ -359,9 +389,11 @@ def _run_once(
             persist_root, config.process_id, config.processes
         )
         if handoff_sentinel.root is not None:
-            # the autoscaler panel rides this worker's registry and the
-            # flight-recorder dump's `autoscaler` section: the supervisor
-            # maintains lease/autoscaler.json, the worker re-exports it
+            # the autoscaler panel rides this worker's observability
+            # surfaces: the supervisor maintains lease/autoscaler.json,
+            # the worker re-exports it as autoscaler.* gauges (for
+            # /status, /metrics, `pathway_tpu_torch top`) and as the
+            # flight-recorder dump's `autoscaler` payload section
             from pathway_tpu_torch.engine import autoscaler as _autoscaler
 
             _as_root = handoff_sentinel.root
@@ -390,8 +422,10 @@ def _run_once(
                 promote_watcher = _PromoteWatcher(
                     _as_root, config.process_id, worker_ctx.mesh
                 ).start()
-        # restart provenance, mesh-visible: each worker knows the attempt
-        # that launched it, so the count is readable from its registry
+        # restart provenance, mesh-visible: the supervisor increments its
+        # own supervisor.restarts counter, but that registry lives in the
+        # spawn process, which serves no /metrics — each worker knows the
+        # attempt that launched it, so the count is scrapeable here
         registry.gauge(
             "worker.restart.attempt",
             "supervisor restarts performed before this worker launch",
@@ -404,50 +438,152 @@ def _run_once(
             "run.start", worker=config.process_id, attempt=_attempt(),
             workers=config.processes,
         )
-        # serving observability: every flight-recorder dump carries the
-        # admission controller's final snapshot (inert when no REST route
-        # ever admits)
+
+        # performance observability (engine/profiler.py): per-operator
+        # attribution sampled off the always-on step timers, the opt-in
+        # transfer accounting, and a final profiler snapshot riding every
+        # flight-recorder dump so post-mortems say where the time went (the
+        # kernel-build counters, device.kernel.*, are always on)
+        from pathway_tpu_torch.engine import profiler as _profiler
+
+        profiler = _profiler.EpochProfiler()
+        result.profiler = profiler
+        if profiler.enabled:
+            registry.register_collector(
+                "profiler.operators", profiler.metrics_snapshot
+            )
+        _profiler.install_transfer_accounting()
+        _blackbox.get_recorder().set_profile_supplier(
+            lambda: profiler.crash_snapshot(scope)
+        )
+
+        # device observability (device/telemetry.py): every
+        # flight-recorder dump carries the final DeviceExecutor snapshot
+        # (cost/utilization/padding/HBM/queue) — post-mortems say what
+        # the device was doing.  The supplier never instantiates an
+        # executor: a run that never touched the device path dumps no
+        # device section
+        from pathway_tpu_torch.device import default_executor_snapshot
+
+        _blackbox.get_recorder().set_device_supplier(
+            default_executor_snapshot
+        )
+
+        # data-plane observability (engine/freshness.py): ingest-time
+        # low-watermark propagation (per-output e2e latency + staleness)
+        # and backlog.* backpressure attribution — the "where records
+        # wait" complement of the profiler's "where CPU burns"
+        from pathway_tpu_torch.engine import freshness as _freshness
+
+        freshness = _freshness.FreshnessTracker()
+        result.freshness = freshness
+        if freshness.enabled:
+            freshness.attach(scope, lowerer.pollers)
+            registry.register_collector(
+                "freshness.tracker", freshness.metrics_snapshot
+            )
+            # post-mortems say what was STUCK, not just where time went:
+            # every flight-recorder dump carries the final watermark/
+            # backlog snapshot next to the profiler's attribution
+            _blackbox.get_recorder().set_freshness_supplier(
+                freshness.crash_snapshot
+            )
+
+        # serving observability (engine/serving.py): every flight-recorder
+        # dump carries the admission controller's final snapshot (in-flight/
+        # queue occupancy, degraded/draining, quarantine tail), and the
+        # load shedder sees sustained *pipeline* pressure through the
+        # freshness sensor — both inert when no REST route ever admits
+        from pathway_tpu_torch.engine import serving as _serving
+
         _blackbox.get_recorder().set_serving_supplier(
             _serving.snapshot_or_none
         )
-        try:
-            _event_loop(
-                scope, lowerer, result, max_epochs=max_epochs,
-                storage=storage, beacon=beacon, handoff=handoff_sentinel,
-            )
-        except BaseException as exc:
-            from pathway_tpu_torch.engine.comm import MeshPoisoned
+        if freshness.enabled:
+            _serving.set_pressure_supplier(freshness.worst_staleness)
 
-            if isinstance(exc, MeshPoisoned):
-                # promotion rejoin, not a failure: run() acks and
-                # re-enters after the finally's drain-commit.  No
-                # crash dump — the blackbox ring stays for real
-                # failures.  In-flight serving requests wait on
-                # epochs this mesh will never run: answer them
-                # with the typed retry signal now instead of
-                # letting them time out across the rejoin.
-                _blackbox.record(
-                    "promotion.rejoin", worker=config.process_id,
-                    reason=str(exc),
-                )
-                _serving.fail_inflight_for_promotion()
-            else:
-                # black-box the failure BEFORE unwinding: the ring's
-                # last events are the crash story the supervisor reads
-                # back post-mortem
-                _blackbox.record(
-                    "run.failed", worker=config.process_id,
-                    error=repr(exc),
-                )
-                _blackbox.dump(f"run failed: {exc!r}")
-            # failure hooks: exported tables must flip to failed so
-            # concurrent importers raise instead of waiting forever
-            # (the scopeguard of dataflow/export.rs:143-146)
-            for node in scope.nodes:
-                abort = getattr(node, "on_abort", None)
-                if abort is not None:
-                    abort()
-            raise
+        # request tracing + SLOs (engine/tracing.py, engine/slo.py):
+        # request spans ride this run's bounded telemetry export queue,
+        # the declared-SLO evaluator joins the scrape path, and every
+        # flight-recorder dump carries the finished-request ring
+        # (waterfalls) and the SLO burn/budget snapshot
+        from pathway_tpu_torch.engine import slo as _slo
+        from pathway_tpu_torch.engine import tracing as _tracing
+
+        _tracing.set_exporter(telemetry)
+        _slo.install(registry)
+        _blackbox.get_recorder().set_tracing_supplier(_tracing.snapshot)
+        _blackbox.get_recorder().set_slo_supplier(
+            lambda: _slo.get_evaluator().snapshot()
+        )
+
+        if with_http_server:
+            from pathway_tpu_torch.engine.http_server import MonitoringServer
+
+            http_server = MonitoringServer(
+                process_id=config.process_id,
+                port=config.monitoring_http_port,
+                run_id=config.run_id,
+            ).start()
+        with monitor_stats(monitoring_level) as monitor:
+            prober = Prober(scope, pollers=lowerer.pollers)
+            if monitor is not None:
+                prober.callbacks.append(monitor.update)
+            if http_server is not None:
+                prober.callbacks.append(http_server.update)
+            result.prober = prober
+            # dataflow progress totals join the unified registry (the
+            # WeakMethod registration dies with the prober; each run
+            # replaces the previous run's collector under this name)
+            registry.register_collector(
+                "dataflow.prober", prober.metrics_snapshot
+            )
+            with telemetry.span("pathway.run", workers=config.threads):
+                try:
+                    _event_loop(
+                        scope, lowerer, result, max_epochs=max_epochs,
+                        storage=storage, prober=prober, telemetry=telemetry,
+                        beacon=beacon,
+                        # None when disabled, so the default configuration
+                        # pays zero per-epoch cost (not even the call)
+                        profiler=profiler if profiler.enabled else None,
+                        freshness=freshness if freshness.enabled else None,
+                        handoff=handoff_sentinel,
+                    )
+                except BaseException as exc:
+                    from pathway_tpu_torch.engine.comm import MeshPoisoned
+
+                    if isinstance(exc, MeshPoisoned):
+                        # promotion rejoin, not a failure: run() acks and
+                        # re-enters after the finally's drain-commit.  No
+                        # crash dump — the blackbox ring stays for real
+                        # failures.  In-flight serving requests wait on
+                        # epochs this mesh will never run: answer them
+                        # with the typed retry signal now instead of
+                        # letting them time out across the rejoin.
+                        _blackbox.record(
+                            "promotion.rejoin", worker=config.process_id,
+                            reason=str(exc),
+                        )
+                        _serving.fail_inflight_for_promotion()
+                    else:
+                        # black-box the failure BEFORE unwinding: the
+                        # ring's last events are the crash story the
+                        # supervisor (or `pathway_tpu_torch blackbox`) reads
+                        # back post-mortem
+                        _blackbox.record(
+                            "run.failed", worker=config.process_id,
+                            error=repr(exc),
+                        )
+                        _blackbox.dump(f"run failed: {exc!r}")
+                    # failure hooks: exported tables must flip to failed so
+                    # concurrent importers raise instead of waiting forever
+                    # (the scopeguard of dataflow/export.rs:143-146)
+                    for node in scope.nodes:
+                        abort = getattr(node, "on_abort", None)
+                        if abort is not None:
+                            abort()
+                    raise
     finally:
         if usr1_installed:
             import signal as _signal
@@ -459,15 +595,51 @@ def _run_once(
                 )
             except (ValueError, OSError):
                 pass
-        # the suppliers must not outlive this run's state
-        from pathway_tpu_torch.engine import flight_recorder as _blackbox_end
+        if result.profiler is not None:
+            # the run's profile outlives the run: final snapshot to the
+            # PATHWAY_PROFILE_OUTPUT path (best-effort), and the crash
+            # supplier cleared so the recorder stops referencing this
+            # run's node arena
+            from pathway_tpu_torch.engine import flight_recorder as _blackbox
 
-        _blackbox_end.get_recorder().set_autoscaler_supplier(None)
-        _blackbox_end.get_recorder().set_serving_supplier(None)
+            if result.profiler.enabled:
+                result.profiler.sample(scope, result.epochs)
+                result.profiler.write_output()
+            _blackbox.get_recorder().set_profile_supplier(None)
+        if result.freshness is not None:
+            # same lifetime rule for the freshness supplier: the recorder
+            # must not outlive this run's pollers and node arena
+            from pathway_tpu_torch.engine import flight_recorder as _blackbox
+
+            _blackbox.get_recorder().set_freshness_supplier(None)
+        # the device supplier references only the process-global executor
+        # (no run state), but clearing it keeps the recorder's lifetime
+        # contract uniform across all three suppliers
+        from pathway_tpu_torch.engine import flight_recorder as _blackbox_dev
+
+        _blackbox_dev.get_recorder().set_device_supplier(None)
+        _blackbox_dev.get_recorder().set_autoscaler_supplier(None)
+        _blackbox_dev.get_recorder().set_serving_supplier(None)
+        _blackbox_dev.get_recorder().set_tracing_supplier(None)
+        _blackbox_dev.get_recorder().set_slo_supplier(None)
+        # ...and the serving shedder must stop referencing this run's
+        # freshness tracker (same lifetime rule as the suppliers above)
+        from pathway_tpu_torch.engine import serving as _serving_cleanup
+
+        _serving_cleanup.set_pressure_supplier(None)
+        # the trace exporter holds this run's Telemetry: clear it before
+        # telemetry.close() so no late span enqueues into a closed queue
+        from pathway_tpu_torch.engine import tracing as _tracing_cleanup
+
+        _tracing_cleanup.set_exporter(None)
         if promote_watcher is not None:
             promote_watcher.stop()
         if worker_ctx is not None:
             worker_ctx.close()
+        if result.telemetry is not None:
+            result.telemetry.close()
+        if http_server is not None:
+            http_server.close()
         try:
             if storage is not None:
                 # also on interrupt/error: commit whatever frontier is
@@ -491,10 +663,18 @@ def _run_once(
                         "consistent operator snapshot generation"
                     )
                 else:
-                    storage.commit(
-                        processed_up_to=frontier,
-                        full_operator_dump=result.clean_finish,
+                    # the shutdown drain-commit gets its own span so the
+                    # run's trace shows where final durability time went
+                    commit_span = (
+                        result.telemetry.span("pathway.commit", final=True)
+                        if result.telemetry is not None
+                        else _nullcontext()
                     )
+                    with commit_span:
+                        storage.commit(
+                            processed_up_to=frontier,
+                            full_operator_dump=result.clean_finish,
+                        )
                     # this drain-commit durably covers every drained commit
                     # marker (their chunks were flushed at drain), so
                     # release the tail acks the in-loop published_seq
@@ -1053,13 +1233,18 @@ def _event_loop(
     result: RunResult,
     max_epochs: int | None = None,
     storage: Any = None,
+    prober: Any = None,
+    telemetry: Any = None,
     beacon: Any = None,
+    profiler: Any = None,
+    freshness: Any = None,
     handoff: Any = None,
 ) -> None:
     if scope.worker is not None:
         return _event_loop_coordinated(
             scope, lowerer, result, max_epochs=max_epochs, storage=storage,
-            beacon=beacon, handoff=handoff,
+            prober=prober, telemetry=telemetry, beacon=beacon,
+            profiler=profiler, freshness=freshness, handoff=handoff,
         )
     if beacon is None:
         beacon = _ProgressBeacon(None, 0)
@@ -1082,7 +1267,7 @@ def _event_loop(
         # so its mtime proves the event loop schedules — a wedged epoch or
         # a deadlock stops it and the supervisor's watchdog takes over
         beacon.touch()
-        beacon.report_load(lambda: _load_reading(None, result))
+        beacon.report_load(lambda: _load_reading(freshness, result))
         if handoff is not None:
             to_n = handoff.poll()
             if to_n is not None:
@@ -1141,7 +1326,13 @@ def _event_loop(
                 inp.emit_time(t)
             result.epoch_failed = True
             t0 = _time.perf_counter()
-            scope.run_epoch(t)
+            span = (
+                telemetry.epoch_span(t, result.epochs)
+                if telemetry is not None
+                else _nullcontext()
+            )
+            with span:
+                scope.run_epoch(t)
             epoch_hist.observe((_time.perf_counter() - t0) * 1000.0)
             blackbox.record("epoch", time=t, index=result.epochs)
             result.epoch_failed = False
@@ -1149,10 +1340,20 @@ def _event_loop(
             last_time = t
             result.last_time = t
             result.epochs += 1
+            if profiler is not None:
+                # cadence-gated top-N attribution off the per-node step
+                # timers run_epoch already maintains (engine/profiler.py)
+                profiler.on_epoch(scope, result.epochs)
+            if freshness is not None:
+                # propagate the ingest low-watermark frontier and record
+                # per-output delivery latency (engine/freshness.py)
+                freshness.after_epoch(scope)
             # sources without input snapshots (no persistence, or UDF-cache-
             # only mode): the processed epoch is their durability boundary —
             # broker offsets may cover rows up to it, and no further
             _ack_sources(pollers, persisted=False, up_to_time=t)
+            if prober is not None and prober.callbacks:
+                prober.update(epochs=result.epochs)
             if max_epochs is not None and result.epochs >= max_epochs:
                 break
             continue
@@ -1192,6 +1393,8 @@ def _event_loop(
         return
     scope.finish()
     result.clean_finish = True
+    if prober is not None:
+        prober.update(done=True, epochs=result.epochs)
 
 
 # pathway-lint: context=epoch
@@ -1201,7 +1404,11 @@ def _event_loop_coordinated(
     result: RunResult,
     max_epochs: int | None = None,
     storage: Any = None,
+    prober: Any = None,
+    telemetry: Any = None,
     beacon: Any = None,
+    profiler: Any = None,
+    freshness: Any = None,
     handoff: Any = None,
 ) -> None:
     """Multi-worker BSP loop: worker 0 sequences epochs, every worker runs
@@ -1231,7 +1438,7 @@ def _event_loop_coordinated(
     while True:
         # event-loop liveness for the supervisor's watchdog (idle included)
         beacon.touch()
-        beacon.report_load(lambda: _load_reading(None, result))
+        beacon.report_load(lambda: _load_reading(freshness, result))
         if (
             storage is not None
             and (_time.monotonic() - last_snapshot) >= snapshot_interval
@@ -1261,13 +1468,22 @@ def _event_loop_coordinated(
 
         local_pending = any(n.has_pending() for n in scope.nodes)
         round_ += 1
-        # the fourth field is the worker's worst output staleness, which
-        # the freshness tracker of slice H5 fills in
+        # the epoch-negotiation gather doubles as the mesh-wide freshness
+        # aggregation path: each worker ships its worst output staleness,
+        # worker 0 publishes the cluster maximum (one gauge, zero extra
+        # collectives, as the traceparent broadcast)
+        local_stale = (
+            freshness.worst_staleness() if freshness is not None else None
+        )
         gathered = mesh.gather(
             ("epoch", round_),
-            (local_min, all_finished, local_pending, None),
+            (local_min, all_finished, local_pending, local_stale),
         )
         if mesh.worker_id == 0:
+            if freshness is not None:
+                freshness.record_mesh_staleness(
+                    [s for _m, _f, _p, s in gathered]
+                )
             mins = [m for m, _f, _p, _s in gathered if m is not None]
             handoff_to = handoff.poll() if handoff is not None else None
             if handoff_to is not None:
@@ -1342,7 +1558,13 @@ def _event_loop_coordinated(
             inp.emit_time(t)
         result.epoch_failed = True
         t0 = _time.perf_counter()
-        scope.run_epoch(t)
+        span = (
+            telemetry.epoch_span(t, result.epochs)
+            if telemetry is not None
+            else _nullcontext()
+        )
+        with span:
+            scope.run_epoch(t)
         epoch_hist.observe((_time.perf_counter() - t0) * 1000.0)
         blackbox.record(
             "epoch", time=t, index=result.epochs, worker=mesh.worker_id
@@ -1352,7 +1574,13 @@ def _event_loop_coordinated(
         last_time = t
         result.last_time = t
         result.epochs += 1
+        if profiler is not None:
+            profiler.on_epoch(scope, result.epochs)
+        if freshness is not None:
+            freshness.after_epoch(scope)
         _ack_sources(pollers, persisted=False, up_to_time=t)
+        if prober is not None and prober.callbacks:
+            prober.update(epochs=result.epochs)
         if max_epochs is not None and result.epochs >= max_epochs:
             break
     scope.current_time = max(scope.current_time, last_time)
@@ -1360,6 +1588,8 @@ def _event_loop_coordinated(
         return  # live handoff: see the solo loop's exit note
     scope.finish()
     result.clean_finish = True
+    if prober is not None:
+        prober.update(done=True, epochs=result.epochs)
 
 
 def run_pipeline_to_completion(sink_tables: list[tuple[Table, Callable]], **kwargs) -> RunResult:

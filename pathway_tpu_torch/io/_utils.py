@@ -323,6 +323,11 @@ class _QueuePoller:
         self._staged = False
         self._last_commit = _time.monotonic()
         self.finished = False
+        # monotonic stamp of the last data row this source staged: the
+        # freshness layer derives backlog.connector.idle.s from it, the
+        # per-source signal of a one-branch stall.  Set at construction, so
+        # a source that never stages its first row shows a growing age
+        self.last_row_mono: float = _time.monotonic()
         self.reader: Reader | None = None
         self.name = "source"  # monitoring label, set by make_input_table
         self.persist_state: Any = None  # engine.persistence.SourceState
@@ -369,6 +374,7 @@ class _QueuePoller:
                 self._file_rows[tag] = (key, vrow)
         if rows:
             self._staged = True
+            self.last_row_mono = _time.monotonic()
 
     def _key_of(self, values: list, row: Mapping) -> int:
         if "_pw_key" in row:
@@ -486,6 +492,7 @@ class _QueuePoller:
             if tag is not None:
                 self._file_rows[tag] = (key, vrow)
             self._staged = True
+            self.last_row_mono = _time.monotonic()
         if self._staged and (_time.monotonic() - self._last_commit) >= self.autocommit:
             # operator-persisting sources close epochs only at COMMIT/Offset
             # markers: a timer-closed epoch could be processed and dumped

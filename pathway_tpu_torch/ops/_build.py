@@ -5,7 +5,9 @@ interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Libraries land in ``ops/_build/`` (ignored by git), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.  :func:`build` starts one ``nvcc`` per
-missing library, all at once, and waits for them together.
+missing library, all at once, and waits for them together.  Each build
+counts under ``device.kernel.builds`` with its wall seconds, and each
+library load under ``device.kernel.loads`` (``engine/profiler.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from pathway_tpu_torch.engine import profiler as _profiler
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -79,6 +84,7 @@ def build(names: list[str] | None = None, *, ptxas_info: bool = False) -> dict[s
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         running[name] = (proc, tmp, out)
+    started = time.monotonic()
     messages = {}
     failed = []
     for name, (proc, tmp, out) in running.items():
@@ -86,6 +92,9 @@ def build(names: list[str] | None = None, *, ptxas_info: bool = False) -> dict[s
         if proc.returncode:
             failed.append(f"nvcc failed for {name}.cu:\n{text}")
             continue
+        # the builds run together: each one's seconds run from the common
+        # start to the moment this wait saw it finish
+        _profiler.note_build(name, time.monotonic() - started)
         os.replace(tmp, out)
         messages[name] = text
     if failed:
@@ -103,4 +112,5 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            _profiler.note_load(name)
         return lib

@@ -18,22 +18,25 @@ inline on the dispatch thread.
   joins a batch, and again at dispatch, so the device never pays for it.
 * A failed batch (a process error, a result-count mismatch, a submit the
   executor refused) fails every waiter of that batch, across loops.
-
-The reference's per-waiter trace spans wait for the request-tracing
-layer of the host-engine slice.
+* Each waiter's ambient request trace (``engine/tracing.py``) rides its
+  entry: a coalesced batch records a ``serve.batch`` span (the waiter's
+  own coalesce wait) in each waiter's trace, and hands the traces to the
+  executor, whose ``device.job`` and ``device.dispatch`` spans land in
+  each of them too.
 """
 
 from __future__ import annotations
 
 import asyncio
 import threading
+import time as _time
 import weakref
 from typing import Any, Callable, Sequence
 
 import numpy as np
 
-from pathway_tpu_torch.device.executor import DeviceFuture
-from pathway_tpu_torch.engine import serving
+from pathway_tpu_torch.device.executor import _JOB_TRACES, DeviceFuture
+from pathway_tpu_torch.engine import serving, tracing
 
 
 def _batch_nbytes(items: list) -> int:
@@ -79,8 +82,9 @@ class AsyncMicroBatcher:
         self.name = name or getattr(process_batch, "__name__", "batch")
         self._executor = executor
         # ONE pending list across every event loop: entries are
-        # (item, loop, asyncio.Future, Deadline | None)
-        self._pending: list[tuple[Any, Any, Any, Any]] = []
+        # (item, loop, asyncio.Future, Deadline | None,
+        # (RequestTrace, enqueued_at) | None)
+        self._pending: list[tuple[Any, Any, Any, Any, Any]] = []
         self._lock = threading.Lock()
         # loops with a live flusher task, keyed by id(loop) and validated
         # against a weakref to the loop: a recycled id of a dead loop must
@@ -103,13 +107,17 @@ class AsyncMicroBatcher:
             raise serving.DeadlineExceededError(
                 "request deadline lapsed before batch coalescing (shed-before-work)"
             )
+        # the ambient trace is captured here, in the waiter's own context:
+        # the dispatch side may run on any thread or loop
+        trace = tracing.current_trace()
+        entry_trace = (trace, _time.time()) if trace is not None else None
         loop = asyncio.get_running_loop()
         future = loop.create_future()
         flush_now = False
         spawn_flusher = False
         key = id(loop)
         with self._lock:
-            self._pending.append((item, loop, future, deadline))
+            self._pending.append((item, loop, future, deadline, entry_trace))
             if len(self._pending) >= self.max_batch_size:
                 flush_now = True
             ref = self._flushers.get(key)
@@ -135,12 +143,12 @@ class AsyncMicroBatcher:
                 del self._pending[: self.max_batch_size]
             self._dispatch(batch)
 
-    def _dispatch(self, batch: list[tuple[Any, Any, Any, Any]]) -> None:
+    def _dispatch(self, batch: list[tuple[Any, Any, Any, Any, Any]]) -> None:
         # waiters whose deadline lapsed while pending are failed here and
         # left out of the batch
         live = [entry for entry in batch if entry[3] is None or not entry[3].expired()]
         if len(live) < len(batch):
-            for _item, loop, fut, ddl in batch:
+            for _item, loop, fut, ddl, _tr in batch:
                 if ddl is not None and ddl.expired():
                     serving.note_deadline_shed("batcher")
                     exc = serving.DeadlineExceededError(
@@ -149,6 +157,18 @@ class AsyncMicroBatcher:
                     _deliver(loop, fut, None, exc)
             if not live:
                 return
+        # per-waiter coalesce span: one batch, N traces, each waiter's span
+        # in its own trace
+        now = _time.time()
+        traces = []
+        for entry in live:
+            if entry[4] is not None:
+                trace, enqueued_at = entry[4]
+                trace.add_span(
+                    "serve.batch", enqueued_at, max(0.0, now - enqueued_at),
+                    batcher=self.name, batch_size=len(live),
+                )
+                traces.append(trace)
         items = [entry[0] for entry in live]
         waiters = [(entry[1], entry[2]) for entry in live]
 
@@ -172,16 +192,25 @@ class AsyncMicroBatcher:
             future = DeviceFuture()
 
             def run_detached():
+                # the batch thread carries the waiters' traces as a
+                # dispatch-thread job does, so run_batch calls inside it
+                # record their device spans
+                token = _JOB_TRACES.set(tuple(traces)) if traces else None
                 try:
                     future.set_result(job())
                 except BaseException as exc:  # noqa: BLE001 - delivered to waiters
                     future.set_exception(exc)
+                finally:
+                    if token is not None:
+                        _JOB_TRACES.reset(token)
 
             future.add_done_callback(deliver)
             threading.Thread(target=run_detached, name=f"batch:{self.name}", daemon=True).start()
             return
         try:
-            device_future = self._exec().submit(job, name=self.name, nbytes=_batch_nbytes(items))
+            device_future = self._exec().submit(
+                job, name=self.name, nbytes=_batch_nbytes(items), traces=tuple(traces)
+            )
         except BaseException as exc:  # noqa: BLE001 - delivered to every waiter
             # submit() itself can fail (a closed executor, a budget
             # timeout): every waiter gets the error, none hangs

@@ -10,11 +10,14 @@ to the JAX package's on the same inputs.
 End to end, a supervised cluster under ``--autoscale`` with no freshness
 tracker reads calm (no staleness, no backlog), as the JAX package does
 with ``PATHWAY_FRESHNESS=0``: both packages shrink 2 -> 1 once idle, by
-live handoff, and keep their net output byte-identical.
+live handoff, and keep their net output byte-identical.  With the
+tracker on, a seeded load spike grows the port's cluster 1 -> 2 and
+idleness shrinks it back, its net output the JAX package's clean run's.
 """
 
 from __future__ import annotations
 
+import json
 import random
 
 import pytest
@@ -134,3 +137,58 @@ def test_calm_cluster_shrinks_by_live_handoff_like_jax(tmp_path, monkeypatch):
         nets[pkg] = progs.canonical_bytes(d)
     assert nets["pathway_tpu_torch"] == nets["pathway_tpu"]
     assert progs.counts_of(nets["pathway_tpu"]) == progs.EXPECTED_COUNTS
+
+
+SPIKE_ROWS = 160  # tests/test_autoscaler.py:667: a grow and a shrink both land mid-stream
+SPIKE = {"kind": "load_spike", "source": "SubjectReader", "nth": 80, "delay_ms": 2500, "attempt": 0}
+
+
+@pytest.mark.chaos
+def test_load_spike_grows_then_shrinks_back_byte_identical(tmp_path, monkeypatch):
+    """``tests/test_autoscaler.py:828`` on the port: a seeded load spike
+    holds the workers' freshness staleness past the threshold, so the
+    controller grows 1→2 by live shard handoff; once the spike ends,
+    sustained idleness shrinks 2→1.  Budget 2 pins the sequence.  The net
+    output is byte-identical to the JAX package's clean unscaled run of
+    the same rows, the root scrubs clean and no handoff request is left."""
+    from pathway_tpu_torch.engine import metrics as tmetrics
+    from pathway_tpu_torch.engine import persistence as tpz
+
+    clean = tmp_path / "clean"
+    clean.mkdir()
+    res = progs.run_supervised("pathway_tpu", clean, None, n=1, n_rows=SPIKE_ROWS)
+    assert res.restarts == 0 and res.exit_codes == [0], res.history
+    for knob, value in {
+        "PATHWAY_AUTOSCALE": "1", "PATHWAY_AUTOSCALE_MIN_WORKERS": "1",
+        "PATHWAY_AUTOSCALE_MAX_WORKERS": "2", "PATHWAY_AUTOSCALE_STALENESS_S": "0.6",
+        "PATHWAY_AUTOSCALE_DWELL_S": "0.6", "PATHWAY_AUTOSCALE_COOLDOWN_S": "1.0",
+        "PATHWAY_AUTOSCALE_IDLE_S": "0.7", "PATHWAY_AUTOSCALE_HANDOFF_DEADLINE_S": "20",
+        "PATHWAY_AUTOSCALE_BUDGET": "2",
+    }.items():
+        monkeypatch.setenv(knob, value)
+
+    def handoffs():
+        return tmetrics.get_registry().scalar_metrics().get("supervisor.handoffs", 0.0)
+
+    scaled = tmp_path / "scaled"
+    scaled.mkdir()
+    before = handoffs()
+    res = progs.run_supervised("pathway_tpu_torch", scaled, json.dumps({"seed": 11, "faults": [SPIKE]}),
+                               n=1, autoscale=True, n_rows=SPIKE_ROWS)
+    moves = [(r.get("action"), r["from"], r["to"]) for r in res.rescales]
+    assert moves == [("grow", 1, 2), ("shrink", 2, 1)], res.rescales
+    # the grow lands mid-spike as a live handoff; the shrink races the end
+    # of the stream and may take the restart fallback, as provenance says
+    assert res.rescales[0]["kind"] == "autoscale", res.rescales
+    if res.rescales[1]["kind"] == "autoscale":
+        assert res.last_failure is None and handoffs() == before + 2
+    else:
+        assert res.rescales[1]["kind"] == "autoscale-fallback", res.rescales
+        assert "falling back" in res.last_failure and handoffs() == before + 1
+    assert progs.canonical_bytes(scaled) == progs.canonical_bytes(clean) != b"[]"
+    root = str(scaled / "pstore")
+    report = tpz.scrub_root(tpz.FileBackend(root))
+    assert report["ok"] is True, report
+    assert tpz.read_handoff_request(root) is None
+    actions = [d.get("action") for d in tasc.read_state_file(root)["decisions"]]
+    assert "grow" in actions and "shrink" in actions

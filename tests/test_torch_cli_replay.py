@@ -46,9 +46,14 @@ def test_torch_distributed_joins_the_workers_in_one_gloo_world(tmp_path, monkeyp
         "pw.run()\n"
         "x = torch.tensor([float(dist.get_rank() + 1)])\n"
         "dist.all_reduce(x)\n"
-        "print(json.dumps([dist.get_world_size(), dist.get_rank(), x.item()]))\n"
+        "os.write(1, (json.dumps([dist.get_world_size(), dist.get_rank(), x.item()]) + '\\n').encode())\n"
         "dist.destroy_process_group()\n"
     )
+    # each worker writes its line in one write(2): the two workers share
+    # stdout, and a print's text and newline can land between the other's.
+    # The rendezvous takes a port known free, as tests/test_multihost.py's
+    # does, not first_port + 1000, which no one checked
+    monkeypatch.setenv("PATHWAY_DEVICE_COORDINATOR", f"127.0.0.1:{progs.free_port_base(1)}")
     code, err, out = spawn(monkeypatch, capfd, tmp_path, None, "-n", "2", "--torch-distributed",
                            script=str(script))
     assert code == 0, err[-3000:]

@@ -213,8 +213,26 @@ def test_concurrent_first_builds_both_load(build_race):
     assert not [f for f in built if f.endswith(".tmp")], built
 
 
+def _monitored_run(pw, port: int, **kwargs) -> list:
+    """A groupby under ``pw.run(**kwargs)`` with the monitoring server, if
+    asked for, on ``port``: the subscriber's (k, s, is_addition) rows."""
+    t = pw.debug.table_from_markdown("k | v\n1 | 2\n1 | 3\n2 | 5")
+    res = t.groupby(pw.this.k).reduce(pw.this.k, s=pw.reducers.sum(pw.this.v))
+    rows = []
+    pw.io.subscribe(res, on_change=lambda key, row, time, is_addition: rows.append(
+        (row["k"], row["s"], is_addition)))
+    try:
+        with pw.local_pathway_config(monitoring_http_port=port):
+            pw.run(**kwargs)
+    finally:
+        pw.G.clear()
+    return sorted(rows)
+
+
 def test_run_refuses_what_later_slices_bring(monkeypatch, tmp_path):
-    """H5 and H6 features raise naming their slice.  Several processes and
+    """H6 features raise naming their slice.  Observability came with slice
+    H5: ``with_http_server=True`` and ``monitoring_level=ALL`` run a
+    program in both packages to the same output.  Several processes and
     warm standbys came with slice H4b: ``PATHWAY_PROCESSES=2`` runs a
     2-worker mesh to the JAX package's net output, and
     ``PATHWAY_STANDBY_ID`` on a run with no root to tail refuses as the JAX
@@ -227,13 +245,18 @@ def test_run_refuses_what_later_slices_bring(monkeypatch, tmp_path):
         cluster.run_cluster(pkg, "wordcount", tmp_path / pkg, n=2)
         nets.append(cluster.canonical_bytes(tmp_path / pkg, "out.jsonl"))
     assert nets[0] == nets[1] != b"[]"
+    for kwargs in (dict(with_http_server=True),
+                   dict(monitoring_level="ALL"),
+                   dict(with_http_server=True, monitoring_level="ALL")):
+        outs = []
+        for pw in (pj, pt):
+            level = kwargs.get("monitoring_level")
+            run_kwargs = dict(kwargs, **({"monitoring_level": pw.MonitoringLevel.ALL} if level else {}))
+            outs.append(_monitored_run(pw, cluster.free_port_base(1), **run_kwargs))
+        assert outs[0] == outs[1] == [(1, 5, True), (2, 5, True)]
     t = pt.debug.table_from_markdown("v\n1")
     t._subscribe_raw(lambda *a: None)
     try:
-        for kwargs, slice_ in ((dict(with_http_server=True), "H5"),
-                               (dict(monitoring_level=pt.MonitoringLevel.ALL), "H5")):
-            with pytest.raises(NotImplementedError, match=slice_):
-                pt.run(**kwargs)
         monkeypatch.setenv("PATHWAY_STANDBY_ID", "2")
         for pw in (pj, pt):
             with pytest.raises(RuntimeError, match="requires a filesystem persistence root"):

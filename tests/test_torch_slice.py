@@ -178,7 +178,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     ``pw.run``; last, the multi-worker layer (``comm``, ``supervisor``,
     ``standby``, ``autoscaler``, ``telemetry``, ``__main__``) imports and a
     supervised 2-worker cluster of forked children, which inherit the
-    block, recovers from a seeded crash."""
+    block, recovers from a seeded crash; and the observability layer
+    (``http_server``, ``probes``, ``profiler``, ``slo``, ``top``,
+    ``monitoring``, ``license``) serves ``/metrics`` and ``/status`` during
+    a ``pw.run(with_http_server=True, monitoring_level=ALL)``."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -399,6 +402,48 @@ def test_port_imports_nothing_of_jax(model_dir):
         res = cluster.run_supervised("pathway_tpu_torch", croot, plan)
         assert res.restarts == 1 and res.exit_codes == [0, 0], res.history
         assert cluster.counts_of(cluster.canonical_bytes(croot)) == cluster.EXPECTED_COUNTS
+
+        import threading, time, urllib.request  # noqa: E401
+        from pathway_tpu_torch.engine import http_server, probes, profiler, slo  # noqa: F401
+        from pathway_tpu_torch.internals import license, monitoring, top  # noqa: F401
+
+        port, scraped, go = cluster.free_port_base(1), {{}}, threading.Event()
+
+        class Feed(pt.io.python.ConnectorSubject):
+            def run(self):
+                self.next(g="a", v=1)
+                self.commit()
+                go.wait(60)  # the second row waits for the scrapes
+                self.next(g="b", v=2)
+                self.commit()
+
+        def scrape():
+            base = f"http://127.0.0.1:{{port}}"
+            for _ in range(1200):
+                try:
+                    status = json.loads(urllib.request.urlopen(base + "/status", timeout=2).read())
+                    if status["output"]["rows_in"]:
+                        scraped["status"] = status
+                        scraped["metrics"] = urllib.request.urlopen(base + "/metrics", timeout=2).read().decode()
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.05)
+            go.set()
+
+        served = []
+        feed = pt.io.python.read(Feed(), schema=pt.schema_from_types(g=str, v=int), name="feed")
+        feed.groupby(pt.this.g).reduce(g=pt.this.g, s=pt.reducers.sum(pt.this.v))._subscribe_raw(
+            lambda key, row, time, diff: served.append((row, diff)))
+        threading.Thread(target=scrape, daemon=True).start()
+        with pt.local_pathway_config(monitoring_http_port=port):
+            pt.run(with_http_server=True, monitoring_level=pt.MonitoringLevel.ALL)
+        pt.G.clear()
+        assert sorted(served) == [(("a", 1), 1), (("b", 2), 1)], served
+        metrics_body, status = scraped["metrics"], scraped["status"]
+        assert metrics_body.endswith("# EOF\\n") and "pathway_epoch_duration_ms_count" in metrics_body
+        assert "pathway_freshness_e2e_ms_count" in metrics_body
+        assert status["epochs"] >= 1 and {{"freshness", "backlog", "device", "slo"}} <= set(status), status
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -93,8 +93,8 @@ def _persistence(pw, tmpdir, interval_ms=50):
     )
 
 
-def streaming_counts(pw, tmpdir, gated: bool = False, out_name: str = "counts.jsonl"):
-    """A Python subject of ``N_ROWS`` rows, one commit each, grouped by key
+def streaming_counts(pw, tmpdir, gated: bool = False, out_name: str = "counts.jsonl", n_rows: int = N_ROWS):
+    """A Python subject of ``n_rows`` rows, one commit each, grouped by key
     into a jsonlines sink, persisted every 50 ms.  ``gated``: rows 10+ wait
     for one committed generation on worker 0 and rows 20+ for two, so a
     crash past them lands after real commits whatever the pace."""
@@ -113,7 +113,7 @@ def streaming_counts(pw, tmpdir, gated: bool = False, out_name: str = "counts.js
 
     class Src(pw.io.python.ConnectorSubject):
         def run(self):
-            for i in range(N_ROWS):
+            for i in range(n_rows):
                 if gated and i in (10, 20):
                     wait_for_generations(i // 10)
                 self.next(k=i % 3, v=1)
