@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,cluster,observability,vector_store]
+    python3 chip_smoke.py [--docs N] [--seed S] [--skip rerank,encoders,executor,dataflow,temporal,generate,moe,speculative,vision,lora,train,parallel,sharded,rag,hybrid,persistence,cluster,observability,kafka,vector_store]
 
 Phases, each on a line of its own; any failure exits non-zero:
 
@@ -296,14 +296,14 @@ Phases, each on a line of its own; any failure exits non-zero:
    all-MiniLM-L6-v2 width with seeded weights.  ``resume``, in this
    process: ``[dataflow]``'s program (an async ``pw.udf`` through
    ``AsyncMicroBatcher``, the select, join and groupby) over
-   ``pw.io.jsonlines.read(mode="static", name="docs")`` of 8,192 texts
+   ``pw.io.jsonlines.read(mode="static", name="docs")`` of 4,096 texts
    in 8 files; run 1 reads 6 files to a clean finish on a fresh root, 2
    files are added and run 2 resumes on it, in ``PERSISTING`` (the UDF
    under ``DiskCache``) and in ``OPERATOR_PERSISTING``; one unbroken run
    over the 8 files without persistence is the reference.  Gated on run
    2's net sink state against the unbroken run's (keys, ids, names and
    counts exact, vectors at cosine > 0.999, scores and sums within 1e-2
-   and 1e-3 relative) and on run 2 embedding exactly the 2,048 texts run 1
+   and 1e-3 relative) and on run 2 embedding exactly the 1,024 texts run 1
    did not, counted at the forwards: every replayed row a cache hit
    (input mode), ``replay_into`` 0 and the input taking only the new rows
    (operator mode); run 2's wall s against the unbroken run's, the bytes
@@ -313,10 +313,10 @@ Phases, each on a line of its own; any failure exits non-zero:
    SentenceTransformerEmbedder batcher>, splitter=TokenCountSplitter())
    .run_server(..., with_cache=True, cache_backend=filesystem(root))``
    over ``pw.io.fs.read(mode="streaming", format="binary",
-   with_metadata=True)``: the corpus (1,024 files of ``[vector_store]``'s
+   with_metadata=True)``: the corpus (512 files of ``[vector_store]``'s
    generator) written in batches of 128, child 1 SIGKILLed once
-   ``/v1/statistics`` shows 512 files, 64 files added, child 2 started on
-   the same root; once it shows all 1,088 files, 64 ``/v1/retrieve``
+   ``/v1/statistics`` shows 256 files, 64 files added, child 2 started on
+   the same root; once it shows all 576 files, 64 ``/v1/retrieve``
    queries at k 10, then it closes.  Gated on the answers against a direct
    ``encode`` and f32 ``torch.topk`` (as phase 16), on child 2 embedding
    exactly the chunks that had no cache entry when it started (keys
@@ -330,8 +330,8 @@ Phases, each on a line of its own; any failure exits non-zero:
    all-MiniLM-L6-v2 width with seeded weights: part A's program of
    ``[persistence]`` (the async embedder UDF through ``AsyncMicroBatcher``,
    the score, a join with the sources and the per-source groupby, into
-   jsonlines sinks, one ``.part-N`` a worker) over 16,384 texts of its
-   generator from a ``pw.io.python`` subject that commits every 256 (64
+   jsonlines sinks, one ``.part-N`` a worker) over 8,192 texts of its
+   generator from a ``pw.io.python`` subject that commits every 128 (64
    epochs) and ends; the subject is read on worker 0 and the exchange
    scatters its rows.  Run A is one worker in this process; runs B-D are
    ``python -m pathway_tpu_torch spawn -n 2`` (fresh interpreters, started
@@ -339,7 +339,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    at a time): B unbroken; C ``--supervise --checkpoint-root`` with input
    snapshots and ``PATHWAY_FAULT_PLAN`` SIGKILLing worker 1 at its epoch
    24; D as C with ``--standbys 1``, worker 1 SIGKILLed from here once
-   6,144 texts are embedded (an epoch spec would fire again in the
+   3,072 texts are embedded (an epoch spec would fire again in the
    promoted standby, whose epochs count from 0 and whose attempt stays 0).
    Rows/s of A and B, each worker's texts, forwards, device ms (CUDA
    events), idle share and peak memory; C's and D's seconds from the kill
@@ -347,7 +347,7 @@ Phases, each on a line of its own; any failure exits non-zero:
    the restart, the generations under the root.  Gated on each run's net
    state against A's (keys, ids, names and counts exact, vectors at
    cosine > 0.999, scores and per-source sums within 1e-4, each sum its
-   docs' scores), B's workers embedding exactly 16,384 texts, C's SIGKILL
+   docs' scores), B's workers embedding exactly 8,192 texts, C's SIGKILL
    and group restart (a crash dump of worker 1, the last attempt ending
    clean), D's promotion with worker 0 one process throughout, a clean
    ``scrub`` of C's and D's roots, no worker running ``nvcc``, and every
@@ -380,6 +380,40 @@ Phases, each on a line of its own; any failure exits non-zero:
    collector's metrics and ``pathway.epoch`` spans.  Rows/s, device ms
    and idle share of each run, the on runs' overhead (reported, not
    gated), the kernel-build counters, launches by shape;
+15g. kafka: BASELINE.md's second configuration, BGE-base streaming ingest
+   from Kafka into a ``KNNIndex`` (slice H6a: ``pw.io.kafka``, the S3
+   persistence backend and its SigV4 client) at full
+   BAAI/bge-base-en-v1.5 width (seeded weights, ``SentenceTransformerEmbedder``
+   through ``AsyncMicroBatcher`` at 256).  The broker is the in-process
+   kafka-python-shaped one of ``tests/torch_fake_services.py`` behind
+   ``kafka._get_client`` (the seam the JAX package's tests use; no broker
+   network is measured), the persistence root its SigV4-checking S3
+   endpoint on 127.0.0.1.  32,768 keyed JSON docs of 32-62 words (BGE's
+   64-id bucket) go to an 8-partition ``docs`` topic in batches of 1,024,
+   each once the index holds the batch two before it;
+   ``pw.io.kafka.read(format="plaintext")`` (rows keyed by message key, an
+   upsert session) → the embedder → ``pw.ml.index.KNNIndex`` (cosine);
+   once every doc is indexed, 256 questions (8-24 word spans of docs, a
+   quarter of the words swapped) go to a ``queries`` topic in batches of 32,
+   read as JSON, answered by ``get_nearest_items_asof_now`` at k 10 and
+   written to an ``answers`` topic by ``pw.io.kafka.write``; every run
+   persists through ``pw.persistence.Backend.s3``.  One unbroken run; a run
+   whose producer keeps one batch ahead, stopped at ``max_epochs`` 24 (at
+   most three quarters of the docs indexed); its resume on the same bucket
+   and consumer group.  Ingest
+   embeddings/s, produce-to-indexed staleness, question-to-answer latency,
+   resume s against the unbroken run's, device ms and idle share, batch
+   sizes, S3 requests and bytes, launches by shape; gated on each indexed
+   vector against a direct ``encode`` of its own doc (cosine > 0.999, no
+   other doc's nearer), every answer against a direct ``encode`` and f32
+   scores over the 32,768 vectors (k distinct ids, each id's own score
+   within 5e-3 of the score returned beside it and at most 5e-3 under the
+   plain k-th, so an id off ``torch.topk``'s is a measured near-tie), the
+   resumed run's answers topic and net index state against the unbroken
+   run's (every doc under one key once, vectors at cosine > 0.999), the
+   reader threads parked once their commits landed, the group's
+   committed offsets at the stop passing no row the stopped run had not
+   delivered, every S3 request's signature, and the rail still;
 16. vector_store: the connectors and the retrieval half of the LLM xpack,
    last (its streaming fs reader polls on after the run, as the JAX
    package's does): ``VectorStoreServer`` over
@@ -408,7 +442,7 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Phases 8-15 run one model at a time; the encoder kernel is on none of
 their paths, and its launches there are counted and must be 0.
-``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b-15f (all run by default), to
+``--skip`` leaves out the named phases of 5-16, 7b, 7c, 15b-15g (all run by default), to
 time one phase without the ones before it in the same process.  Then the total
 seconds, one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -429,6 +463,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -950,7 +985,7 @@ def main_path(device, docs: int, seed: int, checked: dict, model: str = "all-Min
 
 SKIPPABLE = ("rerank", "encoders", "executor", "dataflow", "temporal", "generate", "moe", "speculative", "vision", "lora",
              "train", "parallel", "sharded", "rag", "hybrid", "persistence", "cluster", "observability",
-             "vector_store")
+             "kafka", "vector_store")
 # the phases whose paths hold no encoder-attention call: their launches must be 0
 NO_KERNEL_PHASES = ("generate", "moe", "speculative", "vision", "lora", "train", "parallel", "sharded")
 RERANK_MODEL = "cross-encoder/ms-marco-MiniLM-L-6-v2"
@@ -4780,14 +4815,14 @@ def sharded_phase(device, seed: int, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PERSIST_MODEL = "all-MiniLM-L6-v2"
-PERSIST_DOCS = 8192  # in PERSIST_FILES jsonlines files; 16,384 until [cluster] (PERF.md section 4)
+PERSIST_DOCS = 4096  # in PERSIST_FILES jsonlines files; 16,384 until [cluster], 8,192 until [kafka] (PERF.md section 4)
 PERSIST_FILES = 8
-PERSIST_FIRST = 6  # files of run 1; the other 2 (2,048 texts) come before run 2
+PERSIST_FIRST = 6  # files of run 1; the other 2 (1,024 texts) come before run 2
 PERSIST_SOURCES = 64
-PERSIST_SERVED = 1024  # part B's files, of [vector_store]'s generator
+PERSIST_SERVED = 512  # part B's files, of [vector_store]'s generator; 1,024 until [kafka]
 PERSIST_SERVE_BATCH = 128  # files written at a time while child 1 ingests ...
 PERSIST_SERVE_GAP_S = 0.5  # ... this far apart
-PERSIST_KILL_AT = 512  # files indexed when child 1 is killed
+PERSIST_KILL_AT = 256  # files indexed when child 1 is killed; 512 until [kafka]
 PERSIST_ADDED = 64  # files added before child 2
 PERSIST_QUERIES = 64
 PERSIST_K = 10
@@ -5220,7 +5255,7 @@ def persist_children(seed: int, base: str, device) -> tuple:
 def persist_crash_part(pw, enc, seed: int, ctx, specs: list, child1, device) -> dict:
     """Part B: child 1 serves the growing corpus and is SIGKILLed once 512
     files are indexed; 64 files are added; child 2 resumes on the same root,
-    indexes all 1,088 files, answers 64 ``/v1/retrieve`` queries and closes.
+    indexes all 576 files, answers 64 ``/v1/retrieve`` queries and closes.
     Returns the report, the children's launch counts and shapes; fails on
     a gate."""
     import signal
@@ -5431,8 +5466,8 @@ def persistence_phase(device, seed: int, checked: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 CLUSTER_MODEL = "all-MiniLM-L6-v2"
-CLUSTER_DOCS = 16384  # of persist_docs's generator
-CLUSTER_COMMIT = 256  # texts a commit of the subject: 64 epochs
+CLUSTER_DOCS = 8192  # of persist_docs's generator; 16,384 until [kafka] (PERF.md section 4)
+CLUSTER_COMMIT = 128  # texts a commit of the subject: 64 epochs; 256 until [kafka]
 CLUSTER_KILL_EPOCH = 24  # worker 1 dies at this epoch (C: the fault plan; D: from outside)
 CLUSTER_SNAPSHOT_MS = 100
 CLUSTER_WAIT_S = 300.0  # the longest a spawned run may take
@@ -6433,6 +6468,515 @@ def observability_phase(device, seed: int, checked: dict) -> dict:
     log("observability", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen.items())},
         max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen)})
     return {"launches": {"encoder_attention": launches}, "attention_launches": dict(seen), **res}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15g: BASELINE.md's second configuration, Kafka -> BGE-base -> KNNIndex.
+# ---------------------------------------------------------------------------
+
+KAFKA_MODEL = BGE_MODEL  # BASELINE.md: "BGE-base embedder streaming ingest (Kafka -> KNNIndex)"
+KAFKA_WORDS = (32, 62)  # a doc's words: 34-64 ids with [CLS] and [SEP], BGE's 64-id bucket
+KAFKA_QUERY_WORDS = (8, 24)
+KAFKA_GROUP = "ingest"
+KAFKA_SCORE_TOL = 5e-3  # returned scores against f32: an H100 gave 0.0022 per id, 0.0035 under the k-th (PERF.md section 6)
+KAFKA_SETTLE_S = 10.0  # the longest a finished run's reader threads take to reach their next poll
+
+
+@dataclasses.dataclass(frozen=True)
+class KafkaSizes:
+    docs: int = 32768
+    partitions: int = 8
+    batch: int = 1024  # docs a produce batch: 32 batches
+    ahead: int = 2  # produce batches the producer keeps ahead of the index
+    queries: int = 256
+    query_batch: int = 32  # questions a produce batch, each once the one before is answered
+    k: int = 10
+    commit_ms: int = 200  # both readers' autocommit_duration_ms
+    snapshot_ms: int = 1000
+    wait_s: float = 300.0  # the longest the producer waits on the index or the answers
+
+
+def kafka_corpus(sizes: KafkaSizes, seed: int) -> dict:
+    """``sizes.docs`` texts of 32-62 words over ``synthetic_corpus``'s
+    vocabulary, and ``sizes.queries`` questions: 8-24 word spans of random
+    docs with a quarter of the words swapped."""
+    texts, _lens, ids, vocab = synthetic_corpus(sizes.docs, seed, words_per_text=KAFKA_WORDS)
+    rng = np.random.default_rng(seed + 1)
+    queries = []
+    for _ in range(sizes.queries):
+        src = ids[int(rng.integers(sizes.docs))]
+        n = min(len(src), int(rng.integers(KAFKA_QUERY_WORDS[0], KAFKA_QUERY_WORDS[1] + 1)))
+        at = int(rng.integers(0, len(src) - n + 1))
+        span = src[at : at + n].copy()
+        swap = rng.random(n) < QUERY_SWAP
+        span[swap] = rng.integers(0, len(vocab), size=int(swap.sum()))
+        queries.append(" ".join(vocab[w] for w in span))
+    return {"docs": texts, "queries": queries}
+
+
+def fake_services():
+    """``tests/torch_fake_services.py`` of this checkout, loaded by path: a
+    ``tests`` package installed on the machine may shadow the checkout's."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fake_services.py")
+    spec = importlib.util.spec_from_file_location("torch_fake_services", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("torch_fake_services", module)
+    spec.loader.exec_module(module)
+    return module
+
+
+def kafka_topics(broker, sizes: KafkaSizes) -> None:
+    broker.create_topic("docs", sizes.partitions)
+    broker.create_topic("queries", 1)
+    broker.create_topic("answers", 1)
+
+
+def kafka_settings(group: str) -> dict:
+    """The readers' and the writer's rdkafka settings: the broker is the
+    in-process one, so the bootstrap address is never dialled."""
+    return {"bootstrap.servers": "127.0.0.1:9092", "group.id": group, "auto.offset.reset": "earliest"}
+
+
+def kafka_persistence(pw, s3, prefix: str, snapshot_ms: int):
+    """``pw.persistence.Backend.s3`` on the SigV4 endpoint ``s3``."""
+    settings = pw.io.s3.AwsS3Settings(bucket_name="pathway", access_key=s3.access_key,
+                                      secret_access_key=s3.secret_key, region=s3.region,
+                                      endpoint=s3.endpoint, with_path_style=True)
+    return pw.persistence.Config(pw.persistence.Backend.s3(f"s3://pathway/{prefix}", settings),
+                                 snapshot_interval_ms=snapshot_ms)
+
+
+def _doc_id(payload: str) -> int:
+    return json.loads(payload)["doc_id"]
+
+
+def _doc_text(payload: str) -> str:
+    return json.loads(payload)["text"]
+
+
+def kafka_program(pw, settings: dict, embed, dim: int, sizes: KafkaSizes, index_kw: dict) -> dict:
+    """``[kafka]``'s Table program, for either package as ``pw``.  The docs
+    topic's keyed JSON messages read as ``plaintext``: rows keyed by the
+    message key, so a redelivered message replaces its row (an upsert
+    session; ``format="json"`` rows take fresh keys in both packages).
+    Their texts embedded by ``embed`` into a cosine ``KNNIndex``; the
+    queries topic read as JSON, embedded and answered as of now at ``k``,
+    the answers written to the answers topic by ``pw.io.kafka.write``."""
+    raw = pw.io.kafka.read(settings, "docs", format="plaintext", autocommit_duration_ms=sizes.commit_ms, name="docs")
+    docs = raw.select(doc_id=pw.apply_with_type(_doc_id, int, pw.this.data),
+                      text=pw.apply_with_type(_doc_text, str, pw.this.data))
+    vecs = docs.select(pw.this.doc_id, vec=embed(pw.this.text))
+    index = pw.ml.index.KNNIndex(vecs.vec, vecs, n_dimensions=dim, distance_type="cosine", **index_kw)
+    queries = pw.io.kafka.read(settings, "queries", format="json", schema=pw.schema_from_types(query_id=int, text=str),
+                               autocommit_duration_ms=sizes.commit_ms, name="queries")
+    qvecs = queries.select(pw.this.query_id, qvec=embed(pw.this.text))
+    hits = index.get_nearest_items_asof_now(qvecs.qvec, k=sizes.k, with_distances=True)
+    answers = hits.select(pw.this.query_id, doc_ids=pw.this.doc_id, dist=pw.this.dist)
+    pw.io.kafka.write(answers, settings, "answers", format="json")
+    return {"vecs": vecs, "answers": answers}
+
+
+class KafkaDone(Exception):
+    """Ends a ``[kafka]`` run once every question is answered."""
+
+
+class KafkaTraffic:
+    """The producer of one ``[kafka]`` run and what its subscribers saw.
+
+    Docs go to the broker in batches, each once the index holds every doc
+    of the batch ``ahead`` before it; once every doc is indexed, the
+    questions go in batches, each once the one before is answered.  A doc
+    is indexed at the end of the epoch that first delivered its vector."""
+
+    def __init__(self, broker, corpus: dict, sizes: KafkaSizes, first_batch: int = 0, queries: bool = True):
+        self.broker, self.corpus, self.sizes = broker, corpus, sizes
+        self.cond = threading.Condition()
+        self.stop = threading.Event()
+        self.n_batches = -(-sizes.docs // sizes.batch)
+        self.next_batch = first_batch
+        self.with_queries = queries
+        self.produced_at: dict[int, float] = {}  # doc_id -> clock at produce
+        self.indexed_at: dict[int, float] = {}  # doc_id -> clock at the epoch end that first indexed it
+        self.asked_at: dict[int, float] = {}  # query_id -> clock at produce
+        self.vec_deltas: list = []  # (key, doc_id, vec, diff) in delivery order
+        self.answers: dict[int, tuple] = {}  # query_id -> (doc_ids, dists, clock)
+        self.failed: list[str] = []
+        self.t_start = self.t_indexed = None
+        self._pending: list[int] = []
+
+    # -- the subscribers --------------------------------------------------
+    def on_vec(self, key, row, time, is_addition):
+        self.vec_deltas.append((str(key), row["doc_id"], np.asarray(row["vec"], np.float32), 1 if is_addition else -1))
+        if is_addition:
+            self._pending.append(row["doc_id"])
+
+    def on_vec_end(self, time):
+        now = _now()
+        with self.cond:
+            for d in self._pending:
+                self.indexed_at.setdefault(d, now)
+            self._pending.clear()
+            if self.t_indexed is None and len(self.indexed_at) >= self.sizes.docs:
+                self.t_indexed = now
+            self.cond.notify_all()
+
+    def on_answer(self, key, row, time, is_addition):
+        if is_addition:
+            with self.cond:
+                self.answers.setdefault(row["query_id"], (tuple(row["doc_ids"]), tuple(row["dist"]), _now()))
+                self.cond.notify_all()
+
+    def on_answer_end(self, time):
+        if self.with_queries and len(self.answers) >= self.sizes.queries:
+            raise KafkaDone
+
+    # -- the producer -------------------------------------------------------
+    def _wait(self, ready, what: str) -> bool:
+        deadline = _now() + self.sizes.wait_s
+        with self.cond:
+            while not ready():
+                if self.stop.is_set():
+                    return False
+                if _now() > deadline:
+                    raise TimeoutError(f"kafka: {what} took over {self.sizes.wait_s} s")
+                self.cond.wait(0.05)
+        return not self.stop.is_set()
+
+    def drive(self) -> None:
+        import _thread
+
+        s = self.sizes
+        try:
+            while self.next_batch < self.n_batches:
+                b = self.next_batch
+                need = min(max(0, b - s.ahead + 1) * s.batch, s.docs)
+                if not self._wait(lambda: len(self.indexed_at) >= need, f"indexing {need} docs"):
+                    return
+                for d in range(b * s.batch, min((b + 1) * s.batch, s.docs)):
+                    self.produced_at[d] = _now()
+                    self.broker.produce("docs", json.dumps({"doc_id": d, "text": self.corpus["docs"][d]}).encode(),
+                                        key=str(d).encode())
+                self.next_batch = b + 1
+            if not self.with_queries:
+                return
+            if not self._wait(lambda: len(self.indexed_at) >= s.docs, "indexing every doc"):
+                return
+            for start in range(0, s.queries, s.query_batch):
+                stop = min(start + s.query_batch, s.queries)
+                for q in range(start, stop):
+                    self.asked_at[q] = _now()
+                    self.broker.produce("queries", json.dumps({"query_id": q, "text": self.corpus["queries"][q]}).encode())
+                if not self._wait(lambda: len(self.answers) >= stop, f"answering {stop} questions"):
+                    return
+        except Exception as exc:  # noqa: BLE001 - the run is stopped and the phase fails on it
+            self.failed.append(repr(exc))
+            _thread.interrupt_main()
+
+
+def kafka_run(pw, broker, corpus: dict, embed, dim: int, sizes: KafkaSizes, persistence, *, index_kw: dict,
+              group: str = KAFKA_GROUP, max_epochs: int | None = None, first_batch: int = 0,
+              queries: bool = True) -> dict:
+    """One ``pw.run`` of ``kafka_program`` against ``broker``, through the
+    package's ``kafka._get_client`` seam, with its producer on a thread.
+    It ends when every question is answered, or at ``max_epochs`` (then
+    without questions).  After it the broker parks the run's reader
+    threads once each has committed the offsets of its last acknowledged
+    marker; ``unparked`` counts those that did not get there."""
+    kafka_mod = importlib.import_module(f"{pw.__name__}.io.kafka")
+    traffic = KafkaTraffic(broker, corpus, sizes, first_batch=first_batch, queries=queries)
+    get_client = kafka_mod._get_client
+    kafka_mod._get_client = broker.get_client
+    ended, result = "max_epochs", None
+    try:
+        tables = kafka_program(pw, kafka_settings(group), embed, dim, sizes, index_kw)
+        pw.io.subscribe(tables["vecs"], on_change=traffic.on_vec, on_time_end=traffic.on_vec_end)
+        pw.io.subscribe(tables["answers"], on_change=traffic.on_answer, on_time_end=traffic.on_answer_end)
+        producer = threading.Thread(target=traffic.drive, name="kafka:producer", daemon=True)
+        traffic.t_start = _now()
+        producer.start()
+        try:
+            result = pw.run(monitoring_level=pw.MonitoringLevel.NONE, persistence_config=persistence,
+                            max_epochs=max_epochs)
+        except KafkaDone:
+            ended = "answered"
+        except KeyboardInterrupt:
+            ended = "stalled"
+        wall_s = _now() - traffic.t_start
+    finally:
+        traffic.stop.set()
+        kafka_mod._get_client = get_client
+        pw.G.clear()
+    unparked = broker.park_consumers(settle_s=KAFKA_SETTLE_S)
+    return {"traffic": traffic, "wall_s": wall_s, "ended": ended, "epochs": getattr(result, "epochs", None),
+            "unparked": unparked}
+
+
+def kafka_stop(sizes: KafkaSizes) -> tuple[KafkaSizes, int]:
+    """The stopped run's sizes and ``max_epochs``: its producer keeps one
+    batch ahead, so an epoch indexes at most one batch, and the run stops
+    after three epochs for every four batches with at least one doc and at
+    most three quarters of them indexed (about half on the card, where a
+    batch of 1,024 takes about two epochs)."""
+    return dataclasses.replace(sizes, ahead=1), 3 * -(-sizes.docs // sizes.batch) // 4
+
+
+def kafka_net(traffic: KafkaTraffic) -> dict:
+    """``{key: (doc_id, vec, multiplicity)}`` of the vectors' change stream."""
+    net: dict = {}
+    for key, doc, vec, diff in traffic.vec_deltas:
+        _d, v, m = net.get(key, (doc, vec, 0))
+        net[key] = (doc, vec if diff > 0 else v, m + diff)
+    return {k: v for k, v in net.items() if v[2]}
+
+
+def kafka_answer_topic(broker) -> dict:
+    """``{query_id: (doc_ids, dists)}`` net of the answers topic's JSON."""
+    out: dict = {}
+    for msg in broker.messages("answers"):
+        obj = json.loads(msg.value)
+        if obj["diff"] > 0:
+            out[obj["query_id"]] = (tuple(obj["doc_ids"]), tuple(obj["dist"]))
+        else:
+            out.pop(obj["query_id"], None)
+    return out
+
+
+def kafka_offsets_check(broker, committed: dict, processed: set) -> dict:
+    """Messages of the docs topic below the group's committed offset whose
+    row the stopped run never delivered: an offset that passed a row the
+    engine had not acknowledged."""
+    passed = [m.offset for m in broker.messages("docs")
+              if m.offset < committed.get(m.partition, 0) and int(m.key) not in processed]
+    tail = [m for m in broker.messages("docs")
+            if m.offset >= committed.get(m.partition, 0) and int(m.key) in processed]
+    return {"committed": dict(sorted(committed.items())), "committed_total": sum(committed.values()),
+            "passed_unprocessed": len(passed), "redelivered_tail": len(tail), "processed": len(processed)}
+
+
+def kafka_state_check(unbroken: dict, resumed: dict, docs: int) -> dict:
+    """The resumed run's net index state against the unbroken run's: every
+    doc under one key once, the same keys, vectors at cosine > 0.999."""
+    counts = {}
+    for _k, (doc, _v, m) in resumed.items():
+        counts[doc] = counts.get(doc, 0) + m
+    cos = [float(np.dot(v, unbroken[k][1]) / (np.linalg.norm(v) * np.linalg.norm(unbroken[k][1])))
+           for k, (_d, v, _m) in resumed.items() if k in unbroken]
+    return {"keys": len(resumed), "keys_equal": set(resumed) == set(unbroken),
+            "docs_once": sorted(counts) == list(range(docs)) and all(m == 1 for m in counts.values()),
+            "min_cos_vs_unbroken": min(cos) if cos else float("nan")}
+
+
+def _unit(x: np.ndarray, device) -> torch.Tensor:
+    t = torch.as_tensor(np.array(x, np.float32), device=device)
+    return t / t.norm(dim=1, keepdim=True)
+
+
+def kafka_vectors_check(net: dict, doc_embs: np.ndarray, device, chunk: int = 4096) -> dict:
+    """Each indexed row's vector (``kafka_net``) against the direct
+    ``encode`` of the doc its row names: the cosine to it, and the largest
+    cosine to any other doc's (``nearer_other`` counts rows whose vector is
+    nearer another doc: a vector filed under the wrong id)."""
+    keys = sorted(net)
+    if not keys:
+        return {"rows": 0, "min_cos_own": float("nan"), "max_cos_other": float("nan"), "nearer_other": 0}
+    docs_t = _unit(doc_embs, device)
+    ids = torch.tensor([net[key][0] for key in keys], device=device)
+    vecs = _unit(np.stack([net[key][1] for key in keys]), device)
+    own = (vecs * docs_t[ids]).sum(dim=1)
+    other = torch.empty_like(own)
+    for at in range(0, len(keys), chunk):
+        sims = vecs[at : at + chunk] @ docs_t.T
+        sims[torch.arange(sims.shape[0], device=device), ids[at : at + chunk]] = -2.0
+        other[at : at + chunk] = sims.max(dim=1).values
+    return {"rows": len(keys), "min_cos_own": float(own.min()), "max_cos_other": float(other.max()),
+            "nearer_other": int((other >= own).sum())}
+
+
+def kafka_answers_check(enc_embs: tuple, answers: dict, k: int, device) -> dict:
+    """Answers ``{query_id: (doc_ids, dists)}`` against f32 cosine scores of
+    the directly encoded docs and questions.  Each returned id's own score
+    against the score returned beside it (``id_score_err``) and against
+    ``torch.topk``'s k-th (``below_kth``: how far the weakest returned id
+    falls under it), so an id that parts from the plain top k is a measured
+    near-tie; ``k`` distinct ids a row.  Rank by rank: rows whose ids part
+    from the plain top k (``topk_parted``) and the score errors."""
+    doc_embs, q_embs = enc_embs
+    rows = sorted(answers)
+    if not rows:
+        return {"queries": 0, "k_distinct": False}
+    scores = _unit(q_embs, device)[rows] @ _unit(doc_embs, device).T
+    vals, idx = torch.topk(scores, k, dim=1)
+    ref_ids, ref_vals = idx.cpu().numpy(), vals.cpu().numpy()
+    k_distinct = all(len(answers[r][0]) == k == len(set(answers[r][0])) == len(answers[r][1]) for r in rows)
+    if not k_distinct:
+        return {"queries": len(rows), "k_distinct": False}
+    got_ids = np.array([list(answers[r][0]) for r in rows])
+    got_vals = np.array([list(answers[r][1]) for r in rows], np.float64)
+    own = torch.gather(scores, 1, torch.as_tensor(got_ids, device=device)).cpu().numpy().astype(np.float64)
+    parted, gap = topk_parted(got_ids, got_vals, ref_ids, ref_vals)
+    overlap = np.mean([len(set(g) & set(r)) / k for g, r in zip(got_ids, ref_ids)])
+    return {"queries": len(rows), "k_distinct": True, "id_score_err": float(np.abs(own - got_vals).max()),
+            "below_kth": float((ref_vals[:, -1:] - own).max()),
+            "rows_parted": parted, "parted_max_gap": gap, "ids_in_plain_topk": float(overlap),
+            "plain_top1": float(np.median(ref_vals[:, 0])),
+            "plain_top1_minus_topk_p50": float(np.median(ref_vals[:, 0] - ref_vals[:, -1])),
+            "max_score_err": float(np.abs(got_vals - ref_vals).max())}
+
+
+def kafka_answers_fail(c: dict, queries: int, tol: float) -> bool:
+    """Whether ``kafka_answers_check``'s result ``c`` fails its gate."""
+    return (c["queries"] != queries or not c["k_distinct"] or
+            max(c["id_score_err"], c["below_kth"], c["parted_max_gap"], c["max_score_err"]) > tol)
+
+
+def kafka_phase(device, seed: int, checked: dict, card: str, sizes: KafkaSizes = KafkaSizes()) -> dict:
+    """Phase 15g: BASELINE.md's second configuration, streaming ingest from
+    Kafka into a ``KNNIndex`` at full BAAI/bge-base-en-v1.5 width, persisted
+    to S3: an unbroken run, a run stopped at ``max_epochs`` part way
+    (``kafka_stop``), and its resume on the same bucket and consumer group.  The broker
+    is ``tests/torch_fake_services.py``'s in-process one behind
+    ``kafka._get_client`` (no broker network is measured); the S3 endpoint
+    is its SigV4-checking server on 127.0.0.1.  ``checked`` gains the
+    attention shapes the runs gave the kernel."""
+    t_setup = time.perf_counter()
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.encoder import init_params
+    from pathway_tpu_torch.ops.attention import encoder_attention
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    fakes = fake_services()
+    KafkaBroker, S3Server = fakes.KafkaBroker, fakes.S3Server
+
+    embedder = SentenceTransformerEmbedder(KAFKA_MODEL)
+    enc = embedder._encoder
+    enc.set_params(init_params(enc.config, seed))  # seeded weights at full width
+    corpus = kafka_corpus(sizes, seed + 701)
+    enc.encode(corpus["docs"][:256])  # warm-up, outside the counted runs
+    s3 = S3Server()
+    setup_s = time.perf_counter() - t_setup
+
+    batch_sizes: list[int] = []
+    process = embedder._batcher.process_batch
+
+    def counted(items):
+        batch_sizes.append(len(items))
+        return process(items)
+
+    embedder._batcher.process_batch = counted
+    seen_shapes: dict[tuple, int] = {}
+    hooks = [record_launches(enc, seen_shapes)]
+    events, remove_events = forward_events(enc)
+    brokers = {"unbroken": KafkaBroker(), "resumed": KafkaBroker()}
+    for broker in brokers.values():
+        kafka_topics(broker, sizes)
+    runs, spans = {}, {}
+
+    def run(name: str, broker, prefix: str, run_sizes: KafkaSizes = sizes, **extra) -> None:
+        at = len(events)
+        runs[name] = kafka_run(pw, broker, corpus, embedder, enc.dimensions, run_sizes,
+                               kafka_persistence(pw, s3, prefix, sizes.snapshot_ms), index_kw={}, **extra)
+        spans[name] = (at, len(events))
+        if runs[name]["traffic"].failed:
+            fail(f"kafka: {name} run: {runs[name]['traffic'].failed[0]}")
+
+    # ---- the counted runs: counts zeroed just before, read just after ----
+    encoder_attention.launches = 0
+    seen_shapes.clear()
+    before = rail_state(device)
+    try:
+        run("unbroken", brokers["unbroken"], "unbroken")
+        stop_sizes, stop_epochs = kafka_stop(sizes)
+        run("stopped", brokers["resumed"], "resumed", stop_sizes, max_epochs=stop_epochs, queries=False)
+        committed = brokers["resumed"].committed_offsets(KAFKA_GROUP, "docs")
+        run("resumed", brokers["resumed"], "resumed", first_batch=runs["stopped"]["traffic"].next_batch)
+    finally:
+        embedder._batcher.process_batch = process
+    launches = {"encoder_attention": encoder_attention.launches}
+    # ---- end of the counted runs ----
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    device_ms = {name: float(sum(s.elapsed_time(e) for s, e in events[a:b])) for name, (a, b) in spans.items()}
+    remove_events()
+    rail = rail_gate("kafka", device, before)
+    s3_stats = s3.stats()
+    s3.close()
+
+    t_check = time.perf_counter()
+    un, st, re_ = (runs[n]["traffic"] for n in ("unbroken", "stopped", "resumed"))
+    res = {"card": card, "docs": sizes.docs, "partitions": sizes.partitions, "queries": sizes.queries,
+           "setup_s": setup_s}
+    for name, want in (("unbroken", "answered"), ("stopped", "max_epochs"), ("resumed", "answered")):
+        if runs[name]["ended"] != want:
+            fail(f"kafka: the {name} run ended {runs[name]['ended']}, not {want}")
+    offsets = kafka_offsets_check(brokers["resumed"], committed, set(st.indexed_at))
+    doc_order = np.argsort([len(t) for t in corpus["docs"]])
+    doc_embs = encode_sorted(enc, corpus["docs"], doc_order)[0]
+    q_embs = encode_sorted(enc, corpus["queries"], np.argsort([len(t) for t in corpus["queries"]]))[0]
+    checks = {}
+    for name, broker in (("unbroken", brokers["unbroken"]), ("resumed", brokers["resumed"])):
+        topic = kafka_answer_topic(broker)
+        checks[name] = kafka_answers_check((doc_embs, q_embs), topic, sizes.k, device)
+        checks[name]["topic_equals_subscriber"] = topic == {q: a[:2] for q, a in runs[name]["traffic"].answers.items()}
+    topic_un, topic_re = kafka_answer_topic(brokers["unbroken"]), kafka_answer_topic(brokers["resumed"])
+    rows = sorted(topic_un)
+    parted, gap = topk_parted(np.array([topic_re[q][0] for q in rows]), np.array([topic_re[q][1] for q in rows]),
+                              np.array([topic_un[q][0] for q in rows]), np.array([topic_un[q][1] for q in rows]))
+    state = kafka_state_check(kafka_net(un), kafka_net(re_), sizes.docs)
+    vectors = {name: kafka_vectors_check(kafka_net(t), doc_embs, device) for name, t in (("unbroken", un), ("resumed", re_))}
+    staleness = [(un.indexed_at[d] - un.produced_at[d]) * 1e3 for d in range(sizes.docs)]
+    latency = {name: [(runs[name]["traffic"].answers[q][2] - runs[name]["traffic"].asked_at[q]) * 1e3
+                      for q in range(sizes.queries)] for name in ("unbroken", "resumed")}
+    wall = {name: runs[name]["wall_s"] for name in runs}
+    ingest_s = {name: runs[name]["traffic"].t_indexed - runs[name]["traffic"].t_start for name in ("unbroken", "resumed")}
+    res.update({
+        "ingest_embeddings_per_s": sizes.docs / ingest_s["unbroken"], "ingest_s": ingest_s,
+        "resume_s_vs_unbroken": ingest_s["resumed"] / ingest_s["unbroken"],
+        "staleness_ms": percentiles(staleness), "query_latency_ms": {n: percentiles(v) for n, v in latency.items()},
+        "wall_s": wall, "epochs": {n: runs[n]["epochs"] for n in runs}, "stop_epoch": runs["stopped"]["epochs"],
+        "device_ms": device_ms, "idle_share": {n: 1.0 - device_ms[n] / (wall[n] * 1e3) for n in runs},
+        "batch_sizes": {int(s): batch_sizes.count(s) for s in sorted(set(batch_sizes))},
+        "texts_embedded": sum(batch_sizes), "s3": s3_stats, "offsets": offsets, "state": state, "vectors": vectors,
+        "unparked": {n: runs[n]["unparked"] for n in runs},
+        "answers": checks, "answers_resumed_vs_unbroken": {"rows_parted": parted, "parted_max_gap": gap,
+                                                            "max_score_err": float(max(
+                                                                np.abs(np.array(topic_re[q][1]) - np.array(topic_un[q][1])).max()
+                                                                for q in rows))},
+        "check_s": time.perf_counter() - t_check, "launches": launches,
+    })
+    log("kafka", **{k: v for k, v in res.items() if k != "launches"}, kernel_launches=launches)
+    if offsets["passed_unprocessed"]:
+        fail(f"kafka: the group's committed offsets passed {offsets['passed_unprocessed']} rows the stopped run never acknowledged")
+    if not 0 < offsets["processed"] < sizes.docs or not offsets["committed_total"]:
+        fail(f"kafka: the stop did not land mid-stream after a commit: {offsets}")
+    if any(res["unparked"].values()):
+        fail(f"kafka: reader threads still polling {KAFKA_SETTLE_S} s after their run: {res['unparked']}")
+    if not (state["docs_once"] and state["keys_equal"]) or state["min_cos_vs_unbroken"] <= COS_MIN:
+        fail(f"kafka: the resumed index against the unbroken run's: {state}")
+    for name, v in vectors.items():
+        if v["rows"] != sizes.docs or v["min_cos_own"] <= COS_MIN or v["nearer_other"]:
+            fail(f"kafka: the {name} run's indexed vectors against a direct encode of their docs: {v}")
+    for name, c in checks.items():
+        if kafka_answers_fail(c, sizes.queries, KAFKA_SCORE_TOL):
+            fail(f"kafka: {name} answers against a direct encode and f32 scores: {c}")
+        if not c["topic_equals_subscriber"]:
+            fail(f"kafka: the {name} run's answers topic is not what its answers table held")
+    if sorted(topic_re) != rows or max(gap, res["answers_resumed_vs_unbroken"]["max_score_err"]) > KAFKA_SCORE_TOL:
+        fail(f"kafka: the resumed answers topic against the unbroken run's: {res['answers_resumed_vs_unbroken']}")
+    if s3_stats["rejected"] or not s3_stats["requests"].get("PUT"):
+        fail(f"kafka: the S3 endpoint: {s3_stats}")
+    expected = sum(seen_shapes.values())
+    if launches["encoder_attention"] != expected or not expected:
+        fail(f"kafka: attention launches {launches['encoder_attention']} != {expected} "
+             f"(layers x forwards per shape {seen_shapes})")
+    gen = torch.Generator(device=device).manual_seed(seed + 711)
+    for shape in sorted(set(seen_shapes) - set(checked)):
+        checked[shape] = check_attention_shape(gen, shape, device)
+    log("kafka", step="shapes", launches={str(list(sh)): n for sh, n in sorted(seen_shapes.items())},
+        max_abs_err={str(list(sh)): checked[sh] for sh in sorted(seen_shapes)})
+    return {"launches": launches, "attention_launches": dict(seen_shapes), "rail": rail, **res}
 
 
 # ---------------------------------------------------------------------------
@@ -8488,6 +9032,12 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         phases["observability"] = observability_phase(device, args.seed, checked)
         seconds["observability"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "kafka" not in skip:
+        t_phase = time.perf_counter()
+        phases["kafka"] = kafka_phase(device, args.seed, checked, card)
+        seconds["kafka"] = time.perf_counter() - t_phase
     gc.collect()
     torch.cuda.empty_cache()
     # last: its streaming fs reader polls on after the run, as the JAX package's does

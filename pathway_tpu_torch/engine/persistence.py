@@ -37,11 +37,11 @@ CLI drives it) and reports per-generation health without mutating anything.
 Backend selection mirrors ``python/pathway/persistence/__init__.py``:
 filesystem / mock (in-memory) / s3 (gated on client library presence).
 
-A copy of ``pathway_tpu/engine/persistence.py`` with one cut: the object
-stores ``S3Backend``, ``GcsBackend`` and ``AzureBackend`` reach clients the
-port brings in slice H6, so ``backend_from_config`` raises
-``NotImplementedError`` for those kinds until then.  Their shared retry
-logic (``_PrefixedObjectStore``) is here.  The lease, handoff, promote and
+A copy of ``pathway_tpu/engine/persistence.py``.  The object stores
+``S3Backend``, ``GcsBackend`` and ``AzureBackend`` sit on the shared retry
+logic of ``_PrefixedObjectStore`` and the standard-library clients of
+``io/_s3http.py`` (SigV4), ``io/_gcshttp.py`` (the JSON API) and
+``io/_azureblob.py`` (SharedKey).  The lease, handoff, promote and
 repartition functions are host code that the supervisor
 (``engine/supervisor.py``), the warm standby (``engine/standby.py``) and
 the multi-worker runner call.
@@ -1109,6 +1109,91 @@ class _PrefixedObjectStore(BlobBackend):
         raise NotImplementedError
 
 
+class S3Backend(_PrefixedObjectStore):
+    """Object-storage persistence (backends/s3.rs analog) over the signed
+    REST client in ``io/_s3http.py`` — works against AWS S3 and any
+    S3-compatible endpoint (MinIO)."""
+
+    @property
+    def _error_cls(self):
+        from pathway_tpu_torch.io._s3http import S3Error
+
+        return S3Error
+
+    def _put(self, key: str, data: bytes) -> None:
+        self.client.put_object(key, data)
+
+    def _get(self, key: str) -> bytes:
+        return self.client.get_object(key)
+
+    def _list(self, prefix: str) -> list[str]:
+        return [o["key"] for o in self.client.list_objects(prefix)]
+
+    def _delete(self, key: str) -> None:
+        self.client.delete_object(key)
+
+
+class GcsBackend(_PrefixedObjectStore):
+    """Google Cloud Storage persistence over the JSON-API client in
+    ``io/_gcshttp.py`` — the natural store for TPU-pod deployments (ambient
+    metadata-server identity, no key distribution)."""
+
+    @property
+    def _error_cls(self):
+        from pathway_tpu_torch.io._gcshttp import GcsError
+
+        return GcsError
+
+    def _put(self, key: str, data: bytes) -> None:
+        self.client.put_object(key, data)
+
+    def _get(self, key: str) -> bytes:
+        return self.client.get_object(key)
+
+    def _list(self, prefix: str) -> list[str]:
+        return self.client.list_objects(prefix)
+
+    def _delete(self, key: str) -> None:
+        self.client.delete_object(key)
+
+
+class AzureBackend(_PrefixedObjectStore):
+    """Azure Blob persistence over the SharedKey REST client in
+    ``io/_azureblob.py``."""
+
+    @property
+    def _error_cls(self):
+        from pathway_tpu_torch.io._azureblob import AzureBlobError
+
+        return AzureBlobError
+
+    def _put(self, key: str, data: bytes) -> None:
+        self.client.put_blob(key, data)
+
+    def _get(self, key: str) -> bytes:
+        return self.client.get_blob(key)
+
+    def _list(self, prefix: str) -> list[str]:
+        return list(self.client.list_blobs(prefix))
+
+    def _delete(self, key: str) -> None:
+        self.client.delete_blob(key)
+
+
+def _object_store_cfg(backend_cfg: Any) -> tuple[str, str, Any]:
+    """``(bucket_or_container, prefix, client_or_None)`` from a Backend cfg.
+
+    The root_path's ``scheme://bucket/prefix`` applies in BOTH construction
+    modes — a pre-built client with a diverging root_path prefix would
+    silently resume from a different object location.
+    """
+    path = getattr(backend_cfg, "path", "") or ""
+    rest = path.split("://", 1)[-1]
+    bucket, _, prefix = rest.partition("/")
+    prefix = getattr(backend_cfg, "prefix", "") or prefix
+    return bucket, prefix, getattr(backend_cfg, "client", None)
+
+
 def backend_from_config(backend_cfg: Any) -> BlobBackend:
     """Build an engine backend from the user-facing ``pw.persistence.Backend``."""
     kind = getattr(backend_cfg, "kind", None)
@@ -1117,12 +1202,41 @@ def backend_from_config(backend_cfg: Any) -> BlobBackend:
     if kind == "mock":
         store = getattr(backend_cfg, "store", None)
         return MemoryBackend(store if isinstance(store, dict) else {})
-    if kind in ("s3", "gcs", "azure"):
-        raise NotImplementedError(
-            f"the {kind} persistence backend needs the object-store clients "
-            "(io/_s3http.py, io/_gcshttp.py, io/_azureblob.py), which the port "
-            "brings in slice H6; use Backend.filesystem or Backend.mock"
-        )
+    if kind == "s3":
+        from pathway_tpu_torch.io._s3http import AwsS3Settings
+
+        settings = getattr(backend_cfg, "bucket_settings", None) or AwsS3Settings()
+        path = getattr(backend_cfg, "path", "") or ""
+        if path.startswith("s3://"):
+            rest = path[5:]
+            bucket, _, prefix = rest.partition("/")
+        else:
+            bucket, prefix = settings.bucket_name, path
+        return S3Backend(settings.client(bucket), prefix)
+    if kind == "gcs":
+        from pathway_tpu_torch.io._gcshttp import GcsClient
+
+        bucket, prefix, client = _object_store_cfg(backend_cfg)
+        if client is None:
+            client = GcsClient(
+                bucket,
+                token_provider=getattr(backend_cfg, "token_provider", None),
+                endpoint=getattr(backend_cfg, "endpoint", None),
+            )
+        return GcsBackend(client, prefix)
+    if kind == "azure":
+        from pathway_tpu_torch.io._azureblob import AzureBlobClient
+
+        container, prefix, client = _object_store_cfg(backend_cfg)
+        if client is None:
+            acct = getattr(backend_cfg, "account", None) or {}
+            client = AzureBlobClient(
+                acct.get("account_name", ""),
+                container,
+                account_key=acct.get("account_key", ""),
+                endpoint=acct.get("endpoint"),
+            )
+        return AzureBackend(client, prefix)
     raise ValueError(f"unknown persistence backend {backend_cfg!r}")
 
 

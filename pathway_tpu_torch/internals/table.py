@@ -619,7 +619,7 @@ class Table(Joinable):
         """
         raise NotImplementedError(
             "Table.live() needs the interactive mode, which the port brings "
-            "in slice H6 (internals/interactive.py)"
+            "in slice H6c (internals/interactive.py)"
         )
 
     @property

@@ -1,17 +1,37 @@
 """``pw.io`` — connectors (parity: python/pathway/io/__init__.py:3-31).
 
 The port's namespace: ``fs``, ``csv``, ``jsonlines``, ``plaintext``,
-``python``, ``http``, ``null`` and ``subscribe`` work, copied from the JAX
-package.  Every other connector of ``pathway_tpu/io`` is a stand-in here
-that raises ``NotImplementedError`` on use, naming slice H6, which brings
-it.
+``python``, ``http``, ``null`` and ``subscribe``, the message streams
+(``kafka``, ``redpanda``, ``debezium``, ``nats``, ``pubsub``) and the
+object stores (``s3``, ``minio``, ``s3_csv``, ``gdrive``, ``bigquery``)
+work, copied from the JAX package.  Every other connector of
+``pathway_tpu/io`` (the sinks and the data lakes) is a stand-in here that
+raises ``NotImplementedError`` on use, naming slice H6b, which brings it.
 """
 
 from __future__ import annotations
 
 import types
 
-from pathway_tpu_torch.io import csv, fs, http, jsonlines, null, plaintext, python
+from pathway_tpu_torch.io import (
+    bigquery,
+    csv,
+    debezium,
+    fs,
+    gdrive,
+    http,
+    jsonlines,
+    kafka,
+    minio,
+    nats,
+    null,
+    plaintext,
+    pubsub,
+    python,
+    redpanda,
+    s3,
+    s3_csv,
+)
 from pathway_tpu_torch.io._subscribe import (
     OnChangeCallback,
     OnFinishCallback,
@@ -39,26 +59,16 @@ class _LaterSlice(types.ModuleType):
         )
 
 
-airbyte = _LaterSlice("pw.io.airbyte", "slice H6")
-bigquery = _LaterSlice("pw.io.bigquery", "slice H6")
-debezium = _LaterSlice("pw.io.debezium", "slice H6")
-deltalake = _LaterSlice("pw.io.deltalake", "slice H6")
-elasticsearch = _LaterSlice("pw.io.elasticsearch", "slice H6")
-gdrive = _LaterSlice("pw.io.gdrive", "slice H6")
-iceberg = _LaterSlice("pw.io.iceberg", "slice H6")
-kafka = _LaterSlice("pw.io.kafka", "slice H6")
-logstash = _LaterSlice("pw.io.logstash", "slice H6")
-minio = _LaterSlice("pw.io.minio", "slice H6")
-mongodb = _LaterSlice("pw.io.mongodb", "slice H6")
-nats = _LaterSlice("pw.io.nats", "slice H6")
-postgres = _LaterSlice("pw.io.postgres", "slice H6")
-pubsub = _LaterSlice("pw.io.pubsub", "slice H6")
-pyfilesystem = _LaterSlice("pw.io.pyfilesystem", "slice H6")
-redpanda = _LaterSlice("pw.io.redpanda", "slice H6")
-s3 = _LaterSlice("pw.io.s3", "slice H6")
-s3_csv = _LaterSlice("pw.io.s3_csv", "slice H6")
-slack = _LaterSlice("pw.io.slack", "slice H6")
-sqlite = _LaterSlice("pw.io.sqlite", "slice H6")
+airbyte = _LaterSlice("pw.io.airbyte", "slice H6b")
+deltalake = _LaterSlice("pw.io.deltalake", "slice H6b")
+elasticsearch = _LaterSlice("pw.io.elasticsearch", "slice H6b")
+iceberg = _LaterSlice("pw.io.iceberg", "slice H6b")
+logstash = _LaterSlice("pw.io.logstash", "slice H6b")
+mongodb = _LaterSlice("pw.io.mongodb", "slice H6b")
+postgres = _LaterSlice("pw.io.postgres", "slice H6b")
+pyfilesystem = _LaterSlice("pw.io.pyfilesystem", "slice H6b")
+slack = _LaterSlice("pw.io.slack", "slice H6b")
+sqlite = _LaterSlice("pw.io.sqlite", "slice H6b")
 
 __all__ = [
     "airbyte",

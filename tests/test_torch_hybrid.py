@@ -4,7 +4,7 @@
 updates, removes and queries in both packages (three metrics, compaction,
 filters on the engine's ``Json``) and answer alike: BM25 bit for bit, HNSW
 ids equal and scores within 1e-6.  Where the JAX package's native core did
-not load in this worker (its build race, ROADMAP's "Two known flakes"),
+not load in this worker (its build race, ROADMAP's "Three known flakes"),
 the port's native index is held to the exact top-k at recall >= 0.9 and to
 its ``PyHnswIndex``'s self-match scores instead.  ``HybridIndex`` runs
 through ``DataIndex.query`` and ``query_as_of_now`` with retractions (its dense

@@ -181,7 +181,10 @@ def test_port_imports_nothing_of_jax(model_dir):
     block, recovers from a seeded crash; and the observability layer
     (``http_server``, ``probes``, ``profiler``, ``slo``, ``top``,
     ``monitoring``, ``license``) serves ``/metrics`` and ``/status`` during
-    a ``pw.run(with_http_server=True, monitoring_level=ALL)``."""
+    a ``pw.run(with_http_server=True, monitoring_level=ALL)``; and the
+    message streams and object stores: a ``pw.io.kafka.read`` over the
+    in-process broker persisted through ``Backend.s3`` to the SigV4
+    endpoint, and its resume."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -444,6 +447,34 @@ def test_port_imports_nothing_of_jax(model_dir):
         assert metrics_body.endswith("# EOF\\n") and "pathway_epoch_duration_ms_count" in metrics_body
         assert "pathway_freshness_e2e_ms_count" in metrics_body
         assert status["epochs"] >= 1 and {{"freshness", "backlog", "device", "slo"}} <= set(status), status
+        from pathway_tpu_torch.io import kafka as kafka_mod
+        from tests.torch_fake_services import KafkaBroker, S3Server, until_drained
+
+        broker, s3 = KafkaBroker(finite=True), S3Server()
+        broker.create_topic("words", 2)
+        kafka_mod._get_client = broker.get_client
+        kafka_mod._KafkaReader.run = until_drained(kafka_mod._KafkaReader.run)
+        bucket = pt.io.s3.AwsS3Settings(access_key=s3.access_key, secret_access_key=s3.secret_key,
+                                        endpoint=s3.endpoint, with_path_style=True)
+        persisted = pt.persistence.Config(pt.persistence.Backend.s3("s3://pathway/run", bucket))
+
+        def word_counts(messages):
+            for key, w in messages:
+                broker.produce("words", w.encode(), key=str(key).encode())
+            net = {{}}
+            t = pt.io.kafka.read({{"bootstrap.servers": "x", "group.id": "g", "auto.offset.reset": "earliest"}},
+                                 "words", format="plaintext", autocommit_duration_ms=20, name="words")
+            t.groupby(pt.this.data).reduce(w=pt.this.data, n=pt.reducers.count())._subscribe_raw(
+                lambda key, row, time, diff: net.__setitem__(row, net.get(row, 0) + diff))
+            pt.run(monitoring_level=pt.MonitoringLevel.NONE, persistence_config=persisted)
+            pt.G.clear()
+            return sorted(r for r, n in net.items() if n)
+
+        assert word_counts([(0, "a"), (1, "b"), (2, "a"), (3, "b")]) == [("a", 2), ("b", 2)]
+        # resumed from the bucket: key 1 is replaced by its new message
+        assert word_counts([(4, "a"), (1, "c")]) == [("a", 3), ("b", 1), ("c", 1)]
+        assert s3.stats()["requests"]["PUT"] and not s3.stats()["rejected"]
+        s3.close()
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -12,9 +12,9 @@ one's Pallas attention in interpret mode) with its documents from
 (``tests/test_attention_kernel.py:119``), distances within 3e-3 (two
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
 retrieved texts equal but at ties within it.  Each deferred entry point
-raises ``NotImplementedError`` naming its slice (the object-store
-backends need the clients of slice H6); the CLI's ``replay``, which slice
-H4b brought, runs its program under the replay env.
+raises ``NotImplementedError`` naming its slice (the sinks and data lakes
+come in slice H6b, ``Table.live()`` in H6c); the CLI's ``replay``, which
+slice H4b brought, runs its program under the replay env.
 """
 
 from __future__ import annotations
@@ -198,9 +198,8 @@ def deferred(name: str):
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
-        "persistence_gcs": lambda: __import__("pathway_tpu_torch.engine.persistence").engine.persistence
-        .backend_from_config(tpw.persistence.Backend.gcs("gs://b/p")),
-        "io.kafka": lambda: tpw.io.kafka.read,
+        "io.postgres": lambda: tpw.io.postgres.write,
+        "table.live": lambda: tpw.debug.table_from_markdown("v\n1").live(),
     }
     with pytest.raises(NotImplementedError) as err:
         calls[name]()
@@ -229,7 +228,7 @@ def replays(tmp_path, monkeypatch) -> int:
 
 
 @pytest.mark.parametrize("name,later", [
-    ("cli_replay", None), ("persistence_gcs", "slice H6"), ("io.kafka", "slice H6"),
+    ("cli_replay", None), ("io.postgres", "slice H6b"), ("table.live", "slice H6c"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later, tmp_path, monkeypatch):
     if later is None:  # brought by slice H4b: runs now

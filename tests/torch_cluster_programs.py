@@ -40,24 +40,60 @@ WORDS = (
 ).split()
 
 
-def free_port_base(n: int) -> int:
-    """The first of ``n`` consecutive free localhost ports (best effort)."""
-    socks = []
+def _ephemeral_range() -> tuple[int, int]:
     try:
-        base = None
-        for _ in range(20):
-            s = socket.socket()
-            s.bind(("127.0.0.1", 0))
-            socks.append(s)
-        ports = sorted(s.getsockname()[1] for s in socks)
-        for i in range(len(ports) - n):
-            if ports[i + n - 1] - ports[i] == n - 1:
-                base = ports[i]
-                break
-        return base or ports[0]
-    finally:
-        for s in socks:
-            s.close()
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
+def _port_slice(n: int) -> tuple[int, int]:
+    """The ports this test process draws from: below the kernel's
+    ephemeral range, and under pytest-xdist a slice of it of its own."""
+    lo, top = 20000, _ephemeral_range()[0] - n
+    if top <= lo:
+        return 1024, 65535 - n
+    worker, count = os.environ.get("PYTEST_XDIST_WORKER", ""), os.environ.get("PYTEST_XDIST_WORKER_COUNT", "")
+    if worker.startswith("gw") and worker[2:].isdigit() and count.isdigit() and int(count) > int(worker[2:]):
+        width = (top - lo) // int(count)
+        if width > 4 * n:
+            lo += int(worker[2:]) * width
+            top = lo + width - n
+    return lo, top
+
+
+def free_port_base(n: int) -> int:
+    """The first of ``n`` consecutive localhost ports, each bound once here
+    and free.  The base is drawn below the kernel's ephemeral range, so no
+    outgoing connection of a concurrent test takes one of the ports
+    between this probe and the workers' bind, and from this xdist worker's
+    own slice of it, so no concurrent test of another worker draws them
+    either (``bind(0)`` hands out ports of one parity only on recent
+    kernels, so a run of ``n`` is never among its answers, and the ports
+    past the first would go unprobed)."""
+    import random
+
+    lo, top = _port_slice(n)
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(lo, top)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                # the mesh's listener sets SO_REUSEADDR (socket.create_server)
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free localhost ports in {lo}..{top}")
 
 
 def canonical_bytes(tmpdir, name: str = "counts.jsonl", workers: int = 4) -> bytes:
