@@ -26,9 +26,11 @@ expressions, ``reducers``, ``groupby``, the joins, ``iterate``, ``udf``
 with its executors and caches, ``run`` and ``debug``, over the incremental
 dataflow of ``engine/dataflow.py`` and its native C++ core (``native/``).
 A UDF that calls an encoder (through ``AsyncMicroBatcher``) runs the
-encoder's kernels inside the dataflow.  ``pw.io`` holds the streaming
-connectors (``fs``, ``csv``, ``jsonlines``, ``plaintext``, ``python``,
-``subscribe``), ``pw.indexing`` the Table-API indexes (``DataIndex`` over
+encoder's kernels inside the dataflow.  ``pw.io`` holds the connectors
+(files, ``python``, ``subscribe``, the message streams, the object
+stores, and the sinks and lakes: Postgres, SQLite, MongoDB,
+Elasticsearch, Logstash, Slack, Delta, Iceberg, Airbyte, pyfilesystem),
+``pw.indexing`` the Table-API indexes (``DataIndex`` over
 ``BruteForceKnn`` on the device, or the host's HNSW, BM25 and their
 reciprocal-rank fusion), ``pw.ml``, ``pw.stateful``, ``pw.statistical``,
 ``pw.ordered`` and ``pw.utils`` the small modules of the standard library,

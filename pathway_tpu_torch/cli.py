@@ -1182,6 +1182,16 @@ def main(argv: list[str] | None = None) -> int:
                          help="emit the report as JSON")
     buckets.add_argument("root", nargs="?", default=None)
 
+    airbyte = commands.add_parser("airbyte", help="Airbyte connection configs")
+    airbyte_commands = airbyte.add_subparsers(dest="airbyte_command", required=True)
+    create_source = airbyte_commands.add_parser(
+        "create-source",
+        help="scaffold an Airbyte connection config (requires docker at runtime)",
+    )
+    create_source.add_argument("connection")
+    create_source.add_argument("--image", default="airbyte/source-faker:0.1.4",
+                               help="public Airbyte source Docker image")
+
     args = parser.parse_args(argv)
     if args.command == "spawn":
         _spawn(args)
@@ -1207,11 +1217,22 @@ def main(argv: list[str] | None = None) -> int:
             parser.error(f"ROOT {args.root!r} is not a directory")
         return _buckets(args.url, args.port, args.process_id, args.max_buckets,
                         args.as_json, args.root)
+    if args.command == "airbyte":
+        return _create_source(args.connection, args.image)
     if not os.path.isdir(args.root):
         parser.error(f"ROOT {args.root!r} is not a directory")
     if args.command == "blackbox":
         return _blackbox(args.worker, args.tail, args.as_json, args.root)
     return _scrub(args.worker, args.as_json, args.repair, args.root)
+
+
+def _create_source(connection: str, image: str) -> int:
+    """Scaffold an Airbyte connection config (``airbyte create-source``)."""
+    from pathway_tpu_torch.io.airbyte import write_connection_scaffold
+
+    path = write_connection_scaffold(connection, image)
+    _echo(f"Connection `{connection}` with source `{image}` created at {path}")
+    return 0
 
 
 def _positive_int(text: str) -> int:

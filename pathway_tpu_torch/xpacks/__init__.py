@@ -1,1 +1,2 @@
-"""xpacks of the port: the LLM toolkit's retrieval half (``llm``)."""
+"""xpacks of the port: the LLM toolkit's retrieval half (``llm``) and the
+enterprise-gated connectors (``connectors``)."""

@@ -184,7 +184,9 @@ def test_port_imports_nothing_of_jax(model_dir):
     a ``pw.run(with_http_server=True, monitoring_level=ALL)``; and the
     message streams and object stores: a ``pw.io.kafka.read`` over the
     in-process broker persisted through ``Backend.s3`` to the SigV4
-    endpoint, and its resume."""
+    endpoint, and its resume; and the sinks and lakes (every ``pw.io``
+    module and the SharePoint xpack import): a ``pw.io.sqlite.read`` into
+    ``pw.io.postgres.write_snapshot`` over SCRAM to the fake Postgres."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -475,6 +477,21 @@ def test_port_imports_nothing_of_jax(model_dir):
         assert word_counts([(4, "a"), (1, "c")]) == [("a", 3), ("b", 1), ("c", 1)]
         assert s3.stats()["requests"]["PUT"] and not s3.stats()["rejected"]
         s3.close()
+        import sqlite3
+        from pathway_tpu_torch.xpacks.connectors import sharepoint  # noqa: F401
+        from tests.torch_fake_services import PgServer
+
+        db, pg = os.path.join({str(model_dir)!r}, "logs.db"), PgServer(user="u", password="p")
+        with sqlite3.connect(db) as conn:
+            conn.execute("CREATE TABLE IF NOT EXISTS t (g TEXT)")
+            conn.executemany("INSERT INTO t VALUES (?)", [("a",), ("b",), ("a",)])
+        logs = pt.io.sqlite.read(db, "t", pt.schema_from_types(g=str), mode="static")
+        pt.io.postgres.write_snapshot(logs.groupby(pt.this.g).reduce(pt.this.g, n=pt.reducers.count()),
+                                      {{"host": "127.0.0.1", "port": pg.port, "user": "u", "password": "p"}},
+                                      "counts", ["g"], init_mode="create_if_not_exists")
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        pt.G.clear()
+        assert pg.rows("counts") == [("a", 2), ("b", 1)] and not pg.stats()["rejected"], pg.rows("counts")
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -11,10 +11,11 @@ one's Pallas attention in interpret mode) with its documents from
 ``pw.io.fs.read`` of a directory of 36 files: embeddings at cosine > 0.999
 (``tests/test_attention_kernel.py:119``), distances within 3e-3 (two
 bf16 encoders at that cosine part here by up to 1.48e-3 on the CPU) and
-retrieved texts equal but at ties within it.  Each deferred entry point
-raises ``NotImplementedError`` naming its slice (the sinks and data lakes
-come in slice H6b, ``Table.live()`` in H6c); the CLI's ``replay``, which
-slice H4b brought, runs its program under the replay env.
+retrieved texts equal but at ties within it.  ``Table.live()`` raises
+``NotImplementedError`` naming slice H6c, which brings it; the CLI's
+``replay``, which slice H4b brought, runs its program under the replay
+env, and ``pw.io.postgres.write``, which slice H6b brought, sends the JAX
+package's statements to ``tests/torch_fake_services.py``'s Postgres.
 """
 
 from __future__ import annotations
@@ -198,7 +199,6 @@ def deferred(name: str):
     from pathway_tpu_torch.xpacks import llm
 
     calls = {
-        "io.postgres": lambda: tpw.io.postgres.write,
         "table.live": lambda: tpw.debug.table_from_markdown("v\n1").live(),
     }
     with pytest.raises(NotImplementedError) as err:
@@ -227,11 +227,32 @@ def replays(tmp_path, monkeypatch) -> int:
     return done.value.code
 
 
+def postgres_statements(pw) -> list[str]:
+    """``pw.io.postgres.write`` (slice H6b) of an update stream to a fresh
+    fake Postgres: the statements it received."""
+    from tests.torch_fake_services import PgServer
+
+    srv = PgServer(auth="scram", user="u", password="p")
+    t = pw.debug.table_from_markdown("k | v | _time | _diff\n1 | a | 2 | 1\n1 | a | 4 | -1\n1 | b | 4 | 1")
+    pw.io.postgres.write(t, {"host": "127.0.0.1", "port": srv.port, "user": "u", "password": "p"}, "t",
+                         init_mode="create_if_not_exists")
+    try:
+        pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    finally:
+        pw.G.clear()
+        srv.close()
+    return srv.statements
+
+
 @pytest.mark.parametrize("name,later", [
-    ("cli_replay", None), ("io.postgres", "slice H6b"), ("table.live", "slice H6c"),
+    ("cli_replay", None), ("io.postgres", None), ("table.live", "slice H6c"),
 ])
 def test_deferred_entry_points_raise_naming_their_slice(name, later, tmp_path, monkeypatch):
-    if later is None:  # brought by slice H4b: runs now
+    if name == "cli_replay":  # brought by slice H4b: runs now
         assert replays(tmp_path, monkeypatch) == 0
+        return
+    if name == "io.postgres":  # brought by slice H6b: sends JAX's statements
+        statements = [postgres_statements(pw) for pw in PACKAGES]
+        assert statements[1] == statements[0] and len(statements[0]) == 8
         return
     assert later in deferred(name)

@@ -21,15 +21,42 @@ and the source finishes, so a test run over pre-produced topics ends.
 127.0.0.1 and verifies every request's SigV4 ``Authorization`` header by
 recomputing it from the request (AWS's published signing steps): a bad or
 missing signature is answered 403.  It counts requests and bytes.
+
+The sinks' servers, each on 127.0.0.1, count sessions or requests and
+bytes and keep their net state:
+
+- ``PgServer`` speaks the PostgreSQL v3 protocol: startup, then trust,
+  MD5 or SCRAM-SHA-256 (RFC 5802/7677: it verifies the client's proof
+  and signs its final message, so a client that checks the server
+  signature is held to it), then simple queries.  Each statement runs in
+  an in-memory ``sqlite3`` database (``::type`` casts stripped), so a
+  table's rows are its net state; a transaction holds the database from
+  ``BEGIN`` to ``COMMIT`` and a failed statement aborts it, as in
+  PostgreSQL.  A wrong password or proof is answered ``28P01``.
+- ``MongoServer`` speaks OP_MSG with its own BSON codec: SCRAM-SHA-256
+  (``saslStart``/``saslContinue``, the proof verified, the server
+  signature sent) when made with a user, then ``insert`` and ``delete``
+  on documents by ``_id``.  A command before authentication is refused
+  (code 13), a duplicate ``_id`` is a write error (11000).
+- ``EsServer`` serves ``POST /<index>/_bulk``: NDJSON ``index`` and
+  ``delete`` actions on documents by id, behind HTTP basic auth (or an
+  API key); a wrong ``Authorization`` is answered 401.
+- ``LogstashServer`` takes JSON bodies by POST on any path and keeps them.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import datetime
 import hashlib
 import hmac
 import http.server
+import json
+import re
+import socket
+import sqlite3
+import struct
 import threading
 import time
 import urllib.parse
@@ -411,3 +438,524 @@ class S3Server:
     def close(self) -> None:
         self.httpd.shutdown()
         self.httpd.server_close()
+
+
+# ---------------------------------------------------------------------------
+# The sinks: PostgreSQL, MongoDB, Elasticsearch, Logstash
+# ---------------------------------------------------------------------------
+
+
+def _recv_exact(conn: socket.socket, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = conn.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("client closed")
+        buf += chunk
+    return buf
+
+
+def scram_server_keys(password: str, salt: bytes, iters: int) -> tuple[bytes, bytes, bytes]:
+    """RFC 5802's ``ClientKey``, ``StoredKey`` and ``ServerKey``."""
+    salted = hashlib.pbkdf2_hmac("sha256", password.encode(), salt, iters)
+    client_key = hmac.digest(salted, b"Client Key", "sha256")
+    return client_key, hashlib.sha256(client_key).digest(), hmac.digest(salted, b"Server Key", "sha256")
+
+
+def scram_verify(stored_key: bytes, auth_message: bytes, proof: bytes) -> bool:
+    """Whether ``proof`` is the client proof of ``auth_message``: the
+    client key it carries hashes to ``stored_key``."""
+    signature = hmac.digest(stored_key, auth_message, "sha256")
+    client_key = bytes(a ^ b for a, b in zip(proof, signature))
+    return len(proof) == 32 and hmac.compare_digest(hashlib.sha256(client_key).digest(), stored_key)
+
+
+class _Listener:
+    """A TCP listener on 127.0.0.1 with a thread a connection."""
+
+    def __init__(self):
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(16)
+        self.port = self.sock.getsockname()[1]
+        self.lock = threading.RLock()
+        self.sessions = self.authenticated = self.rejected = 0
+        self.bytes_in = self.bytes_out = 0
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            with self.lock:
+                self.sessions += 1
+            threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
+
+    def _serve(self, conn):
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)  # as the real servers do
+        try:
+            self.handle(conn)
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            conn.close()
+
+    def _recv(self, conn, n: int) -> bytes:
+        data = _recv_exact(conn, n)
+        with self.lock:
+            self.bytes_in += n
+        return data
+
+    def _send(self, conn, data: bytes) -> None:
+        conn.sendall(data)
+        with self.lock:
+            self.bytes_out += len(data)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+_CAST = re.compile(r"('(?:[^']|'')*')::\w+")
+
+
+class PgServer(_Listener):
+    """PostgreSQL's v3 protocol for one user (``auth`` ``"trust"``,
+    ``"md5"`` or ``"scram"``) over an in-memory ``sqlite3`` database."""
+
+    SALT, ITERS = b"pathway-fake-pg!", 4096
+
+    def __init__(self, auth: str = "scram", user: str = "pathway", password: str = "secret", on_commit=None):
+        self.auth, self.user, self.password = auth, user, password
+        self.on_commit = on_commit  # called as on_commit(server) after each COMMIT, the database held
+        self.db = sqlite3.connect(":memory:", check_same_thread=False, isolation_level=None)
+        self.db_lock = threading.Lock()  # a transaction holds it from BEGIN to its end
+        self.statements: list[str] = []
+        self.errors: list[str] = []
+        self.transactions = 0
+        super().__init__()
+
+    # -- the database, from the test's side --------------------------------
+    def execute(self, sql: str) -> list[tuple]:
+        with self.db_lock:
+            return self.db.execute(_CAST.sub(r"\1", sql)).fetchall()
+
+    def rows(self, table: str) -> list[tuple]:
+        """The table's net rows, sorted."""
+        return sorted(self.execute(f'SELECT * FROM "{table}"'), key=repr)
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"sessions": self.sessions, "authenticated": self.authenticated, "rejected": self.rejected,
+                    "statements": len(self.statements), "transactions": self.transactions,
+                    "errors": len(self.errors), "bytes_in": self.bytes_in, "bytes_out": self.bytes_out}
+
+    # -- the protocol --------------------------------------------------------
+    def _msg(self, conn) -> tuple[bytes, bytes]:
+        tag = self._recv(conn, 1)
+        (n,) = struct.unpack("!I", self._recv(conn, 4))
+        return tag, self._recv(conn, n - 4)
+
+    def _out(self, conn, tag: bytes, payload: bytes = b"") -> None:
+        self._send(conn, tag + struct.pack("!I", len(payload) + 4) + payload)
+
+    def _error(self, conn, code: str, message: str, fatal: bool = False) -> None:
+        severity = b"FATAL" if fatal else b"ERROR"
+        self._out(conn, b"E", b"S" + severity + b"\0C" + code.encode() + b"\0M" + message.encode() + b"\0\0")
+
+    def _login(self, conn) -> bool:
+        (n,) = struct.unpack("!I", self._recv(conn, 4))
+        body = self._recv(conn, n - 4)
+        parts = body[4:].split(b"\0")
+        params = dict(zip(parts[0::2], parts[1::2]))
+        if struct.unpack("!I", body[:4])[0] != 196608 or params.get(b"user", b"").decode() != self.user:
+            self._error(conn, "28000", "unknown user or protocol", fatal=True)
+            return False
+        if self.auth == "md5":
+            salt = b"pwfk"
+            self._out(conn, b"R", struct.pack("!I", 5) + salt)
+            _tag, payload = self._msg(conn)
+            inner = hashlib.md5(self.password.encode() + self.user.encode()).hexdigest()
+            if payload.rstrip(b"\0").decode() != "md5" + hashlib.md5(inner.encode() + salt).hexdigest():
+                self._error(conn, "28P01", "password authentication failed", fatal=True)
+                return False
+        elif self.auth == "scram":
+            self._out(conn, b"R", struct.pack("!I", 10) + b"SCRAM-SHA-256\0\0")
+            _tag, payload = self._msg(conn)
+            mech, _, rest = payload.partition(b"\0")
+            (mlen,) = struct.unpack("!I", rest[:4])
+            client_first = rest[4 : 4 + mlen].decode()
+            if mech != b"SCRAM-SHA-256" or not client_first.startswith("n,,"):
+                self._error(conn, "28000", "bad SASL start", fatal=True)
+                return False
+            client_bare = client_first[3:]
+            nonce = dict(kv.split("=", 1) for kv in client_bare.split(","))["r"] + "fakepg"
+            server_first = f"r={nonce},s={base64.b64encode(self.SALT).decode()},i={self.ITERS}"
+            self._out(conn, b"R", struct.pack("!I", 11) + server_first.encode())
+            _tag, payload = self._msg(conn)
+            without_proof, _, proof = payload.decode().rpartition(",p=")
+            _ck, stored, server_key = scram_server_keys(self.password, self.SALT, self.ITERS)
+            auth_message = ",".join([client_bare, server_first, without_proof]).encode()
+            if without_proof != f"c=biws,r={nonce}" or not scram_verify(stored, auth_message, base64.b64decode(proof)):
+                self._error(conn, "28P01", "password authentication failed", fatal=True)
+                return False
+            signature = hmac.digest(server_key, auth_message, "sha256")
+            self._out(conn, b"R", struct.pack("!I", 12) + b"v=" + base64.b64encode(signature))
+        self._out(conn, b"R", struct.pack("!I", 0))
+        self._out(conn, b"S", b"server_version\x0016.0\0")
+        self._out(conn, b"Z", b"I")
+        return True
+
+    def handle(self, conn) -> None:
+        if not self._login(conn):
+            with self.lock:
+                self.rejected += 1
+            return
+        with self.lock:
+            self.authenticated += 1
+        state = "I"  # I idle, T in a transaction, E in a failed one
+        try:
+            while True:
+                tag, payload = self._msg(conn)
+                if tag == b"X":
+                    return
+                if tag != b"Q":
+                    self._error(conn, "08P01", f"unexpected message {tag!r}")
+                    self._out(conn, b"Z", state.encode())
+                    continue
+                sql = payload.rstrip(b"\0").decode()
+                with self.lock:
+                    self.statements.append(sql)
+                state = self._query(conn, sql, state)
+                self._out(conn, b"Z", state.encode())
+        finally:
+            if state != "I":
+                self.db.execute("ROLLBACK")
+                self.db_lock.release()
+
+    def _query(self, conn, sql: str, state: str) -> str:
+        word = sql.split(None, 1)[0].upper() if sql.strip() else ""
+        if word == "BEGIN":
+            if state == "I":
+                self.db_lock.acquire()
+                self.db.execute("BEGIN")
+            self._out(conn, b"C", b"BEGIN\0")
+            return "T" if state == "I" else state
+        if word in ("COMMIT", "ROLLBACK"):
+            if state == "I":
+                self._out(conn, b"C", word.encode() + b"\0")
+                return "I"
+            committed = word == "COMMIT" and state == "T"
+            try:
+                self.db.execute("COMMIT" if committed else "ROLLBACK")
+                if committed:
+                    with self.lock:
+                        self.transactions += 1
+                    if self.on_commit is not None:
+                        self.on_commit(self)
+            finally:
+                self.db_lock.release()
+            self._out(conn, b"C", (b"COMMIT" if committed else b"ROLLBACK") + b"\0")
+            return "I"
+        if state == "E":
+            self._error(conn, "25P02", "current transaction is aborted, commands ignored until end of transaction block")
+            return "E"
+        try:
+            if state == "I":
+                with self.db_lock:
+                    cur = self.db.execute(_CAST.sub(r"\1", sql))
+                    rows = cur.fetchall()
+            else:
+                cur = self.db.execute(_CAST.sub(r"\1", sql))
+                rows = cur.fetchall()
+        except sqlite3.Error as exc:
+            with self.lock:
+                self.errors.append(f"{sql[:200]}: {exc}")
+            self._error(conn, "42601" if isinstance(exc, sqlite3.OperationalError) else "23505", str(exc))
+            return "E" if state == "T" else state
+        if cur.description:
+            names = b"".join(d[0].encode() + b"\0" + struct.pack("!IhIhih", 0, 0, 25, -1, -1, 0)
+                             for d in cur.description)
+            self._out(conn, b"T", struct.pack("!H", len(cur.description)) + names)
+            for row in rows:
+                cells = b"".join(struct.pack("!i", -1) if v is None else
+                                 struct.pack("!i", len(str(v).encode())) + str(v).encode() for v in row)
+                self._out(conn, b"D", struct.pack("!H", len(row)) + cells)
+            done = f"SELECT {len(rows)}"
+        elif word == "INSERT":
+            done = f"INSERT 0 {cur.rowcount}"
+        else:
+            done = f"{word} {max(cur.rowcount, 0)}" if word in ("DELETE", "UPDATE") else word
+        self._out(conn, b"C", done.encode() + b"\0")
+        return state
+
+
+# -- BSON (the spec's subset a row sink and SCRAM use) ----------------------
+
+
+def bson_encode(doc: dict) -> bytes:
+    out = b""
+    for k, v in doc.items():
+        key = k.encode() + b"\0"
+        if v is None:
+            out += b"\x0a" + key
+        elif isinstance(v, bool):
+            out += b"\x08" + key + (b"\x01" if v else b"\x00")
+        elif isinstance(v, int):
+            out += (b"\x10" + key + struct.pack("<i", v)) if -(2**31) <= v < 2**31 else \
+                (b"\x12" + key + struct.pack("<q", v))
+        elif isinstance(v, float):
+            out += b"\x01" + key + struct.pack("<d", v)
+        elif isinstance(v, str):
+            data = v.encode() + b"\0"
+            out += b"\x02" + key + struct.pack("<i", len(data)) + data
+        elif isinstance(v, bytes):
+            out += b"\x05" + key + struct.pack("<i", len(v)) + b"\x00" + v
+        elif isinstance(v, dict):
+            out += b"\x03" + key + bson_encode(v)
+        elif isinstance(v, (list, tuple)):
+            out += b"\x04" + key + bson_encode({str(i): x for i, x in enumerate(v)})
+        else:
+            raise TypeError(f"bson_encode: {type(v).__name__}")
+    return struct.pack("<i", len(out) + 5) + out + b"\0"
+
+
+def bson_decode(buf: bytes, pos: int = 0) -> tuple[dict, int]:
+    (total,) = struct.unpack_from("<i", buf, pos)
+    end, pos, doc = pos + total - 1, pos + 4, {}
+    while pos < end:
+        t = buf[pos]
+        zero = buf.index(b"\0", pos + 1)
+        key, pos = buf[pos + 1 : zero].decode(), zero + 1
+        if t == 0x01:
+            (doc[key],), pos = struct.unpack_from("<d", buf, pos), pos + 8
+        elif t == 0x02:
+            (n,) = struct.unpack_from("<i", buf, pos)
+            doc[key], pos = buf[pos + 4 : pos + 3 + n].decode(), pos + 4 + n
+        elif t in (0x03, 0x04):
+            sub, pos = bson_decode(buf, pos)
+            doc[key] = [sub[str(i)] for i in range(len(sub))] if t == 0x04 else sub
+        elif t == 0x05:
+            (n,) = struct.unpack_from("<i", buf, pos)
+            doc[key], pos = buf[pos + 5 : pos + 5 + n], pos + 5 + n
+        elif t == 0x08:
+            doc[key], pos = buf[pos] == 1, pos + 1
+        elif t == 0x09:
+            (ms,) = struct.unpack_from("<q", buf, pos)
+            doc[key], pos = datetime.datetime.fromtimestamp(ms / 1000, tz=datetime.timezone.utc), pos + 8
+        elif t == 0x0A:
+            doc[key] = None
+        elif t == 0x10:
+            (doc[key],), pos = struct.unpack_from("<i", buf, pos), pos + 4
+        elif t == 0x12:
+            (doc[key],), pos = struct.unpack_from("<q", buf, pos), pos + 8
+        else:
+            raise ValueError(f"bson_decode: type 0x{t:02x}")
+    return doc, end + 1
+
+
+class MongoServer(_Listener):
+    """OP_MSG commands on collections of documents by ``_id``; SCRAM-SHA-256
+    for ``user`` (on its ``auth_db``) when one is given."""
+
+    SALT, ITERS = b"pathway-fake-mongo", 4096
+
+    def __init__(self, user: str | None = None, password: str = "", auth_db: str = "admin"):
+        self.user, self.password, self.auth_db = user, password, auth_db
+        self.collections: dict[tuple[str, str], dict] = {}
+        self.commands: list[dict] = []
+        self.requests = 0
+        super().__init__()
+
+    def documents(self, db: str, collection: str) -> dict:
+        with self.lock:
+            return dict(self.collections.get((db, collection), {}))
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"sessions": self.sessions, "authenticated": self.authenticated, "rejected": self.rejected,
+                    "requests": self.requests, "commands": collections.Counter(next(iter(c)) for c in self.commands),
+                    "bytes_in": self.bytes_in, "bytes_out": self.bytes_out}
+
+    def handle(self, conn) -> None:
+        session = {"authed": self.user is None}
+        while True:
+            length, req_id, _to, opcode = struct.unpack("<iiii", self._recv(conn, 16))
+            payload = self._recv(conn, length - 16)
+            if opcode != 2013 or payload[4] != 0:
+                raise ConnectionError(f"unexpected opcode {opcode}")
+            doc, _ = bson_decode(payload, 5)
+            with self.lock:
+                self.requests += 1
+                self.commands.append(doc)
+            reply = self._command(doc, session)
+            body = struct.pack("<I", 0) + b"\x00" + bson_encode(reply)
+            self._send(conn, struct.pack("<iiii", 16 + len(body), req_id + 1000, req_id, 2013) + body)
+
+    def _command(self, doc: dict, session: dict) -> dict:
+        name = next(iter(doc))
+        if name == "saslStart":
+            client_first = bytes(doc["payload"]).decode()
+            bare = client_first[3:]
+            fields = dict(kv.split("=", 1) for kv in bare.split(","))
+            if doc.get("mechanism") != "SCRAM-SHA-256" or fields.get("n") != self.user or doc["$db"] != self.auth_db:
+                return self._refuse("bad saslStart", 18)
+            nonce = fields["r"] + "fakemongo"
+            server_first = f"r={nonce},s={base64.b64encode(self.SALT).decode()},i={self.ITERS}"
+            session.update(bare=bare, server_first=server_first, nonce=nonce)
+            return {"conversationId": 1, "done": False, "payload": server_first.encode(), "ok": 1.0}
+        if name == "saslContinue":
+            if "server_first" not in session:
+                return self._refuse("no SASL conversation", 17)
+            if session.get("signed"):  # the client's closing empty step
+                session["authed"] = True
+                with self.lock:
+                    self.authenticated += 1
+                return {"conversationId": 1, "done": True, "payload": b"", "ok": 1.0}
+            final = bytes(doc["payload"]).decode()
+            without_proof, _, proof = final.rpartition(",p=")
+            _ck, stored, server_key = scram_server_keys(self.password, self.SALT, self.ITERS)
+            auth_message = ",".join([session["bare"], session["server_first"], without_proof]).encode()
+            if without_proof != f"c=biws,r={session['nonce']}" or not scram_verify(stored, auth_message,
+                                                                                    base64.b64decode(proof)):
+                return self._refuse("Authentication failed.", 18)
+            session["signed"] = True
+            signature = base64.b64encode(hmac.digest(server_key, auth_message, "sha256"))
+            return {"conversationId": 1, "done": False, "payload": b"v=" + signature, "ok": 1.0}
+        if not session["authed"]:
+            return self._refuse(f"command {name} requires authentication", 13)
+        coll = (doc["$db"], doc[name])
+        with self.lock:
+            docs = self.collections.setdefault(coll, {}) if name in ("insert", "delete") else {}
+            if name == "insert":
+                errors = []
+                for i, d in enumerate(doc["documents"]):
+                    if d["_id"] in docs:
+                        errors.append({"index": i, "code": 11000, "errmsg": f"E11000 duplicate key {d['_id']}"})
+                    else:
+                        docs[d["_id"]] = d
+                reply = {"n": len(doc["documents"]) - len(errors), "ok": 1.0}
+                return dict(reply, writeErrors=errors) if errors else reply
+            if name == "delete":
+                n = sum(docs.pop(q["q"]["_id"], None) is not None for q in doc["deletes"])
+                return {"n": n, "ok": 1.0}
+        return {"ok": 1.0}
+
+    def _refuse(self, message: str, code: int) -> dict:
+        with self.lock:
+            self.rejected += 1
+        return {"ok": 0.0, "errmsg": message, "code": code}
+
+
+class _HttpFake:
+    """A ``ThreadingHTTPServer`` on 127.0.0.1 that counts requests and bytes."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.requests = self.rejected = self.bytes_in = self.bytes_out = 0
+        self.log: list[tuple[float, str, bytes]] = []  # (perf_counter at receipt, path, body)
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True  # as the real servers do
+
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n)
+                with server.lock:
+                    server.requests += 1
+                    server.bytes_in += len(body)
+                status, out = server.post(self.path, self.headers, body)
+                with server.lock:
+                    server.bytes_out += len(out)
+                    if status >= 400:
+                        server.rejected += 1
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+        self.endpoint = f"http://127.0.0.1:{self.port}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def stats(self) -> dict:
+        with self.lock:
+            return {"requests": self.requests, "rejected": self.rejected,
+                    "bytes_in": self.bytes_in, "bytes_out": self.bytes_out}
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+class EsServer(_HttpFake):
+    """Elasticsearch's ``_bulk`` API behind basic auth for ``user`` (or the
+    API key ``api_key`` as ``(id, key)``)."""
+
+    def __init__(self, user: str = "elastic", password: str = "secret", api_key: tuple | None = None):
+        token = f"{api_key[0]}:{api_key[1]}" if api_key else f"{user}:{password}"
+        self.authorization = ("ApiKey " if api_key else "Basic ") + base64.b64encode(token.encode()).decode()
+        self.indices: dict[str, dict] = {}
+        self.actions: collections.Counter = collections.Counter()
+        super().__init__()
+
+    def documents(self, index: str) -> dict:
+        with self.lock:
+            return dict(self.indices.get(index, {}))
+
+    def stats(self) -> dict:
+        return dict(super().stats(), actions=dict(self.actions))
+
+    def post(self, path: str, headers, body: bytes) -> tuple[int, bytes]:
+        if not hmac.compare_digest(headers.get("Authorization") or "", self.authorization):
+            return 401, b'{"error": "security_exception", "status": 401}'
+        index, _, op = path.lstrip("/").partition("/")
+        if op != "_bulk" or headers.get("Content-Type") != "application/x-ndjson":
+            return 400, b'{"error": "only NDJSON _bulk is served", "status": 400}'
+        lines = [json.loads(line) for line in body.splitlines() if line.strip()]
+        items, at = [], 0
+        now = time.perf_counter()
+        with self.lock:
+            self.log.append((now, path, body))
+            while at < len(lines):
+                (kind, meta), = lines[at].items()
+                docs = self.indices.setdefault(meta.get("_index", index), {})
+                self.actions[kind] += 1
+                if kind == "index":
+                    docs[meta["_id"]] = lines[at + 1]
+                    items.append({"index": {"_id": meta["_id"], "status": 201}})
+                    at += 2
+                elif kind == "delete":
+                    found = docs.pop(meta["_id"], None) is not None
+                    items.append({"delete": {"_id": meta["_id"], "status": 200 if found else 404}})
+                    at += 1
+                else:
+                    return 400, json.dumps({"error": f"action {kind}", "status": 400}).encode()
+        return 200, json.dumps({"took": 1, "errors": False, "items": items}).encode()
+
+
+class LogstashServer(_HttpFake):
+    """Logstash's HTTP input: one JSON body a POST, kept with its path."""
+
+    def __init__(self):
+        self.events: list[tuple[str, dict]] = []
+        super().__init__()
+
+    def post(self, path: str, headers, body: bytes) -> tuple[int, bytes]:
+        try:
+            event = json.loads(body)
+        except ValueError:
+            return 400, b'{"error": "not JSON"}'
+        with self.lock:
+            self.log.append((time.perf_counter(), path, body))
+            self.events.append((path, event))
+        return 200, b"ok"
