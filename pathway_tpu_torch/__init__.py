@@ -38,7 +38,13 @@ reciprocal-rank fusion), ``pw.ml``, ``pw.stateful``, ``pw.statistical``,
 ``pw.graphs`` the graph algorithms over ``iterate``, ``pw.viz`` the
 notebook widgets, ``pw.demo`` the synthetic streams, and ``xpacks.llm``
 the LLM xpack (``VectorStoreServer``, ``DocumentStore``,
-rerankers and the question answerers).
+rerankers and the question answerers).  ``pw.sql``
+compiles SQL onto the joins, filters and groupbys, ``pw.transformer``
+runs class-based row transformers over ``Pointer``s, ``pw.load_yaml``
+builds an app from YAML, ``export_table``/``import_table`` hand a table
+from one graph to another, ``Table.live()`` runs a table's cone on a
+background thread, and ``python -m pathway_tpu_torch lint`` (``analysis/``)
+checks the package's own threading, lock and registry invariants.
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ from pathway_tpu_torch.internals.table import (
 from pathway_tpu_torch.internals.thisclass import left, right, this
 from pathway_tpu_torch.internals.runner import run, run_all
 from pathway_tpu_torch.internals.parse_graph import G
+from pathway_tpu_torch.internals import udfs as _udfs_internal
 from pathway_tpu_torch.internals.udfs import UDF, udf
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 
@@ -155,6 +162,26 @@ from pathway_tpu_torch.stdlib.temporal import (
 from pathway_tpu_torch.stdlib.temporal import _window as window
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
+from pathway_tpu_torch.internals.interactive import LiveTable, enable_interactive_mode
+# `asynchronous` was the pre-rename home of the async UDF helpers (now `udfs`)
+from pathway_tpu_torch import udfs as asynchronous
+from pathway_tpu_torch.internals.export_import import (
+    ExportedTable,
+    export_table,
+    import_table,
+)
+from pathway_tpu_torch.internals.sql import sql
+from pathway_tpu_torch.internals.yaml_loader import load_yaml
+from pathway_tpu_torch.internals.row_transformer import (
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
+from pathway_tpu_torch.internals.table_io import table_transformer
 
 
 class Type:
@@ -184,6 +211,11 @@ for _name in (
 ):
     setattr(Table, _name, getattr(temporal, _name))
 Table.interpolate = lambda self, *args, **kwargs: statistical.interpolate(self, *args, **kwargs)
+
+
+def unwrap_err(x):  # small helper used in some pathway examples
+    return unwrap(x)
+
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.decoder import DecoderLM
@@ -225,6 +257,22 @@ __all__ = [
     "Type",
     "UDF",
     "AsyncTransformer",
+    "ClassArg",
+    "ExportedTable",
+    "LiveTable",
+    "asynchronous",
+    "attribute",
+    "enable_interactive_mode",
+    "export_table",
+    "import_table",
+    "input_attribute",
+    "input_method",
+    "load_yaml",
+    "method",
+    "output_attribute",
+    "sql",
+    "table_transformer",
+    "transformer",
     "AsofJoinResult",
     "IntervalJoinResult",
     "WindowJoinResult",

@@ -1021,7 +1021,8 @@ def _executor_snapshots(device: dict) -> list[dict]:
     return [snap for snap in device.values() if isinstance(snap, dict)]
 
 
-def main(argv: list[str] | None = None) -> int:
+def _parser() -> argparse.ArgumentParser:
+    """The command line: one subparser a subcommand."""
     parser = argparse.ArgumentParser(prog="python -m pathway_tpu_torch")
     commands = parser.add_subparsers(dest="command", required=True)
 
@@ -1182,6 +1183,21 @@ def main(argv: list[str] | None = None) -> int:
                          help="emit the report as JSON")
     buckets.add_argument("root", nargs="?", default=None)
 
+    lint = commands.add_parser(
+        "lint", help="run the repo-native static analyzer over PATHS",
+        description=_lint.__doc__,
+    )
+    lint.add_argument("--json", dest="as_json", action="store_true",
+                      help="emit the report as JSON")
+    lint.add_argument("--rules", dest="rule_ids", metavar="ID[,ID...]", default=None,
+                      help="run only these rule ids (default: every rule)")
+    lint.add_argument("--list-rules", action="store_true",
+                      help="print the rule catalogue and exit")
+    lint.add_argument("--update-config-docs", action="store_true",
+                      help="regenerate docs/torch_configuration.md from the env-knob "
+                      "registry (internals/config.py:ENV_KNOBS) and exit")
+    lint.add_argument("paths", nargs="*")
+
     airbyte = commands.add_parser("airbyte", help="Airbyte connection configs")
     airbyte_commands = airbyte.add_subparsers(dest="airbyte_command", required=True)
     create_source = airbyte_commands.add_parser(
@@ -1191,7 +1207,11 @@ def main(argv: list[str] | None = None) -> int:
     create_source.add_argument("connection")
     create_source.add_argument("--image", default="airbyte/source-faker:0.1.4",
                                help="public Airbyte source Docker image")
+    return parser
 
+
+def main(argv: list[str] | None = None) -> int:
+    parser = _parser()
     args = parser.parse_args(argv)
     if args.command == "spawn":
         _spawn(args)
@@ -1219,11 +1239,66 @@ def main(argv: list[str] | None = None) -> int:
                         args.as_json, args.root)
     if args.command == "airbyte":
         return _create_source(args.connection, args.image)
+    if args.command == "lint":
+        missing = [path for path in args.paths if not os.path.exists(path)]
+        if missing:
+            parser.error(f"PATHS {missing!r} do not exist")
+        return _lint(args.as_json, args.rule_ids, args.list_rules, args.update_config_docs, args.paths)
     if not os.path.isdir(args.root):
         parser.error(f"ROOT {args.root!r} is not a directory")
     if args.command == "blackbox":
         return _blackbox(args.worker, args.tail, args.as_json, args.root)
     return _scrub(args.worker, args.as_json, args.repair, args.root)
+
+
+def _lint(as_json: bool, rule_ids: str | None, list_rules: bool, update_config_docs: bool,
+          paths: list[str]) -> int:
+    """Run the repo-native static analyzer over PATHS.
+
+    Default paths are the ``pathway_tpu_torch`` package and its sibling
+    ``tests/`` tree.  Rules prove thread-context safety (no blocking calls
+    on the epoch loop or signal paths, timed waits on supervised background
+    threads), lock-order consistency, env-knob and metric-name registry
+    discipline, jit recompile discipline, and the chaos-suite sleep policy
+    (``docs/static_analysis.md``).
+
+    Exits 1 when any unsuppressed finding remains, 2 on an unknown rule id.
+    Suppressions (``# pathway-lint: disable=<rule> — <reason>``) are
+    audited: a reasonless or useless suppression is itself a finding.
+    """
+    from pathway_tpu_torch.analysis import RULES, report_to_text, run_lint
+
+    if list_rules:
+        width = max(len(rid) for rid in RULES)
+        for rid in sorted(RULES):
+            _echo(f"{rid:<{width}}  {RULES[rid].doc}")
+        return 0
+    pkg_dir = os.path.dirname(os.path.abspath(__file__))
+    repo_root = os.path.dirname(pkg_dir)
+    if update_config_docs:
+        from pathway_tpu_torch.internals.config import render_env_docs
+
+        doc_path = os.path.join(repo_root, "docs", "torch_configuration.md")
+        os.makedirs(os.path.dirname(doc_path), exist_ok=True)
+        with open(doc_path, "w", encoding="utf-8") as f:
+            f.write(render_env_docs())
+        _echo(f"[pathway_tpu_torch] wrote {doc_path}")
+        return 0
+    if not paths:
+        paths = [pkg_dir]
+        tests_dir = os.path.join(repo_root, "tests")
+        if os.path.isdir(tests_dir):
+            paths.append(tests_dir)
+    selected = None
+    if rule_ids:
+        selected = [r.strip() for r in rule_ids.split(",") if r.strip()]
+    try:
+        report = run_lint(paths, rules=selected)
+    except ValueError as exc:  # unknown rule id
+        _echo(f"[pathway_tpu_torch] {exc}", err=True)
+        return 2
+    _echo(report_to_text(report, as_json=as_json))
+    return 0 if report.ok else 1
 
 
 def _create_source(connection: str, image: str) -> int:

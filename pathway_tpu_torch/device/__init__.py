@@ -26,7 +26,9 @@ from pathway_tpu_torch.device.bucketing import (
     BucketPolicy,
     next_pow2,
     pad_batch_dim,
+    replay_waste,
     stack_rows,
+    suggest_buckets,
 )
 from pathway_tpu_torch.device.executor import DeviceExecutor, DeviceFuture
 from pathway_tpu_torch.device.resilience import (
@@ -122,5 +124,7 @@ __all__ = [
     "next_pow2",
     "pad_batch_dim",
     "render_device_snapshot",
+    "replay_waste",
     "resolve_device",
+    "suggest_buckets",
 ]

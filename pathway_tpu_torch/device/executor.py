@@ -1259,3 +1259,13 @@ def _concat_rows(chunks: list[Any]) -> Any:
     if isinstance(first, (tuple, list)):
         return type(first)(np.concatenate([c[i] for c in chunks], axis=0) for i in range(len(first)))
     return np.concatenate(chunks, axis=0)
+
+
+def __getattr__(name: str) -> Any:
+    # the JAX package defines these two here; the port keeps one default
+    # executor per device, in ``device/__init__.py``
+    if name in ("get_default_executor", "default_executor_snapshot"):
+        import pathway_tpu_torch.device as _device
+
+        return getattr(_device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -54,6 +54,7 @@ __all__ = [
     "TraceUnavailable",
     "capture_trace",
     "count_cost",
+    "extract_cost",
     "hbm_stats",
     "note_flops",
     "peak_flops",
@@ -206,6 +207,14 @@ def count_cost(fn: Callable[[], Any]) -> tuple[Any, dict[str, float]]:
         "analyzed": 0.0 if uncounted else 1.0,
     }
     return out, cost
+
+
+def extract_cost(fn: Callable[[], Any]) -> dict[str, float]:
+    """The cost dict of one call of ``fn`` (:func:`count_cost` without its
+    result).  The JAX package reads this dict off a compiled XLA
+    executable's cost analysis; an eager PyTorch call has none, so the port
+    counts the call itself."""
+    return count_cost(fn)[1]
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ __all__ = [
     "EpochProfiler",
     "note_build",
     "note_load",
+    "install_jax_accounting",
     "install_transfer_accounting",
     "uninstall_transfer_accounting",
     "render_snapshot",
@@ -217,6 +218,17 @@ def note_load(source: str) -> None:
     _metrics.get_registry().counter(
         "device.kernel.loads", "kernel libraries loaded into this process", source=source
     ).inc()
+
+
+def install_jax_accounting(force: bool = False) -> bool:
+    """The JAX package's switch for its compile and cache-miss counters
+    (``jax.compile.*``, ``jax.cache.miss``, opt-in under
+    ``PATHWAY_PROFILE_JAX``).  Their counterparts here, the kernel-build
+    counters ``device.kernel.builds``, ``device.kernel.build.seconds`` and
+    ``device.kernel.loads`` (:func:`note_build`, :func:`note_load`), are
+    always on, so there is nothing to install: accounting is active and
+    this returns True, whatever ``force``."""
+    return True
 
 
 def install_transfer_accounting(force: bool = False) -> bool:

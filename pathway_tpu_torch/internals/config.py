@@ -82,6 +82,26 @@ ENV_KNOBS: tuple[EnvKnob, ...] = (
             "directory of the native core's build (default: native/build)"),
     EnvKnob("PATHWAY_COLUMNAR", "bool", True,
             "`0` forces every operator onto the row-wise reference evaluator"),
+    # -- models and generation (models/encoder.py, serving/generation.py) ---
+    EnvKnob("PATHWAY_FUSED_ENCODER", "bool", True,
+            "use the fused encoder trunk; `0` runs the module forward (host only)"),
+    EnvKnob("PATHWAY_ENCODER_QUANTIZE", "str", None,
+            "`int8` enables W8A8 sentence-encoder inference"),
+    EnvKnob("PATHWAY_GENERATE_CONTINUOUS", "bool", True,
+            "route `JaxChat` decoder generation through the continuous-batching "
+            "scheduler (paged KV, per-step admission); `0` reverts to the static "
+            "per-config `AsyncMicroBatcher` path"),
+    EnvKnob("PATHWAY_GENERATE_SLOTS", "int", 8,
+            "generation slot count: the fixed batch width of the continuous decode step"),
+    EnvKnob("PATHWAY_GENERATE_PAGE_SIZE", "int", 16,
+            "tokens per KV page; KV memory is allocated and freed in pages"),
+    EnvKnob("PATHWAY_GENERATE_PAGES", "int", 0,
+            "KV pool size in pages (page 0 is the reserved null page); 0 auto-sizes "
+            "to half the dense worst case, floored so one full-cache request fits"),
+    EnvKnob("PATHWAY_GENERATE_PREFILL_CHUNK", "int", 32,
+            "prompt tokens prefilled per tick per slot (chunked prefill)"),
+    EnvKnob("PATHWAY_GENERATE_QUEUE", "int", 128,
+            "max requests queued for a generation slot; overflow is answered 429"),
     # -- observability (engine/metrics.py, telemetry.py, slo.py, profiler.py,
     # freshness.py, http_server.py, internals/license.py) -------------------
     EnvKnob("PATHWAY_METRICS_DISABLED", "bool", False,
@@ -335,6 +355,34 @@ def env_float(name: str, default: Any = ...) -> Any:
         return float(raw)
     except ValueError:
         return fallback
+
+
+def render_env_docs() -> str:
+    """``docs/torch_configuration.md``, generated.  The lint gate pins the
+    file byte-identical to this render (rule ``env-docs-stale``)."""
+    lines = [
+        "# Configuration knobs of pathway_tpu_torch",
+        "",
+        "<!-- GENERATED FILE — do not edit. -->",
+        "<!-- Source: pathway_tpu_torch/internals/config.py:ENV_KNOBS. -->",
+        "<!-- Regenerate: python -m pathway_tpu_torch lint --update-config-docs -->",
+        "",
+        "Every `PATHWAY_*` environment variable the port reads, in one",
+        "declared registry (`internals/config.py:ENV_KNOBS`).  Code reads",
+        "these through typed accessors (`config.env_bool` / `env_int` /",
+        "`env_float` / `env_str` / `env_raw`); `python -m pathway_tpu_torch",
+        "lint` rejects direct `os.environ` reads (`env-direct-read`) and",
+        "undeclared names (`env-undeclared`), so this page is complete by",
+        "construction.  The JAX package's page is `docs/configuration.md`.",
+        "",
+        "| Variable | Type | Default | Meaning |",
+        "|---|---|---|---|",
+    ]
+    for k in ENV_KNOBS:
+        default = "—" if k.default is None else repr(k.default)
+        lines.append(f"| `{k.name}` | {k.kind} | `{default}` | {k.doc} |")
+    lines.append("")
+    return "\n".join(lines)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,6 +37,17 @@ from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.table import Lowerer, Table
 
 
+class Poller:
+    """A connector pump: moves rows from reader threads into InputNodes.
+
+    Mirrors the poller closure pattern (connectors/mod.rs:292; dataflow.rs:6084).
+    """
+
+    def poll(self) -> bool:
+        """Advance; return True when the source is exhausted."""
+        return True
+
+
 def add_debug_sink(name: str, table: Table) -> None:
     def on_data(key, row, time, diff):
         sign = "+" if diff > 0 else "-"

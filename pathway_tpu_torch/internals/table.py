@@ -617,10 +617,12 @@ class Table(Joinable):
         graph operations).  Experimental — match:
         ``python/pathway/internals/table.py:2565``.
         """
-        raise NotImplementedError(
-            "Table.live() needs the interactive mode, which the port brings "
-            "in slice H6c (internals/interactive.py)"
-        )
+        import warnings
+
+        from pathway_tpu_torch.internals.interactive import LiveTable
+
+        warnings.warn("live tables are an experimental feature", stacklevel=2)
+        return LiveTable._create(self)
 
     @property
     def slice(self) -> "TableSlice":

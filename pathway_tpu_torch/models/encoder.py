@@ -654,9 +654,6 @@ def init_model_params(model_name: str, config: EncoderConfig, seed: int = 0, *, 
 # Entry points.
 # ---------------------------------------------------------------------------
 
-_FALSY = ("0", "false", "no", "off")
-
-
 def _forward(model, input_ids, attention_mask):
     """The registered device callable: the model (its weights) is the
     operand of every dispatch, not a closure, so instances of one model
@@ -696,12 +693,14 @@ class _EncoderModel:
         device=None,
         host_fallback=None,
     ):
-        env_q = None if self._head else os.environ.get("PATHWAY_ENCODER_QUANTIZE")
+        from pathway_tpu_torch.internals.config import env_bool, env_str
+
+        env_q = None if self._head else env_str("PATHWAY_ENCODER_QUANTIZE")
         self._quantize = quantize or env_q or None
         if self._quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {self._quantize!r}")
         # on unless set to a false value, as the JAX package reads it
-        self._fused = os.environ.get("PATHWAY_FUSED_ENCODER", "").strip().lower() not in _FALSY
+        self._fused = env_bool("PATHWAY_FUSED_ENCODER")
         if self._quantize and not self._fused:
             raise ValueError("quantize='int8' requires the fused encoder path")
         if not self._fused and (device is None or torch.device(device).type == "cuda"):

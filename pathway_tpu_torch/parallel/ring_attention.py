@@ -81,6 +81,14 @@ def ring_attention_block(q, k, v, bias, heads: int, group) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, S_blk, H).to(q.dtype)
 
 
+def ring_attention_traced(mesh: DeviceMesh, q, k, v, mask_bias, heads: int, axis: str | None = None):
+    """The JAX package's jit-traceable form of :func:`ring_encoder_attention`
+    (no eager placement, so it composes inside a larger jitted forward).
+    An eager PyTorch forward has no trace to compose into, so it is the
+    same computation."""
+    return ring_encoder_attention(mesh, q, k, v, mask_bias, heads, axis)
+
+
 def ring_encoder_attention(mesh: DeviceMesh, q, k, v, mask_bias, heads: int, axis: str | None = None):
     """Bidirectional multi-head attention with the sequence axis sharded.
 

@@ -33,7 +33,6 @@ and is counted (``generate.prompt.truncated``, ``prompts_truncated``).
 from __future__ import annotations
 
 import asyncio
-import os
 import threading
 import time
 from concurrent.futures import Future
@@ -46,6 +45,7 @@ from pathway_tpu_torch.engine import flight_recorder as _blackbox
 from pathway_tpu_torch.engine import metrics as em
 from pathway_tpu_torch.engine import serving as edge
 from pathway_tpu_torch.engine import tracing
+from pathway_tpu_torch.internals.config import env_bool, env_int
 from pathway_tpu_torch.models import decoder as dec
 
 __all__ = [
@@ -56,30 +56,10 @@ __all__ = [
     "shared_scheduler",
 ]
 
-# the JAX package's generation knobs (internals/config.py), same names and
-# defaults; 0 pages sizes the pool automatically
-DEFAULTS = {
-    "PATHWAY_GENERATE_SLOTS": 8,
-    "PATHWAY_GENERATE_PAGE_SIZE": 16,
-    "PATHWAY_GENERATE_PAGES": 0,
-    "PATHWAY_GENERATE_PREFILL_CHUNK": 32,
-    "PATHWAY_GENERATE_QUEUE": 128,
-}
-_FALSY = {"0", "false", "no", "off"}
-
-
-def _env_int(name: str) -> int:
-    raw = os.environ.get(name, "").strip()
-    try:
-        return int(raw) if raw else DEFAULTS[name]
-    except ValueError:
-        return DEFAULTS[name]
-
-
 def continuous_enabled() -> bool:
     """``PATHWAY_GENERATE_CONTINUOUS`` (on by default): route chat
     generation through the continuous scheduler."""
-    return os.environ.get("PATHWAY_GENERATE_CONTINUOUS", "").strip().lower() not in _FALSY
+    return env_bool("PATHWAY_GENERATE_CONTINUOUS")
 
 
 def _pow2_bucket(n: int, cap: int) -> int:
@@ -172,14 +152,14 @@ class GenerationScheduler:
         self.cfg = lm.config
         self.device = lm.device
         self.max_cache = lm.max_cache
-        self.slots = slots if slots is not None else _env_int("PATHWAY_GENERATE_SLOTS")
-        self.page_size = page_size if page_size is not None else _env_int("PATHWAY_GENERATE_PAGE_SIZE")
+        self.slots = slots if slots is not None else env_int("PATHWAY_GENERATE_SLOTS")
+        self.page_size = page_size if page_size is not None else env_int("PATHWAY_GENERATE_PAGE_SIZE")
         self.prefill_chunk = (
-            prefill_chunk if prefill_chunk is not None else _env_int("PATHWAY_GENERATE_PREFILL_CHUNK")
+            prefill_chunk if prefill_chunk is not None else env_int("PATHWAY_GENERATE_PREFILL_CHUNK")
         )
-        self.queue_limit = queue_limit if queue_limit is not None else _env_int("PATHWAY_GENERATE_QUEUE")
+        self.queue_limit = queue_limit if queue_limit is not None else env_int("PATHWAY_GENERATE_QUEUE")
         self.pages_per_seq = -(-self.max_cache // self.page_size)
-        n_pages = pages if pages is not None else _env_int("PATHWAY_GENERATE_PAGES")
+        n_pages = pages if pages is not None else env_int("PATHWAY_GENERATE_PAGES")
         if n_pages <= 0:
             # auto: half the dense worst case, floored so at least one
             # full-cache request always fits

@@ -230,7 +230,8 @@ def _monitored_run(pw, port: int, **kwargs) -> list:
 
 
 def test_run_refuses_what_later_slices_bring(monkeypatch, tmp_path):
-    """H6c features raise naming their slice (``Backend.s3`` came with H6a:
+    """``Table.live()`` came with slice H6c: it runs a one-row table in both
+    packages to the same snapshot.  (``Backend.s3`` came with H6a:
     ``tests/test_torch_object_stores.py``; the sinks came with H6b, and
     ``pw.io.postgres`` has no ``read`` in either package).  Observability came with slice
     H5: ``with_http_server=True`` and ``monitoring_level=ALL`` run a
@@ -264,8 +265,8 @@ def test_run_refuses_what_later_slices_bring(monkeypatch, tmp_path):
             with pytest.raises(RuntimeError, match="requires a filesystem persistence root"):
                 pw.run()
         monkeypatch.delenv("PATHWAY_STANDBY_ID")
-        with pytest.raises(NotImplementedError, match="slice H6c"):
-            t.live()
+        snaps = [P.live_snapshot(pw) for pw in (pj, pt)]
+        assert snaps[0] == snaps[1] and snaps[0][0] and len(snaps[0][1]) == 1, snaps
         for pw in (pj, pt):
             with pytest.raises(AttributeError):
                 pw.io.postgres.read

@@ -186,7 +186,11 @@ def test_port_imports_nothing_of_jax(model_dir):
     in-process broker persisted through ``Backend.s3`` to the SigV4
     endpoint, and its resume; and the sinks and lakes (every ``pw.io``
     module and the SharePoint xpack import): a ``pw.io.sqlite.read`` into
-    ``pw.io.postgres.write_snapshot`` over SCRAM to the fake Postgres."""
+    ``pw.io.postgres.write_snapshot`` over SCRAM to the fake Postgres; and
+    the rest of the Table API: ``pw.sql`` over the same SQLite table,
+    ``export_table``, ``import_table`` and ``Table.live()``, ``pw.load_yaml``
+    (PyYAML is imported only then), ``pw.transformer``'s module, and the
+    ``lint`` analyzer over its own package."""
     script = textwrap.dedent(
         f"""
         import importlib.abc, sys
@@ -492,6 +496,21 @@ def test_port_imports_nothing_of_jax(model_dir):
         pt.run(monitoring_level=pt.MonitoringLevel.NONE)
         pt.G.clear()
         assert pg.rows("counts") == [("a", 2), ("b", 1)] and not pg.stats()["rejected"], pg.rows("counts")
+        from pathway_tpu_torch import analysis
+        from pathway_tpu_torch.internals import export_import, interactive, row_transformer, sql, yaml_loader
+
+        assert "yaml" not in sys.modules  # PyYAML is imported by load_yaml, not by the package
+        counted = pt.sql("SELECT g, COUNT(*) AS n FROM logs GROUP BY g HAVING COUNT(*) >= 2",
+                         logs=pt.io.sqlite.read(db, "t", pt.schema_from_types(g=str), mode="static"))
+        exported = export_import.export_table(counted)
+        pt.run(monitoring_level=pt.MonitoringLevel.NONE)
+        pt.G.clear()
+        assert [row for _k, row, _t, _d in exported.data_from_offset(0)[0]] == [("a", 2)]
+        live = pt.import_table(exported).live()
+        assert live.wait_for(30).snapshot().data[0][1] == ("a", 2) and isinstance(live, interactive.LiveTable)
+        assert yaml_loader.load_yaml("n: !pw.reducers.count") and row_transformer.ClassArg and sql.SqlError
+        report = analysis.run_lint([os.path.join({REPO!r}, "pathway_tpu_torch", "analysis")])
+        assert report.ok and report.files == 8, analysis.report_to_text(report)
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
         print("ok")

@@ -78,6 +78,19 @@ def capture(pw, tables: dict, **kwargs) -> dict:
     return out
 
 
+def live_snapshot(pw) -> tuple:
+    """``Table.live()`` of a one-row table, run to its end: whether the
+    final snapshot is done, its ``(key, row)`` pairs, and the warnings the
+    call gave."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        live = pw.debug.table_from_markdown("v\n1").live()
+    snap = live.wait_for(30).snapshot()
+    return snap.done, [(int(k), canon(r)) for k, r in snap.data], [str(w.message) for w in caught]
+
+
 def _stamp(n: int, times: tuple, rng) -> list[int]:
     return [int(t) for t in rng.choice(times, size=n)]
 
